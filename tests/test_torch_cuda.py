@@ -1,0 +1,104 @@
+"""The port on the card: kernel against plain version, card against CPU.
+
+Marked ``gpu``; every test skips without a CUDA card.  Run on a GPU
+machine with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import cutout as tcut
+from repro_torch.core import morton
+from repro_torch.core.cuboid import CuboidGrid, DatasetSpec
+from repro_torch.core.store import DeviceCuboidStore
+from repro_torch.kernels.cutout_gather import ops
+from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref
+from repro_torch.vision import synapse_detector as sd
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _both(packed, grid, lo, hi):
+    gshape, cells, alo = ops.build_plan(grid, lo, hi)
+    args = (packed, torch.from_numpy(cells).to(packed.device), gshape,
+            [l - a for l, a in zip(lo, alo)], [h - l for l, h in zip(lo, hi)])
+    return ops.cutout_gather_cuda(*args), cutout_gather_ref(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32,
+                                   torch.float32, torch.int64])
+@pytest.mark.parametrize("cs", [(128, 128, 16), (64, 64, 64), (8, 8, 3)])
+def test_gather_kernel_matches_plain(cuda, dtype, cs):
+    grid = CuboidGrid((3 * cs[0] - 5, 2 * cs[1] + 3, 4 * cs[2] - 1), cs)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    packed = torch.randint(0, 256, (grid.n_cells,) + cs[:2]
+                           + (cs[2] * dtype.itemsize,), generator=gen,
+                           device=cuda, dtype=torch.uint8).view(dtype)
+    v = grid.volume_shape
+    before = ops.launches
+    for lo, hi in [((0, 0, 0), v), ((0, 0, 0), (cs[0], cs[1], 2 * cs[2])),
+                   ((5, 3, 2), (v[0] - 9, v[1] - 4, v[2] - 7)),
+                   ((v[0] - 1, 7, 1), (v[0], 8, 2))]:
+        got, want = _both(packed, grid, lo, hi)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert ops.launches == before + 4
+
+
+def test_gather_reads_past_byte_2_31(cuda):
+    """Cells whose byte offset exceeds 2^31 (64-bit offsets in the kernel)."""
+    grid = CuboidGrid((128 * 32, 128 * 32, 16 * 16), (128, 128, 16))
+    assert grid.n_cells == 16384         # 4 GiB of uint8 cuboids
+    packed = torch.zeros((grid.n_cells,) + grid.cuboid_shape,
+                         dtype=torch.uint8, device=cuda)
+    cells = np.arange(8192, 8192 + 64)   # an aligned Morton run past 2^31 B
+    packed[8192:8256] = torch.randint(1, 256, (64,) + grid.cuboid_shape,
+                                      dtype=torch.uint8, device=cuda)
+    coords = morton.morton_decode(cells, grid.bits)
+    cs = grid.cuboid_shape
+    lo = tuple(int(c) * s + 3 for c, s in zip(coords.min(0), cs))
+    hi = tuple(int(c + 1) * s - 2 for c, s in zip(coords.max(0), cs))
+    got, want = _both(packed, grid, lo, hi)
+    assert torch.equal(got, want) and bool(want.all())
+
+
+def test_detect_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(3)
+    vol = rng.normal(100, 3, size=(48, 48, 16)).astype(np.float32)
+    xx, yy, zz = np.ogrid[:48, :48, :16]
+    for _ in range(6):
+        c = [rng.integers(6, s - 6) for s in vol.shape]
+        vol += 80.0 * np.exp(-((xx - c[0]) ** 2 + (yy - c[1]) ** 2
+                               + ((zz - c[2]) * 2) ** 2) / 8.0)
+    dc, lc = sd.detect_synapses(torch.from_numpy(vol).to(cuda), min_voxels=4)
+    dh, lh = sd.detect_synapses(torch.from_numpy(vol), min_voxels=4)
+    assert torch.equal(lc.cpu(), lh) and len(dc) == len(dh) >= 3
+    for a, b in zip(dc, dh):
+        assert (a.n_voxels, a.bbox_lo, a.bbox_hi, a.centroid) == \
+            (b.n_voxels, b.bbox_lo, b.bbox_hi, b.centroid)
+        assert abs(a.confidence - b.confidence) <= 1e-6
+
+
+def test_store_on_card_matches_cpu(cuda):
+    spec = DatasetSpec("em", (100, 70, 40), n_resolutions=3, dtype="uint8",
+                       base_cuboid=(32, 16, 8))
+    vol = np.random.default_rng(0).integers(0, 255, size=spec.volume_shape,
+                                            dtype=np.uint8)
+    stores = []
+    for dev in (cuda, torch.device("cpu")):
+        s = DeviceCuboidStore(spec, device=dev)
+        tcut.ingest(s, 0, vol)
+        tcut.write_cutout(s, 0, (90, 3, 30), np.full((20, 9, 15), 7, np.uint8),
+                          discipline="preserve")
+        tcut.build_hierarchy(s)
+        stores.append(s)
+    for r in range(3):
+        shape = spec.grid(r).volume_shape
+        assert torch.equal(tcut.cutout(stores[0], r, (0, 0, 0), shape).cpu(),
+                           tcut.cutout(stores[1], r, (0, 0, 0), shape))
