@@ -20,8 +20,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
-from typing import Dict, Sequence
+from typing import Dict
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -31,7 +30,6 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_guard = threading.Lock()
-build_seconds: Dict[str, float] = {}  # wall time of each build this process
 
 
 def _nvcc() -> str:
@@ -57,37 +55,19 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _compile(names: Sequence[str]) -> None:
-    """Compile the named kernels, one ``nvcc`` per source, all in parallel."""
-    todo = [n for n in names if not _target(n).exists()]
-    if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        for n in todo:
-            tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_of(n))]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT),
-                        tmp, time.perf_counter())
-        errors = []
-        for n, (proc, tmp, t0) in procs.items():
-            out, _ = proc.communicate()
-            build_seconds[n] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed for {source_of(n)}:\n"
-                              f"{out.decode(errors='replace')}")
-            else:
-                os.replace(tmp, _target(n))
-        if errors:
-            raise RuntimeError("\n".join(errors))
-
-
-def build(names: Sequence[str]) -> None:
-    """Build (in parallel) and load every named kernel."""
-    _compile([n for n in names if n not in _libs])
-    for n in names:
-        library(n)
+def _compile(name: str) -> None:
+    """Compile kernel ``name`` unless its library is already built."""
+    target = _target(name)
+    if target.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_of(name))]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source_of(name)}:\n"
+                           f"{proc.stdout.decode(errors='replace')}")
+    os.replace(tmp, target)
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -95,9 +75,7 @@ def library(name: str) -> ctypes.CDLL:
     with _libs_guard:
         lib = _libs.get(name)
         if lib is None:
-            path = _target(name)
-            if not path.exists():
-                _compile([name])
-            lib = ctypes.CDLL(str(path))
+            _compile(name)
+            lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib

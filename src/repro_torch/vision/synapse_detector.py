@@ -26,6 +26,7 @@ import torch
 from ..core.annotations import Annotation, AnnotationProject
 from ..core.cutout import cutout
 from ..core.store import DeviceCuboidStore
+from ..device import DeviceLike, resolve_device
 
 
 def _gauss_kernel(sigma: float, radius: int) -> torch.Tensor:
@@ -159,15 +160,18 @@ class Detection:
 
 def detect_synapses(vol, threshold: float = 2.0, min_voxels: int = 8,
                     max_voxels: int = 512,
-                    exclusion_mask: Optional[torch.Tensor] = None
+                    exclusion_mask: Optional[torch.Tensor] = None,
+                    device: DeviceLike = "cuda"
                     ) -> Tuple[List[Detection], torch.Tensor]:
     """Detect synapse-like blobs in one cutout.
 
     Returns the detections in ascending order of component label and the
-    int32 label volume renumbered 1..K in that order, on ``vol``'s device
-    (a numpy ``vol`` runs on the CPU).
+    int32 label volume renumbered 1..K in that order.  A tensor ``vol``
+    runs on its own device; anything else is moved to ``device``.
     """
-    x = torch.as_tensor(vol).to(torch.float32)
+    if not isinstance(vol, torch.Tensor):
+        vol = torch.as_tensor(vol, device=resolve_device(device))
+    x = vol.to(torch.float32)
     resp = difference_of_gaussians(x)
     # population std, as the reference's ``std()``
     resp = (resp - resp.mean()) / (resp.std(correction=0) + 1e-6)

@@ -60,11 +60,21 @@ def test_store_defaults_to_the_card():
     assert DeviceCuboidStore(spec, device="cpu").device.type == "cpu"
 
 
-def test_port_is_lint_clean():
-    from repro.analysis import lints
+def test_detect_synapses_defaults_to_the_card():
+    """A numpy volume goes to the card unless the caller names the CPU; a
+    tensor stays on its own device."""
+    import numpy as np
 
-    findings = lints.run_paths([str(PORT)])
-    assert findings == [], "\n".join(f.format() for f in findings)
+    from repro_torch.vision.synapse_detector import detect_synapses
+
+    vol = np.full((8, 8, 4), 7.0, dtype=np.float32)
+    if torch.cuda.is_available():
+        assert detect_synapses(vol)[1].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            detect_synapses(vol)
+    assert detect_synapses(vol, device="cpu")[1].device.type == "cpu"
+    assert detect_synapses(torch.from_numpy(vol))[1].device.type == "cpu"
 
 
 def test_kernel_build_flags_and_location():

@@ -114,8 +114,8 @@ def test_detect_synapses_matches_jax(seed, min_voxels):
     assert np.abs(resp - 2.0).min() > 1e-4
 
     jdets, jlab = jv.detect_synapses(vol, threshold=2.0, min_voxels=min_voxels)
-    tdets, tlab = tv.detect_synapses(torch.from_numpy(vol), threshold=2.0,
-                                     min_voxels=min_voxels)
+    tdets, tlab = tv.detect_synapses(vol, threshold=2.0, min_voxels=min_voxels,
+                                     device="cpu")
     np.testing.assert_array_equal(tlab.numpy(), jlab)
     assert len(tdets) == len(jdets) >= 3
     for t, j in zip(tdets, jdets):
@@ -135,5 +135,5 @@ def test_detect_synapses_with_exclusion_and_empty():
     np.testing.assert_array_equal(tlab.numpy(), jlab)
     assert [d.n_voxels for d in tdets] == [d.n_voxels for d in jdets]
     flat = np.full((8, 8, 4), 7.0, dtype=np.float32)
-    dets, lab = tv.detect_synapses(torch.from_numpy(flat))
+    dets, lab = tv.detect_synapses(flat, device="cpu")
     assert dets == [] and not lab.any()
