@@ -7,29 +7,52 @@
 Phases (any failure raises and the exit code is non-zero):
 
 1. Print the card's name and power limit, build the CUDA kernels from the
-   sources under ``src/repro_torch/kernels`` and time the build.
-2. The main path, once, through the port's entry points, with every kernel
-   launch count set to 0 just before it and read just after: a seeded
-   synthetic EM volume (uint8, 8192 x 8192 x 256 at level 0 — 65,536
-   cuboids of 128 x 128 x 16, 16 GiB packed) made on the device slab by
-   slab and ingested, the hierarchy built to level 5, and the paper's
-   parallel synapse detection at level 2 (64 tiles of 512 x 512 x 64, 20
-   workers, batches of 40, large-structure mask from level 5).
-3. Results checked: 4 tiles re-run with cutouts through the plain gather
-   give the stored annotations, one stored id per detected label and
-   voxel for voxel; a stored level-1 box equals the downsampled level-0
+   sources under ``src/repro_torch/kernels`` (one nvcc each, in parallel)
+   and time the build.
+2. The detection path, once, through the port's entry points, with every
+   kernel launch count set to 0 just before it and read just after: a
+   seeded synthetic EM volume (uint8, 8192 x 8192 x 256 at level 0 —
+   65,536 cuboids of 128 x 128 x 16, 16 GiB packed) made on the device
+   slab by slab and ingested, the hierarchy built to level 5, and the
+   paper's parallel synapse detection at level 2 (64 tiles of 512 x 512 x
+   64, 20 workers, batches of 40, large-structure mask from level 5).
+   `cutout_gather` must have launched.
+3. Its results checked: 4 tiles re-run with cutouts through the plain
+   gather give the stored annotations, one stored id per detected label
+   and voxel for voxel; a stored level-1 box equals the downsampled level-0
    box; a small pipeline agrees between the card and the CPU reference
    path.  A torch.profiler window over 2 tiles gives the device's idle
    share.
-4. Each kernel against its plain PyTorch version on the card (bit-exact
-   for the gather) over dtypes, aligned, unaligned and volume-edge boxes,
-   a 1024 x 1024 x 64 box of level 0 and a box whose cells lie past byte
-   offset 2^31; timed with CUDA events (median of >= 20) beside the bound
-   set by the card's memory rate.
+4. `cutout_gather` against its plain version on the card (bit-exact) over
+   dtypes, aligned, unaligned and volume-edge boxes, a 1024 x 1024 x 64 box
+   of level 0 and a box whose cells lie past byte offset 2^31; timed with
+   CUDA events (median of >= 20) beside the bound set by the memory rate.
+5. The serving path, once, at smollm-135m's full width in bf16 (seeded
+   weights), with the launch counts set to 0 just before it and read just
+   after: 32 prompts of 2,048 tokens through `make_prefill_step` (cache of
+   2,176), 128 greedy steps through `make_serve_step`, then a
+   `ContinuousBatcher` of 16 slots draining 48 requests (prompts of 64-512
+   tokens from a seed, 64 new tokens each).  `flash_attention` and
+   `flash_decode` must have launched.  Prints time to first token, prefill
+   and decode tokens/s, the batcher's tokens/s and occupancy, and peak
+   memory (one run each); a torch.profiler window over decode steps gives
+   the device's idle share.
+6. Its results checked: a 2-layer fp32 smollm at the smoke widths serves
+   the same greedy tokens on the card and on the CPU, through
+   `make_serve_step` and through `ContinuousBatcher`; at full width, layer
+   0's attention through the kernels lies within the bf16 tolerance (2e-2)
+   of the plain versions on the same card tensors, at prefill and at a
+   decode step with mixed lengths.
+7. `flash_attention` and `flash_decode` against their plain versions on
+   the card over the shapes of tests/test_kernels.py (fp32 at 2e-5, bf16
+   at 2e-2; causal, non-causal, window 48; per-sequence lengths), then
+   timed at the serving path's shapes (CUDA events, median of >= 20)
+   beside the bound, the plain version and one PyTorch call computing the
+   same function (scaled_dot_product_attention, timed here only).
 
-The line before the last is the JSON kernel report; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
-non-zero before printing any result.
+The last three lines are the card's name and power limit, the JSON kernel
+report, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
+script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -47,6 +70,8 @@ import torch
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
+from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import cutout as cut  # noqa: E402
 from repro_torch.core.annotations import AnnotationProject  # noqa: E402
 from repro_torch.core.cuboid import (CuboidGrid, DatasetSpec,  # noqa: E402
@@ -55,6 +80,15 @@ from repro_torch.core.store import DeviceCuboidStore  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cutout_gather import ops as gather_ops  # noqa: E402
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.attention import qkv  # noqa: E402
+from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
+from repro_torch.serve import (ContinuousBatcher, Request,  # noqa: E402
+                               make_prefill_step, make_serve_step)
 from repro_torch.vision import synapse_detector as sd  # noqa: E402
 
 KERNELS = {
@@ -62,7 +96,17 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
-        ops=gather_ops),
+        ops=gather_ops, path="detection"),
+    "flash_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/kernel.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:90",
+        ops=fa_ops, path="serving"),
+    "flash_decode": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_decode/kernel.cu",
+        replaces="src/repro/kernels/flash_decode/kernel.py:66",
+        ops=fd_ops, path="serving"),
 }
 
 FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
@@ -70,6 +114,12 @@ FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
             slab=128)
 TINY = dict(volume=(256, 256, 32), n_resolutions=3, r=1,
             tile=(64, 64, 32), lowres=2, workers=3, n_blobs=48, slab=64)
+
+# the serving path: smollm-135m at full width (bf16), and a tiny rehearsal
+SERVE_FULL = dict(smoke=False, batch=32, prompt=2048, steps=128, slots=16,
+                  requests=48, plen=(64, 512), max_new=64)
+SERVE_TINY = dict(smoke=True, batch=2, prompt=16, steps=4, slots=2,
+                  requests=5, plen=(4, 12), max_new=4)
 
 
 def log(msg: str) -> None:
@@ -84,6 +134,11 @@ def sync(dev: torch.device) -> None:
 def hbm_peak_bytes_per_s(name: str) -> float:
     """Published memory rate of the H100 (NVIDIA data sheet)."""
     return 2.0e12 if "PCIe" in name else 3.35e12  # PCIe, else SXM
+
+
+def bf16_peak_flops(name: str) -> float:
+    """Published dense bf16 tensor rate of the H100 (NVIDIA data sheet)."""
+    return 756e12 if "PCIe" in name else 989e12  # PCIe, else SXM
 
 
 # --------------------------------------------------------------- volume ----
@@ -231,12 +286,49 @@ def check_results(cfg, dev, spec, store, proj, report):
         f"{n_dets} detections, identical to the stored labels")
 
 
-def where_time_goes(cfg, dev, spec, store, report, n_tiles=2):
-    """torch.profiler over `detect_tile` on a few tiles, one worker: the
+def profile_window(dev, fn):
+    """torch.profiler over one call of ``fn`` (after a warm-up call): the
     ops that take the host's and the device's time, and the device's busy
-    share of the window's wall time."""
+    time over the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()  # warm the allocator and the kernels
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    ops, kernels, busy = [], [], 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if str(e.device_type).endswith("CPU"):
+            ops.append((e.key, e.count, e.self_cpu_time_total, dev_us))
+        else:  # kernels, copies and fills as the device ran them
+            busy += dev_us / 1e6
+            kernels.append((e.key, e.count, 0, dev_us))
+    top_dev = sorted(ops, key=lambda x: -x[3])[:8]
+    top_cpu = sorted(ops, key=lambda x: -x[2])[:8]
+    top_kernels = sorted(kernels, key=lambda x: -x[3])[:8]
+    prof_report = dict(wall_s=wall, device_busy_s=busy,
+                       device_idle_share=1 - busy / wall,
+                       top_device=top_dev, top_host=top_cpu,
+                       top_kernels=top_kernels)
+    return out, prof_report
+
+
+def log_profile(label, p):
+    log(f"profile of {label}: wall {p['wall_s']:.4f} s, device busy "
+        f"{p['device_busy_s']:.4f} s (idle share {p['device_idle_share']:.3f})")
+    for kind, top, col in (("device", p["top_device"], 3), ("host", p["top_host"], 2),
+                           ("kernels'", p["top_kernels"], 3)):
+        log(f"  top {kind} ops: " + "; ".join(
+            f"{t[0][:48]} x{t[1]} {t[col] / 1e3:.1f} ms" for t in top))
+
+
+def where_time_goes(cfg, dev, spec, store, report, n_tiles=2):
+    """`detect_tile` on a few tiles, one worker, under the profiler."""
     r = cfg["r"]
     low = cut.cutout(store, cfg["lowres"], (0, 0, 0),
                      spec.grid(cfg["lowres"]).volume_shape)
@@ -250,32 +342,9 @@ def where_time_goes(cfg, dev, spec, store, report, n_tiles=2):
                                                 lo, hi), min_voxels=4)
                    for lo, hi in tiles)
 
-    run()  # warm the allocator and the kernels
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        n = run()
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    ops, busy = [], 0.0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if str(e.device_type).endswith("CPU"):
-            ops.append((e.key, e.count, e.self_cpu_time_total, dev_us))
-        else:  # kernels, copies and fills as the device ran them
-            busy += dev_us / 1e6
-    top_dev = sorted(ops, key=lambda x: -x[3])[:8]
-    top_cpu = sorted(ops, key=lambda x: -x[2])[:8]
-    report["profile"] = dict(tiles=len(tiles), detections=n, wall_s=wall,
-                             device_busy_s=busy, device_idle_share=1 - busy / wall,
-                             top_device=top_dev, top_host=top_cpu)
-    log(f"profile of {len(tiles)} tiles ({n} detections), one worker: wall "
-        f"{wall:.3f} s, device busy {busy:.3f} s (idle share "
-        f"{1 - busy / wall:.3f})")
-    for label, top, col in (("device", top_dev, 3), ("host", top_cpu, 2)):
-        log(f"  top {label} ops: " + "; ".join(
-            f"{t[0][:48]} x{t[1]} {t[col] / 1e3:.1f} ms" for t in top))
+    n, prof = profile_window(dev, run)
+    report["profile"] = dict(tiles=len(tiles), detections=n, **prof)
+    log_profile(f"{len(tiles)} tiles ({n} detections), one worker", prof)
 
 
 def small_pipeline_vs_cpu(dev, report):
@@ -414,15 +483,298 @@ def kernel_checks(dev, store, spec, cfg, report, peak):
     return max(errs), timings["tile"]
 
 
+# -------------------------------------------------------- serving path ----
+
+def serving_model(sc, dev):
+    """smollm-135m (full width, or the smoke widths) with seeded weights."""
+    cfg = get_smoke_config("smollm-135m") if sc["smoke"] else get_config("smollm-135m")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    return cfg, build_model(cfg, device=dev, generator=gen)
+
+
+def make_requests(sc, vocab):
+    rng = np.random.default_rng(48)
+    lo, hi = sc["plen"]
+    return [Request(rid, rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist(),
+                    sc["max_new"]) for rid in range(sc["requests"])]
+
+
+def serving_path(sc, dev, cfg, model, report):
+    """Batched prefill + greedy decode, then continuous batching, through
+    the serving entry points.  One run each."""
+    B, P, steps = sc["batch"], sc["prompt"], sc["steps"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev,
+                            dtype=torch.int32)
+    prefill, step = make_prefill_step(model, cfg), make_serve_step(model, cfg)
+
+    def first_token():
+        lg, cache = prefill(prompts, cache_len=P + steps)
+        return torch.argmax(lg[:, -1:], dim=-1).to(torch.int32), cache
+
+    (nxt, cache), t_prefill = timed(dev, first_token)
+
+    def decode():
+        tok, c, out = nxt, cache, []
+        for i in range(steps):
+            tok, _, c = step(c, tok, P + i)
+            out.append(tok)
+        return torch.cat(out, 1)
+
+    generated, t_decode = timed(dev, decode)
+    eng = ContinuousBatcher(model, cfg, n_slots=sc["slots"],
+                            cache_len=sc["plen"][1] + sc["max_new"], device=dev)
+    for req in make_requests(sc, cfg.vocab):
+        eng.submit(req)
+    done, t_cb = timed(dev, eng.run)
+    n_gen = sum(len(v) for v in done.values())
+    if generated.shape != (B, steps) or len(done) != sc["requests"] or any(
+            len(v) != sc["max_new"] for v in done.values()):
+        raise RuntimeError("the serving path returned the wrong number of tokens")
+    if not (0 <= int(generated.min()) and int(generated.max()) < cfg.vocab):
+        raise RuntimeError("the serving path generated ids outside the vocabulary")
+    report["serving"] = dict(
+        batch=B, prompt=P, decode_steps=steps, time_to_first_token_s=t_prefill,
+        prefill_tokens_per_s=B * P / t_prefill, decode_s=t_decode,
+        decode_tokens_per_s=B * steps / t_decode, batcher_s=t_cb,
+        batcher_generated_tokens=n_gen, batcher_tokens_per_s=n_gen / t_cb,
+        batcher_occupancy=eng.occupancy, batcher_ticks=eng.ticks)
+    log(f"serving (one run each): prefill {B} x {P} tokens {t_prefill:.4f} s "
+        f"(time to first token; {B * P / t_prefill:.6g} tokens/s), {steps} decode "
+        f"steps {t_decode:.4f} s ({B * steps / t_decode:.6g} tokens/s); batcher "
+        f"{sc['requests']} requests over {sc['slots']} slots {t_cb:.4f} s, "
+        f"{n_gen / t_cb:.6g} generated tokens/s, occupancy {eng.occupancy:.4f}")
+    return prompts, generated, cache
+
+
+def serving_profile(sc, dev, cfg, model, prompts, cache, generated, report,
+                    n_steps=8):
+    """The batched prefill and decode steps under the profiler."""
+    step = make_serve_step(model, cfg)
+    P = sc["prompt"]
+
+    def decode():
+        tok, c = generated[:, -1:], cache
+        for i in range(n_steps):  # rewrites the last positions, in range
+            tok, _, c = step(c, tok, P + sc["steps"] - n_steps + i)
+        return tok
+
+    _, prof = profile_window(dev, decode)
+    report["serving_profile"] = dict(decode_steps=n_steps, decode=prof)
+    log_profile(f"{n_steps} decode steps at batch {sc['batch']}", prof)
+    _, prof = profile_window(dev, lambda: make_prefill_step(model, cfg)(prompts)[0])
+    report["serving_profile"]["prefill"] = prof
+    log_profile(f"a prefill of {tuple(prompts.shape)} tokens", prof)
+
+
+def serving_small_vs_cpu(dev, report):
+    """A 2-layer fp32 smollm at the smoke widths: the same greedy tokens on
+    the card and on the CPU, batched and through the batcher."""
+    cfg = get_smoke_config("smollm-135m").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), dev)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(4, 24)).astype(np.int32))
+    served = {}
+    for model in (card, cpu):
+        lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=40)
+        nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        step, out = make_serve_step(model, cfg), [nxt.cpu()]
+        for i in range(15):
+            nxt, _, cache = step(cache, nxt, 24 + i)
+            out.append(nxt.cpu())
+        eng = ContinuousBatcher(model, cfg, n_slots=2, cache_len=40, device=model.device)
+        for rid, n in enumerate((5, 17, 3, 24)):
+            eng.submit(Request(rid, tok[rid % 4, :n].tolist(), 12))
+        served[model.device.type] = (torch.cat(out, 1), eng.run())
+    if not torch.equal(served[dev.type][0], served["cpu"][0]):
+        raise RuntimeError("smoke model: batched tokens differ between card and CPU")
+    if served[dev.type][1] != served["cpu"][1]:
+        raise RuntimeError("smoke model: batcher tokens differ between card and CPU")
+    report["serving_small_vs_cpu"] = dict(batched_tokens=int(served["cpu"][0].numel()),
+                                          batcher_requests=len(served["cpu"][1]))
+    log(f"smoke model: {served['cpu'][0].numel()} batched tokens and "
+        f"{len(served['cpu'][1])} batcher requests, card == CPU")
+
+
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+FP32_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs):
+    """Layer 0's attention at full width: kernel path vs plain version on
+    the same card tensors, at prefill and at one decode step with mixed
+    lengths."""
+    p = model.blocks[0]
+    n = min(8, prompts.shape[0])  # a slice of the batch bounds the plain version's memory
+    x = rms_norm(model.embed_tokens(prompts[:n]), p.ln1, cfg.norm_eps)
+    positions = torch.arange(prompts.shape[1], device=dev).expand(n, -1)
+    q, k, v = qkv(p.attn, cfg, x, positions)
+    scale = cfg.head_dim ** -0.5
+    got = fa_ops.flash_attention(q, k, v, causal=True, scale=scale)
+    want = flash_attention_ref(q, k, v, causal=True, scale=scale)
+    check_close("layer-0 prefill attention", got, want, BF16_TOL, errs["flash_attention"])
+
+    B, S = cache["blocks"]["k"].shape[1:3]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lens = torch.randint(S - sc["steps"], S + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=dev)
+    xd = rms_norm(model.embed_tokens(tok), p.ln1, cfg.norm_eps)
+    qd = rotary((xd @ p.attn.w_q).reshape(B, 1, cfg.n_heads, cfg.head_dim),
+                (lens - 1).long()[:, None], cfg.rope_theta)
+    ck, cv = cache["blocks"]["k"][0], cache["blocks"]["v"][0]
+    got = fd_ops.flash_decode(qd, ck, cv, lens, scale=scale)
+    want = flash_decode_ref(qd, ck, cv, lens, scale=scale)
+    check_close("layer-0 decode attention", got, want, BF16_TOL, errs["flash_decode"])
+    report["layer0_attention"] = dict(prefill_batch=n, decode_lens=[
+        int(lens.min()), int(lens.max())], tol=BF16_TOL)
+    log(f"layer-0 attention at full width: kernels within {BF16_TOL} of the plain "
+        f"versions (prefill {n} x {prompts.shape[1]}, decode lens "
+        f"{int(lens.min())}-{int(lens.max())})")
+
+
+def check_close(label, got, want, tol, errs):
+    torch.cuda.synchronize(got.device)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise RuntimeError(f"{label}: {tuple(got.shape)} {got.dtype} vs "
+                           f"{tuple(want.shape)} {want.dtype}")
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{label}: non-finite kernel output")
+    try:
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    except AssertionError as e:
+        raise RuntimeError(f"{label}: kernel != plain\n{e}") from None
+    errs.append(float((got.float() - want.float()).abs().max()))
+
+
+# ------------------------------------------------------ attention kernels ----
+
+ATTN_SHAPES = [  # (B, Sq, Skv, H, K, D): tests/test_kernels.py:37-44
+    (1, 64, 64, 4, 4, 64), (2, 128, 128, 8, 2, 64), (1, 96, 96, 4, 1, 128),
+    (1, 32, 128, 4, 2, 64), (2, 64, 64, 4, 4, 256)]
+FD_SHAPES = [  # (B, S, H, K, D, cache_len): tests/test_kernels.py:262-267
+    (2, 128, 8, 2, 64, 128), (1, 256, 4, 4, 64, 100), (2, 96, 4, 1, 128, 50),
+    (1, 64, 8, 8, 64, 1)]
+
+
+def attention_kernel_checks(dev, errs):
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    n = 0
+    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for B, Sq, Skv, H, K, D in ATTN_SHAPES:
+            q, k, v = randn((B, Sq, H, D), dt), randn((B, Skv, K, D), dt), randn((B, Skv, K, D), dt)
+            for causal, window in ((True, None), (False, None), (True, 48)):
+                got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+                want = flash_attention_ref(q, k, v, causal=causal, scale=D ** -0.5,
+                                           window=window)
+                check_close(f"flash_attention {dt} {(B, Sq, Skv, H, K, D)} causal={causal} "
+                            f"window={window}", got, want, tol, errs["flash_attention"])
+                n += 1
+        for B, S, H, K, D, clen in FD_SHAPES + [(3, 64, 4, 2, 64, None)]:
+            q, kc, vc = randn((B, 1, H, D), dt), randn((B, S, K, D), dt), randn((B, S, K, D), dt)
+            # tests/test_kernels.py:283: per-sequence lengths
+            lens = clen if clen is not None else torch.tensor([5, 33, 64], dtype=torch.int32,
+                                                              device=dev)
+            got = fd_ops.flash_decode(q, kc, vc, lens, scale=D ** -0.5)
+            want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
+            check_close(f"flash_decode {dt} {(B, S, H, K, D)} lens={clen}", got, want, tol,
+                        errs["flash_decode"])
+            n += 1
+    log(f"flash_attention / flash_decode: {n} small cases within tolerance of plain")
+
+
+def attention_timings(sc, dev, cfg, name, report):
+    """Each attention kernel at the serving path's shapes: kernel, plain
+    version and one PyTorch call for the same function, CUDA events."""
+    import torch.nn.functional as F
+
+    B, S = sc["batch"], sc["prompt"]
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    scale = D ** -0.5
+    out = {}
+
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(bf)
+    k = torch.randn((B, S, K, D), generator=gen, device=dev).to(bf)
+    v = torch.randn((B, S, K, D), generator=gen, device=dev).to(bf)
+    pairs = S * (S + 1) // 2  # live (query, key) pairs of a causal square
+    ops_ = 4 * B * H * D * pairs
+    bytes_ = 2 * (2 * q.numel() + k.numel() + v.numel())
+    ms = event_times(dev, lambda i=0: fa_ops.flash_attention(q, k, v, causal=True, scale=scale))
+    plain = event_times(dev, lambda i=0: flash_attention_ref(q, k, v, causal=True, scale=scale))
+    lib = event_times(dev, lambda i=0: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        scale=scale, enable_gqa=True))
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    out["flash_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                  bound_by="operations" if ops_ / flops > bytes_ / hbm
+                                  else "bytes", operations=ops_, bytes=bytes_,
+                                  shape=[B, S, S, H, K, D], tflops=ops_ / ms / 1e9)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    Sc = S + sc["steps"]
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(bf)
+    kc = torch.randn((B, Sc, K, D), generator=gen, device=dev).to(bf)
+    vc = torch.randn((B, Sc, K, D), generator=gen, device=dev).to(bf)
+    lens = torch.randint(S, Sc, (B,), generator=gen, device=dev, dtype=torch.int32)
+    live = int(lens.sum())
+    bytes_ = 2 * (2 * live * K * D + 2 * q.numel()) + 4 * B
+    ops_ = 4 * H * D * live
+    mask = (torch.arange(Sc, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    ms = event_times(dev, lambda i=0: fd_ops.flash_decode(q, kc, vc, lens, scale=scale))
+    plain = event_times(dev, lambda i=0: flash_decode_ref(q, kc, vc, lens, scale=scale))
+    lib = event_times(dev, lambda i=0: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+        scale=scale, enable_gqa=True))
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    out["flash_decode"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                               bound_by="bytes" if bytes_ / hbm >= ops_ / flops
+                               else "operations", operations=ops_, bytes=bytes_,
+                               shape=[B, Sc, H, K, D], lens=[int(lens.min()), int(lens.max())],
+                               gbps=bytes_ / ms / 1e6,
+                               splits=fd_ops.n_splits(B, K, Sc, dev))
+    for kname, t in out.items():
+        log(f"{kname} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {t['library_ms']:.4f} ms), bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} = {100 * t['bound_ms'] / t['ms']:.2f}% "
+            f"of the card's peak")
+    report["attention_timings"] = out
+    return out
+
+
 def rehearse():
-    """Main path at a tiny size on the CPU: control flow only, no kernels,
+    """Both paths at a tiny size on the CPU: control flow only, no kernels,
     no timing claims and no result line."""
     dev = torch.device("cpu")
     report = {}
     spec, store, proj = main_path(TINY, dev, report)
     check_results(TINY, dev, spec, store, proj, report)
+    cfg, model = serving_model(SERVE_TINY, dev)
+    serving_path(SERVE_TINY, dev, cfg, model, report)
     log(json.dumps({"rehearsal": report}))
     return 0
+
+
+def reset_launches():
+    for k in KERNELS.values():
+        k["ops"].reset_launches()
+
+
+def read_launches(path):
+    """Launch counts of the kernels of ``path``; each must be > 0."""
+    counts = {n: k["ops"].launches for n, k in KERNELS.items() if k["path"] == path}
+    for n, c in counts.items():
+        if c <= 0:
+            raise RuntimeError(f"kernel {n} was not launched on the {path} path")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -447,41 +799,64 @@ def main(argv=None) -> int:
     report = {"card": smi}
 
     t0 = time.perf_counter()
-    for n in KERNELS:
-        _build.library(n)
+    _build.build(KERNELS)
     report["build_s"] = time.perf_counter() - t0
     log(f"built {list(KERNELS)} in {report['build_s']:.2f} s")
 
-    for k in KERNELS.values():
-        k["ops"].reset_launches()
+    # the detection path
+    reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     spec, store, proj = main_path(FULL, dev, report)
-    launches = {n: k["ops"].launches for n, k in KERNELS.items()}
+    launches = read_launches("detection")
     report["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    log(f"launches on the main path: {launches}; max memory allocated "
+    log(f"launches on the detection path: {launches}; max memory allocated "
         f"{report['max_memory_allocated'] / 2 ** 30:.2f} GiB")
-    for n, c in launches.items():
-        if c <= 0:
-            raise RuntimeError(f"kernel {n} was not launched on the main path")
-
     check_results(FULL, dev, spec, store, proj, report)
     where_time_goes(FULL, dev, spec, store, report)
     small_pipeline_vs_cpu(dev, report)
-    err, tile = kernel_checks(dev, store, spec, FULL, report, peak)
+    gather_err, tile = kernel_checks(dev, store, spec, FULL, report, peak)
+    del spec, store, proj
+    torch.cuda.empty_cache()
 
-    rows = []
-    for n, k in KERNELS.items():
-        rows.append(dict(name=n, route=k["route"], source=k["source"],
-                         replaces=k["replaces"], launches=launches[n],
-                         max_abs_err=err, ms=tile["ms"],
-                         plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
-                         bound_by="bytes", library_ms=None))
+    # the serving path
+    cfg, model = serving_model(SERVE_FULL, dev)
+    serving_path(SERVE_TINY | dict(smoke=False), dev, cfg, model, {})  # warm-up
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts, generated, cache = serving_path(SERVE_FULL, dev, cfg, model, report)
+    serve_launches = read_launches("serving")
+    launches.update(serve_launches)
+    report["serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the serving path: {serve_launches}; max memory allocated "
+        f"{report['serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    serving_profile(SERVE_FULL, dev, cfg, model, prompts, cache, generated, report)
+    errs = {"flash_attention": [], "flash_decode": []}
+    layer0_attention_vs_plain(SERVE_FULL, dev, cfg, model, prompts, cache, report, errs)
+    del prompts, generated, cache
+    torch.cuda.empty_cache()
+    serving_small_vs_cpu(dev, report)
+    attention_kernel_checks(dev, errs)
+    timings = attention_timings(SERVE_FULL, dev, cfg, name, report)
+
+    rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
+                 plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
+                 bound_by="bytes", library_ms=None)]
+    for n in ("flash_attention", "flash_decode"):
+        t = timings[n]
+        rows.append(dict(name=n, max_abs_err=max(errs[n]), ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    rows = [dict(name=r["name"], route=KERNELS[r["name"]]["route"],
+                 source=KERNELS[r["name"]]["source"],
+                 replaces=KERNELS[r["name"]]["replaces"],
+                 launches=launches[r["name"]], **{k: v for k, v in r.items()
+                                                  if k != "name"}) for r in rows]
     report["kernels"] = rows
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(report, indent=1))
-    log(json.dumps({"kernels": rows}))
     log(smi)
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,59 @@
+"""Architecture registry of the port (``--arch <id>``).
+
+The ids are the JAX package's; the port holds the configurations of the
+archs whose model family it runs.  The others raise NotImplementedError
+naming the ROADMAP item that brings them.
+"""
+import importlib
+from typing import List
+
+from ..models.config import ModelConfig
+
+ARCH_IDS: List[str] = [
+    "smollm_135m",
+    "minitron_8b",
+    "llama3_405b",
+    "gemma_2b",
+    "arctic_480b",
+    "granite_moe_1b_a400m",
+    "internvl2_76b",
+    "recurrentgemma_2b",
+    "seamless_m4t_medium",
+    "mamba2_370m",
+]
+
+SUPPORTED = ("smollm_135m",)
+
+_LATER = {
+    "minitron_8b": "ROADMAP A7 (dense configs beyond smollm-135m)",
+    "gemma_2b": "ROADMAP A7 (dense configs beyond smollm-135m)",
+    "llama3_405b": "ROADMAP A13 (sharded dense models)",
+    "internvl2_76b": "ROADMAP A13 (sharded dense models, patch frontend)",
+    "arctic_480b": "ROADMAP A10 (moe family)",
+    "granite_moe_1b_a400m": "ROADMAP A10 (moe family)",
+    "recurrentgemma_2b": "ROADMAP A10 (hybrid family)",
+    "seamless_m4t_medium": "ROADMAP A10 (encoder-decoder family)",
+    "mamba2_370m": "ROADMAP A10 (ssm family, kernel B4)",
+}
+
+
+def canonical(arch: str) -> str:
+    a = arch.replace("-", "_")
+    if a not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return a
+
+
+def _module(arch: str):
+    a = canonical(arch)
+    if a not in SUPPORTED:
+        raise NotImplementedError(f"{arch}: not in the port yet; see {_LATER[a]}")
+    return importlib.import_module(f".{a}", __package__)
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke()

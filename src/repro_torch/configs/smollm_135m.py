@@ -1,0 +1,15 @@
+"""SmolLM-135M [hf:HuggingFaceTB/SmolLM-135M]: llama-arch small dense.
+
+A copy of `repro.configs.smollm_135m`."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv_heads=3, d_ff=1536,
+    vocab=49152, act="swiglu", tie_embeddings=True,
+)
+
+
+def smoke() -> ModelConfig:
+    return CONFIG.scaled(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                         head_dim=16, d_ff=128, vocab=256)

@@ -29,6 +29,8 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "on the CPU explicitly")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if dev.index is None:  # "cuda" and "cuda:0" name one card
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

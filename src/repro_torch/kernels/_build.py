@@ -8,8 +8,9 @@ header is included, so a build takes seconds rather than the minutes a
 ``torch/extension.h`` translation unit costs.
 
 Libraries are keyed by a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is reused.  A failed build raises
-with the compiler's output; nothing falls back to another implementation.
+kernel is rebuilt and an unchanged one is reused.  `build` compiles several
+sources at once, one ``nvcc`` each.  A failed build raises with the
+compiler's output; nothing falls back to another implementation.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Iterable
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -55,27 +56,42 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _compile(name: str) -> None:
-    """Compile kernel ``name`` unless its library is already built."""
-    target = _target(name)
-    if target.exists():
-        return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_of(name))]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source_of(name)}:\n"
-                           f"{proc.stdout.decode(errors='replace')}")
-    os.replace(tmp, target)
+def _compile(names: Iterable[str]) -> None:
+    """Compile the kernels among ``names`` whose library is not built yet,
+    all at once, and wait for every one."""
+    started = []
+    for name in dict.fromkeys(names):
+        target = _target(name)
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_of(name))]
+        started.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, tmp, proc in started:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source_of(name)}:\n"
+                          f"{out.decode(errors='replace')}")
+        else:
+            os.replace(tmp, _target(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile and load the named kernels, one ``nvcc`` per source in
+    parallel."""
+    with _libs_guard:
+        todo = [n for n in names if n not in _libs]
+        _compile(todo)
+        for n in todo:
+            _libs[n] = ctypes.CDLL(str(_target(n)))
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built if needed."""
-    with _libs_guard:
-        lib = _libs.get(name)
-        if lib is None:
-            _compile(name)
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
-        return lib
+    build([name])
+    return _libs[name]

@@ -1,0 +1,114 @@
+"""Flash attention wrapper: (B, S, heads, D) in, kernel or plain version.
+
+`flash_attention` launches the hand-written CUDA kernel (``kernel.cu``)
+for tensors on the card and uses the plain PyTorch version (``ref.py``)
+only for tensors on the CPU.  `launches` counts kernel launches, so a run
+can show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .ref import flash_attention_ref
+
+NAME = "flash_attention"
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 64  # query heads per kv head: one block holds them all
+
+launches = 0  # kernel launches since the last reset (read by chip_smoke)
+_count_guard = threading.Lock()
+
+
+def reset_launches() -> None:
+    global launches
+    with _count_guard:
+        launches = 0
+
+
+def _count_launch() -> None:
+    global launches
+    with _count_guard:
+        launches += 1
+
+
+_I64 = ctypes.c_int64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _entry():
+    fn = _build.library(NAME).flash_attention_launch
+    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [_I64] * 20
+                       + [ctypes.c_float, _I64, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _strides(t: torch.Tensor):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool, scale: float,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel; same contract as `flash_attention_ref`."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("q, k and v must be on the same CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B,Sq,H,D) and k, v (B,Skv,K,D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    _, Skv, K, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or H % K:
+        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
+    G = H // K
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if G > MAX_GROUP:
+        raise ValueError(f"{G} query heads per kv head; at most {MAX_GROUP}")
+    if Sq > Skv:
+        raise ValueError(f"Sq {Sq} > Skv {Skv}: queries sit at the end of the keys")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the head_dim axis of q, k and v must be contiguous")
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Skv, K, G, D, *_strides(q), *_strides(k), *_strides(v),
+                 *_strides(out), int(causal), window or 0, scale,
+                 _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed (cudaError {err})")
+    _count_launch()
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Skv, K, D) with H = K * G -> (B, Sq, H, D).
+
+    Queries sit at the end of the keys (query i at position Skv - Sq + i).
+    The kernel on the card; the plain version for CPU tensors.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                    window=window)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash_attention for device {q.device}")
+    return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                               window=window)

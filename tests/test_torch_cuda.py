@@ -13,6 +13,10 @@ from repro_torch.core.cuboid import CuboidGrid, DatasetSpec
 from repro_torch.core.store import DeviceCuboidStore
 from repro_torch.kernels.cutout_gather import ops
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.vision import synapse_detector as sd
 
 pytestmark = pytest.mark.gpu
@@ -102,3 +106,100 @@ def test_store_on_card_matches_cpu(cuda):
         shape = spec.grid(r).volume_shape
         assert torch.equal(tcut.cutout(stores[0], r, (0, 0, 0), shape).cpu(),
                            tcut.cutout(stores[1], r, (0, 0, 0), shape))
+
+
+# ------------------------------------------------- attention kernels ----
+
+ATTN_SHAPES = [  # (B, Sq, Skv, H, K, D): tests/test_kernels.py:37, smollm
+    (1, 64, 64, 4, 4, 64), (2, 128, 128, 8, 2, 64), (1, 96, 96, 4, 1, 128),
+    (1, 32, 128, 4, 2, 64), (2, 64, 64, 4, 4, 256), (2, 200, 200, 9, 3, 64),
+    (2, 40, 40, 4, 2, 16), (1, 70, 70, 8, 1, 32)]
+FD_SHAPES = [  # (B, S, H, K, D, cache_len): tests/test_kernels.py:262, smollm
+    (2, 128, 8, 2, 64, 128), (1, 256, 4, 4, 64, 100), (2, 96, 4, 1, 128, 50),
+    (1, 64, 8, 8, 64, 1), (4, 2176, 9, 3, 64, 2100), (2, 512, 8, 1, 256, 300),
+    (3, 40, 4, 2, 16, 33), (2, 600, 6, 2, 32, 599)]
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 48)])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, causal, window):
+    B, Sq, Skv, H, K, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, (B, Sq, H, D), dtype, cuda)
+    k = _randn(gen, (B, Skv, K, D), dtype, cuda)
+    v = _randn(gen, (B, Skv, K, D), dtype, cuda)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, scale=D ** -0.5, window=window)
+    assert fa_ops.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", FD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(cuda, shape, dtype):
+    B, S, H, K, D, clen = shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (B, 1, H, D), dtype, cuda)
+    kc = _randn(gen, (B, S, K, D), dtype, cuda)
+    vc = _randn(gen, (B, S, K, D), dtype, cuda)
+    before = fd_ops.launches
+    got = fd_ops.flash_decode(q, kc, vc, clen, scale=D ** -0.5)
+    want = flash_decode_ref(q, kc, vc, clen, scale=D ** -0.5)
+    assert fd_ops.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    # per-sequence lens, one of them 1
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    lens[0] = 1
+    got = fd_ops.flash_decode(q, kc, vc, lens, scale=D ** -0.5)
+    want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 96), device=cuda)
+    k = torch.zeros((1, 8, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa_ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fd_ops.flash_decode(q[:, :1], k, k, 8, scale=0.1)
+    with pytest.raises(ValueError, match="Sq"):
+        fa_ops.flash_attention(torch.zeros((1, 9, 4, 64), device=cuda),
+                               torch.zeros((1, 8, 2, 64), device=cuda),
+                               torch.zeros((1, 8, 2, 64), device=cuda))
+
+
+def test_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatcher, Request, make_prefill_step,
+                                   make_serve_step)
+
+    cfg = get_smoke_config("smollm-135m").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(3, 20)).astype(np.int32))
+    served = {}
+    for model in (cpu, card):
+        lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=32)
+        nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        step, out = make_serve_step(model, cfg), [nxt.cpu()]
+        for i in range(10):
+            nxt, _, cache = step(cache, nxt, 20 + i)
+            out.append(nxt.cpu())
+        eng = ContinuousBatcher(model, cfg, n_slots=2, cache_len=32,
+                                device=model.device)
+        for rid, n in enumerate((5, 9, 3)):
+            eng.submit(Request(rid, tok[rid, :n].tolist(), 6))
+        served[model.device.type] = (torch.cat(out, 1), eng.run())
+    assert torch.equal(served["cuda"][0], served["cpu"][0])
+    assert served["cuda"][1] == served["cpu"][1]

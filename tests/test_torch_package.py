@@ -41,7 +41,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 14
+    assert len(MODULES) >= 37
 
 
 def test_store_defaults_to_the_card():
@@ -77,12 +77,43 @@ def test_detect_synapses_defaults_to_the_card():
     assert detect_synapses(torch.from_numpy(vol))[1].device.type == "cpu"
 
 
+def test_lm_serving_defaults_to_the_card():
+    """The LM, the batcher and the serve driver run on the card unless the
+    caller names the CPU; without a card they raise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.serve import ContinuousBatcher
+
+    cfg = get_smoke_config("smollm-135m")
+    if torch.cuda.is_available():
+        assert LM(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "smollm-135m", "--smoke"])
+    model = LM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatcher(model, cfg, n_slots=2, cache_len=8)
+    assert ContinuousBatcher(model, cfg, n_slots=2, cache_len=8,
+                             device="cpu").cache["blocks"]["k"].device.type == "cpu"
+
+
 def test_kernel_build_flags_and_location():
     from repro_torch.kernels import _build
 
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert _build.source_of("cutout_gather").exists()
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode"])
+def test_attention_kernel_sources_have_a_c_entry(name):
+    from repro_torch.kernels import _build
+
+    src = _build.source_of(name).read_text()
+    assert f'extern "C" int {name}_launch(' in src
 
 
 def _smoke(*args):
