@@ -60,7 +60,7 @@ def _compile(names: Iterable[str]) -> None:
     """Compile the kernels among ``names`` whose library is not built yet,
     all at once, and wait for every one."""
     started = []
-    for name in dict.fromkeys(names):
+    for name in names:
         target = _target(name)
         if target.exists():
             continue
@@ -85,7 +85,7 @@ def build(names: Iterable[str]) -> None:
     """Compile and load the named kernels, one ``nvcc`` per source in
     parallel."""
     with _libs_guard:
-        todo = [n for n in names if n not in _libs]
+        todo = list(dict.fromkeys(n for n in names if n not in _libs))
         _compile(todo)
         for n in todo:
             _libs[n] = ctypes.CDLL(str(_target(n)))

@@ -7,8 +7,6 @@ card, their plain versions for tensors on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
@@ -42,16 +40,14 @@ def qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-              window: Optional[int] = None, causal: bool = True,
               return_kv: bool = False):
-    """Full-sequence (train/prefill) attention. x: (B, S, d).
+    """Full-sequence (train/prefill) causal attention. x: (B, S, d).
 
     ``return_kv=True`` also returns the (k, v) projections, so a prefill
     can build its decode cache without projecting K/V a second time."""
     B, S, _ = x.shape
     q, k, v = qkv(p, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=causal, scale=cfg.head_dim ** -0.5,
-                          window=window)
+    out = flash_attention(q, k, v, causal=True, scale=cfg.head_dim ** -0.5)
     out = out.reshape(B, S, -1) @ p.w_o
     if return_kv:
         return out, (k, v)
@@ -59,14 +55,10 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor, index,
-                     window: Optional[int] = None):
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, index):
     """One-token decode. x (B, 1, d); caches (B, S, K, hd), updated in
     place; index an int or (B,) per-sequence positions.
     Returns (out, cache_k, cache_v)."""
-    if window is not None:
-        raise NotImplementedError("windowed decode belongs to the hybrid "
-                                  "family (ROADMAP A10)")
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = per_seq_positions(index, B, x.device)

@@ -157,13 +157,10 @@ class LM(nn.Module):
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device).expand(B, S)
 
-    def forward(self, tokens: torch.Tensor, *, embeds: Optional[torch.Tensor] = None):
-        """tokens (B, S_text) int.  embeds: optional (B, S_img, d) stub
-        frontend output, prepended to the sequence.  Returns (logits, aux);
-        aux (the MoE router loss) is 0 for the dense family."""
+    def forward(self, tokens: torch.Tensor):
+        """tokens (B, S) int.  Returns (logits, aux); aux (the MoE router
+        loss) is 0 for the dense family."""
         x = self.embed_tokens(tokens)
-        if embeds is not None:
-            x = torch.cat([embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = self._positions(B, S)
         for p in self.blocks:

@@ -17,8 +17,7 @@ from ..device import DeviceLike, resolve_device
 
 LogicalAxes = Tuple[Optional[str], ...]
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,16 +45,16 @@ def map_specs(fn: Callable[[ParamSpec], object], specs):
     return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
 
 
-def init_params(specs, generator: torch.Generator, *,
-                device: DeviceLike = "cuda",
-                dtype_override: Optional[str] = None):
+def init_params(specs, generator: Optional[torch.Generator], *,
+                device: DeviceLike = "cuda"):
     """Tensors for ``specs``: normal x scale (drawn in fp32 from
     ``generator``, then cast), ones or zeros, on ``device``.  The
-    generator must live on that device."""
+    generator must live on that device; specs of zeros and ones need
+    none."""
     dev = resolve_device(device)
 
     def one(s: ParamSpec) -> torch.Tensor:
-        dt = DTYPES[dtype_override or s.dtype]
+        dt = DTYPES[s.dtype]
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dt, device=dev)
         if s.init == "ones":
@@ -68,11 +67,6 @@ def init_params(specs, generator: torch.Generator, *,
 
 
 def count_params(specs) -> int:
-    total = 0
-
-    def add(s: ParamSpec):
-        nonlocal total
-        total += int(np.prod(s.shape))
-
-    map_specs(add, specs)
-    return total
+    if is_spec(specs):
+        return int(np.prod(specs.shape))
+    return sum(count_params(v) for v in specs.values())

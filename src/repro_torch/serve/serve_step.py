@@ -25,10 +25,6 @@ def make_prefill_step(model, cfg: ModelConfig):
     """Prompt -> (last-token logits, KV cache): the dense family's serving
     prefill.  ``cache_len`` defaults to the prompt length, as in the JAX
     package; a server that decodes next passes prompt + generation length."""
-    if cfg.family != "dense" or cfg.frontend != "none":
-        raise NotImplementedError(f"prefill for {cfg.family}/{cfg.frontend}: "
-                                  "ROADMAP A10 and A13")
-
     def prefill(tokens: torch.Tensor, cache_len: Optional[int] = None):
         return model.prefill(tokens, cache_len=cache_len or tokens.shape[1])
 

@@ -108,6 +108,34 @@ def test_kernel_build_flags_and_location():
     assert _build.source_of("cutout_gather").exists()
 
 
+def test_build_runs_one_compiler_per_source_and_reports_failures(tmp_path, monkeypatch):
+    """`build` starts every compile before waiting; a failed source raises
+    with the compiler's output and leaves no library, the others land."""
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    log = tmp_path / "calls"
+    fake.write_text("#!/bin/sh\n"   # each waits (up to 10 s) for the other to start
+                    f"echo start >> {log}; i=0\n"
+                    f'while [ $(grep -c start {log}) -lt 2 ] && [ $i -lt 100 ]; do '
+                    'sleep 0.1; i=$((i+1)); done\n'
+                    f'[ $(grep -c start {log}) -ge 2 ] || {{ echo "ran alone"; exit 1; }}\n'
+                    'for a in "$@"; do case "$a" in *flash_decode*) echo "bad kernel"; exit 1;; esac; done\n'
+                    'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    with pytest.raises(RuntimeError, match="(?s)flash_decode.*bad kernel"):
+        _build.build(["flash_attention", "flash_decode"])
+    assert log.read_text().count("start") == 2
+    assert _build._target("flash_attention").exists()
+    assert not _build._target("flash_decode").exists()
+    _build.build(["flash_attention"])          # built before: no compile
+    assert log.read_text().count("start") == 2
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "flash_decode"])
 def test_attention_kernel_sources_have_a_c_entry(name):
     from repro_torch.kernels import _build
