@@ -11,6 +11,11 @@ Libraries are keyed by a hash of the source and the flags, so an edited
 kernel is rebuilt and an unchanged one is reused.  `build` compiles several
 sources at once, one ``nvcc`` each.  A failed build raises with the
 compiler's output; nothing falls back to another implementation.
+
+    python -m repro_torch.kernels._build     # on a machine with nvcc
+
+times a cold build of every kernel, one source after another and then all
+at once, each into a fresh directory under ``build/``.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import threading
+import time
 from typing import Dict, Iterable
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
@@ -95,3 +102,24 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built if needed."""
     build([name])
     return _libs[name]
+
+
+def main() -> int:
+    global BUILD_DIR
+    names = sorted(p.parent.name for p in KERNELS_DIR.glob("*/kernel.cu"))
+    base = BUILD_DIR
+    for mode in ("sequential", "parallel"):
+        BUILD_DIR = base / f"timing-{mode}"
+        shutil.rmtree(BUILD_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        for group in ([[n] for n in names] if mode == "sequential" else [names]):
+            _compile(group)
+        print(f"cold build of {names}, {mode}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        shutil.rmtree(BUILD_DIR)
+    BUILD_DIR = base
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,7 +37,7 @@
 // the bf16 tensor-core bound.  Shared memory: q (64 x D), k (64 x (D + 4),
 // padded so the float4 reads of 8 lanes hit distinct banks), v (64 x D)
 // and p (64 x 64), all fp32: 64 KB at D = 64, 209 KB at D = 256, set as
-// dynamic shared memory through cudaFuncSetAttribute.
+// dynamic shared memory through cudaFuncSetAttribute at each launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -247,14 +247,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int Sq, int Skv, int K, int G, int causal, int window,
                    float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  static bool configured = false;  // per instance; set before first launch
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // set on every launch: the attribute belongs to the current device, and
+  // the call is cheap next to the kernel
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
   const int Bq = kRows / G;
   const dim3 grid((Sq + Bq - 1) / Bq, K, B);
   flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(

@@ -4,7 +4,9 @@ The XLA and TPU knobs have no meaning here and are left out
 (`use_flash_kernel`, `use_flash_decode`, `use_ssd_kernel`, `attn_unroll`,
 `attn_block_q`/`attn_block_kv`, `remat`, `scan_layers`): the route is fixed
 by the device, a CUDA tensor going through the hand-written kernels and a
-CPU tensor through their plain versions.
+CPU tensor through their plain versions.  Only the fields of the dense
+family are kept; the MoE, SSM, hybrid and encoder-decoder fields come with
+the slices that run those families (ROADMAP A10, A13).
 """
 from __future__ import annotations
 
@@ -28,49 +30,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
 
-    # --- MoE ---
-    n_experts: int = 0
-    top_k: int = 0
-    capacity_factor: float = 1.25
-    moe_dense_residual: bool = False
-    router_aux_coef: float = 0.01
-    moe_dispatch: str = "gspmd"
-
-    # --- hybrid (recurrentgemma / griffin) ---
-    hybrid_pattern: str = "RRA"
-    local_window: int = 2048
-    d_rnn: int = 0
-    conv_width: int = 4
-
-    # --- ssm (mamba2 / SSD) ---
-    ssm_state: int = 0
-    ssm_head_dim: int = 64
-    ssm_expand: int = 2
-    ssm_chunk: int = 256
-
-    # --- encoder-decoder (seamless) ---
-    n_enc_layers: int = 0
-    n_dec_layers: int = 0
-
-    # --- modality frontend stubs ---
-    frontend: str = "none"           # none | patch_stub | frame_stub
-    n_frontend_tokens: int = 256
-
     fused_prefill_kv: bool = False   # build the decode cache from the forward
                                      # pass's K/V (no second projection)
 
     def __post_init__(self):
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.family == "hybrid" and not self.d_rnn:
-            object.__setattr__(self, "d_rnn", self.d_model)
-        if self.family == "encdec" and not self.n_enc_layers:
-            object.__setattr__(self, "n_enc_layers", self.n_layers)
-            object.__setattr__(self, "n_dec_layers", self.n_layers)
-
-    @property
-    def q_per_kv(self) -> int:
-        return self.n_heads // max(self.n_kv_heads, 1)
 
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced copy for smoke tests."""

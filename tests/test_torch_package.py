@@ -136,6 +136,28 @@ def test_build_runs_one_compiler_per_source_and_reports_failures(tmp_path, monke
     assert log.read_text().count("start") == 2
 
 
+def test_build_timing_compiles_every_source_twice_into_fresh_dirs(
+        tmp_path, monkeypatch, capsys):
+    """`python -m repro_torch.kernels._build` times a sequential and a
+    parallel cold build and leaves neither library behind."""
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    log = tmp_path / "calls"
+    fake.write_text(f"#!/bin/sh\necho start >> {log}\n"
+                    'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.main() == 0
+    n = len(list(_build.KERNELS_DIR.glob("*/kernel.cu")))
+    assert log.read_text().count("start") == 2 * n
+    out = capsys.readouterr().out
+    assert "sequential:" in out and "parallel:" in out
+    assert _build.BUILD_DIR == tmp_path / "build"
+    assert list((tmp_path / "build").iterdir()) == []
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "flash_decode"])
 def test_attention_kernel_sources_have_a_c_entry(name):
     from repro_torch.kernels import _build
