@@ -31,7 +31,7 @@ Phases (any failure raises and the exit code is non-zero):
    weights), with the launch counts set to 0 just before it and read just
    after: 32 prompts of 2,048 tokens through `make_prefill_step` (cache of
    2,176), 128 greedy steps through `make_serve_step`, then a
-   `ContinuousBatcher` of 16 slots draining 48 requests (prompts of 64-512
+   `ContinuousBatcher` of 16 slots draining 24 requests (prompts of 64-512
    tokens from a seed, 64 new tokens each).  `flash_attention` and
    `flash_decode` must have launched.  Prints time to first token, prefill
    and decode tokens/s, the batcher's tokens/s and occupancy, and peak
@@ -51,6 +51,26 @@ Phases (any failure raises and the exit code is non-zero):
    timed at the serving path's shapes (CUDA events, median of >= 20)
    beside the bound, the plain version and one PyTorch call computing the
    same function (scaled_dot_product_attention, timed here only).
+8. The ssm serving path, once, at mamba2-370m's full width in bf16
+   (seeded weights), with the launch counts set to 0 just before it and
+   read just after: 32 prompts of 2,048 tokens through `make_prefill_step`
+   (the chunked forward builds the state cache), 128 greedy steps, then a
+   `ContinuousBatcher` of 16 slots draining 32 requests (prompts of 64-256
+   tokens, 32 new tokens each).  `ssd_scan` must have launched.  The same
+   rates and profiles as the dense path.
+9. Its results checked: a 2-layer fp32 mamba2 at the smoke widths (A and
+   dt by Mamba-2's published init) serves the same greedy tokens on the
+   card and on the CPU, batched and through the batcher; at full width,
+   layer 0's mixer with the published A and dt, scan through the kernel
+   and through the plain version on the same card tensors, in bf16 and in
+   fp32 (the scan's outputs within rtol 1e-4 and 1e-4 of their max |out|,
+   see SSD_REL), with the per-chunk decay and the carried state's share of
+   |y| printed.
+10. `ssd_scan` against its plain version over the shapes of
+   tests/test_kernels.py, a chunk that is not a power of two, a ragged last
+   chunk and mamba2-370m's heads, fp32 and bf16, the JAX tests' draws and
+   the published ranges; then timed at the prefill's shape beside the
+   bound and the plain version (no single PyTorch call computes it).
 
 The last three lines are the card's name and power limit, the JSON kernel
 report, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -66,8 +86,11 @@ import subprocess
 import sys
 import time
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
@@ -86,9 +109,12 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
+from repro_torch.models.ssm import ssm_inputs, ssm_output  # noqa: E402
 from repro_torch.serve import (ContinuousBatcher, Request,  # noqa: E402
                                make_prefill_step, make_serve_step)
 from repro_torch.vision import synapse_detector as sd  # noqa: E402
@@ -109,6 +135,11 @@ KERNELS = {
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
         replaces="src/repro/kernels/flash_decode/kernel.py:66",
         ops=fd_ops, path="serving"),
+    "ssd_scan": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/kernel.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:67",
+        ops=ssd_ops, path="ssm_serving"),
 }
 
 FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
@@ -117,11 +148,18 @@ FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
 TINY = dict(volume=(256, 256, 32), n_resolutions=3, r=1,
             tile=(64, 64, 32), lowres=2, workers=3, n_blobs=48, slab=64)
 
-# the serving path: smollm-135m at full width (bf16), and a tiny rehearsal
-SERVE_FULL = dict(smoke=False, batch=32, prompt=2048, steps=128, slots=16,
-                  requests=48, plen=(64, 512), max_new=64)
-SERVE_TINY = dict(smoke=True, batch=2, prompt=16, steps=4, slots=2,
-                  requests=5, plen=(4, 12), max_new=4)
+# the serving paths: smollm-135m and mamba2-370m at full width (bf16), and
+# tiny rehearsals; ``key`` names the path's entry in the report
+SERVE_FULL = dict(arch="smollm-135m", key="serving", smoke=False, batch=32,
+                  prompt=2048, steps=128, slots=16, requests=24, plen=(64, 512),
+                  max_new=64)
+SERVE_TINY = dict(arch="smollm-135m", key="serving", smoke=True, batch=2,
+                  prompt=16, steps=4, slots=2, requests=5, plen=(4, 12),
+                  max_new=4)
+SSM_FULL = dict(arch="mamba2-370m", key="ssm_serving", smoke=False, batch=32,
+                prompt=2048, steps=128, slots=16, requests=32, plen=(64, 256),
+                max_new=32)
+SSM_TINY = SERVE_TINY | dict(arch="mamba2-370m", key="ssm_serving", prompt=40)
 
 
 def log(msg: str) -> None:
@@ -315,6 +353,7 @@ def profile_window(dev, fn):
     top_kernels = sorted(kernels, key=lambda x: -x[3])[:8]
     prof_report = dict(wall_s=wall, device_busy_s=busy,
                        device_idle_share=1 - busy / wall,
+                       device_ops=sum(k[1] for k in kernels),
                        top_device=top_dev, top_host=top_cpu,
                        top_kernels=top_kernels)
     return out, prof_report
@@ -322,7 +361,8 @@ def profile_window(dev, fn):
 
 def log_profile(label, p):
     log(f"profile of {label}: wall {p['wall_s']:.4f} s, device busy "
-        f"{p['device_busy_s']:.4f} s (idle share {p['device_idle_share']:.3f})")
+        f"{p['device_busy_s']:.4f} s (idle share {p['device_idle_share']:.3f}), "
+        f"{p['device_ops']} kernels, copies and fills on the device")
     for kind, top, col in (("device", p["top_device"], 3), ("host", p["top_host"], 2),
                            ("kernels'", p["top_kernels"], 3)):
         log(f"  top {kind} ops: " + "; ".join(
@@ -488,8 +528,8 @@ def kernel_checks(dev, store, spec, cfg, report, peak):
 # -------------------------------------------------------- serving path ----
 
 def serving_model(sc, dev):
-    """smollm-135m (full width, or the smoke widths) with seeded weights."""
-    cfg = get_smoke_config("smollm-135m") if sc["smoke"] else get_config("smollm-135m")
+    """The path's arch (full width, or the smoke widths) with seeded weights."""
+    cfg = get_smoke_config(sc["arch"]) if sc["smoke"] else get_config(sc["arch"])
     gen = torch.Generator(device=dev).manual_seed(12)
     return cfg, build_model(cfg, device=dev, generator=gen)
 
@@ -535,13 +575,13 @@ def serving_path(sc, dev, cfg, model, report):
         raise RuntimeError("the serving path returned the wrong number of tokens")
     if not (0 <= int(generated.min()) and int(generated.max()) < cfg.vocab):
         raise RuntimeError("the serving path generated ids outside the vocabulary")
-    report["serving"] = dict(
-        batch=B, prompt=P, decode_steps=steps, time_to_first_token_s=t_prefill,
+    report[sc["key"]] = dict(
+        arch=cfg.name, batch=B, prompt=P, decode_steps=steps, time_to_first_token_s=t_prefill,
         prefill_tokens_per_s=B * P / t_prefill, decode_s=t_decode,
         decode_tokens_per_s=B * steps / t_decode, batcher_s=t_cb,
         batcher_generated_tokens=n_gen, batcher_tokens_per_s=n_gen / t_cb,
         batcher_occupancy=eng.occupancy, batcher_ticks=eng.ticks)
-    log(f"serving (one run each): prefill {B} x {P} tokens {t_prefill:.4f} s "
+    log(f"{cfg.name} serving (one run each): prefill {B} x {P} tokens {t_prefill:.4f} s "
         f"(time to first token; {B * P / t_prefill:.6g} tokens/s), {steps} decode "
         f"steps {t_decode:.4f} s ({B * steps / t_decode:.6g} tokens/s); batcher "
         f"{sc['requests']} requests over {sc['slots']} slots {t_cb:.4f} s, "
@@ -562,19 +602,38 @@ def serving_profile(sc, dev, cfg, model, prompts, cache, generated, report,
         return tok
 
     _, prof = profile_window(dev, decode)
-    report["serving_profile"] = dict(decode_steps=n_steps, decode=prof)
-    log_profile(f"{n_steps} decode steps at batch {sc['batch']}", prof)
+    prof["device_ops_per_step"] = prof["device_ops"] / n_steps
+    report[sc["key"] + "_profile"] = dict(decode_steps=n_steps, decode=prof)
+    log_profile(f"{cfg.name}: {n_steps} decode steps at batch {sc['batch']} "
+                f"({prof['device_ops_per_step']:.0f} device ops per step)", prof)
     _, prof = profile_window(dev, lambda: make_prefill_step(model, cfg)(prompts)[0])
-    report["serving_profile"]["prefill"] = prof
-    log_profile(f"a prefill of {tuple(prompts.shape)} tokens", prof)
+    report[sc["key"] + "_profile"]["prefill"] = prof
+    log_profile(f"{cfg.name}: a prefill of {tuple(prompts.shape)} tokens", prof)
 
 
-def serving_small_vs_cpu(dev, report):
-    """A 2-layer fp32 smollm at the smoke widths: the same greedy tokens on
+def published_ssm_init(tree, seed):
+    """A_log and dt_bias of an ssm parameter tree by Mamba-2's published
+    init: A in -[1, 16], dt log-uniform in [1e-3, 1e-1] through dt_bias =
+    softplus^-1(dt).  (The repo's init, zeros, gives A = -1 and dt ~ 0.7,
+    under which no state outlives a chunk.)"""
+    rng = np.random.default_rng(seed)
+    shape = np.shape(tree["A_log"])
+    tree["A_log"] = np.log(rng.uniform(1, 16, size=shape)).astype(np.float32)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=shape))
+    tree["dt_bias"] = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+    return tree
+
+
+def serving_small_vs_cpu(dev, report, arch="smollm-135m"):
+    """A 2-layer fp32 model at the smoke widths: the same greedy tokens on
     the card and on the CPU, batched and through the batcher."""
-    cfg = get_smoke_config("smollm-135m").scaled(dtype="float32")
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
     cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
-    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), dev)
+    tree = lm_params_to_numpy(cpu)
+    if cfg.family == "ssm":
+        published_ssm_init(tree["blocks"]["ssm"], seed=17)
+        cpu = lm_params_from_numpy(cfg, tree, "cpu")
+    card = lm_params_from_numpy(cfg, tree, dev)
     tok = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(4, 24)).astype(np.int32))
     served = {}
@@ -590,12 +649,12 @@ def serving_small_vs_cpu(dev, report):
             eng.submit(Request(rid, tok[rid % 4, :n].tolist(), 12))
         served[model.device.type] = (torch.cat(out, 1), eng.run())
     if not torch.equal(served[dev.type][0], served["cpu"][0]):
-        raise RuntimeError("smoke model: batched tokens differ between card and CPU")
+        raise RuntimeError(f"{arch} smoke model: batched tokens differ between card and CPU")
     if served[dev.type][1] != served["cpu"][1]:
-        raise RuntimeError("smoke model: batcher tokens differ between card and CPU")
-    report["serving_small_vs_cpu"] = dict(batched_tokens=int(served["cpu"][0].numel()),
+        raise RuntimeError(f"{arch} smoke model: batcher tokens differ between card and CPU")
+    report[f"{arch}_small_vs_cpu"] = dict(batched_tokens=int(served["cpu"][0].numel()),
                                           batcher_requests=len(served["cpu"][1]))
-    log(f"smoke model: {served['cpu'][0].numel()} batched tokens and "
+    log(f"{arch} smoke model: {served['cpu'][0].numel()} batched tokens and "
         f"{len(served['cpu'][1])} batcher requests, card == CPU")
 
 
@@ -793,6 +852,160 @@ def attention_timings(sc, dev, cfg, name, report):
     return out
 
 
+# ------------------------------------------------------------ ssd scan ----
+
+SSD_REL = 1e-4
+# The scan's outputs are fp32 on both sides, from the same inputs (bf16
+# ones too), so they are held at an fp32-level tolerance: rtol 1e-4 and an
+# atol of 1e-4 of the largest |output|.  The two cumsums round differently;
+# with the published ranges |cum| reaches ~400 within a chunk, where an
+# fp32 ulp is 3.05e-5, and a few such ulps in exp(cum_i - cum_j) are ~1e-4
+# of a term.  (A bf16 ulp is 3.9e-3.)
+SSD_SHAPES = [  # (B, S, H, P, N, chunk): tests/test_kernels.py:171-177, then
+    (1, 64, 2, 32, 32, 32), (2, 128, 4, 64, 64, 32), (1, 96, 2, 32, 64, 32),
+    (1, 80, 3, 16, 32, 32), (2, 64, 2, 64, 128, 64),
+    (2, 100, 3, 8, 16, 256),     # Q = S = 100, not a power of two; P = 8
+    (2, 300, 3, 16, 16, 48),     # Q = 48, a ragged last chunk of 12
+    (2, 77, 3, 24, 40, 24),      # P, N multiples of 8 only
+    (2, 1000, 4, 64, 128, 256)]  # mamba2-370m's heads: Q 256, N 128, P 64
+
+
+def ssd_tol(want):
+    return dict(rtol=SSD_REL, atol=SSD_REL * float(want.abs().max()))
+
+
+def ssd_draw(gen, shape, dtype, dev, published):
+    """x, dt, A, B, C: the JAX tests' draws, or the published ranges."""
+    B, S, H, P, N = shape[:5]
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    Bm = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+    Cm = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+    if published:
+        A = -(1 + 15 * torch.rand((H,), generator=gen, device=dev))
+        dt = torch.exp(np.log(1e-3) + np.log(100.0) * torch.rand((B, S, H), generator=gen,
+                                                                 device=dev))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+        A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=dev))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_kernel_checks(dev, errs):
+    """The kernel against its plain version over the test shapes, odd and
+    ragged chunks, fp32 and bf16, the JAX tests' draws and the published
+    ranges."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n = 0
+    for shape in SSD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for published in (False, True):
+                args = ssd_draw(gen, shape, dt, dev, published)
+                got = ssd_ops.ssd_scan(*args, chunk=shape[-1])
+                want = ssd_scan_ref(*args, chunk=shape[-1])
+                for name, g, w in zip(("y", "state"), got, want):
+                    check_close(f"ssd_scan {name} {dt} {shape} "
+                                f"{'published' if published else 'jax'} draws",
+                                g, w, ssd_tol(w), errs)
+                n += 1
+    log(f"ssd_scan: {n} small cases within rtol {SSD_REL} and {SSD_REL} of max |out| "
+        f"of plain")
+
+
+def layer0_ssm_vs_plain(sc, dev, cfg, model, prompts, report, errs):
+    """Layer 0's mixer at full width with A and dt by Mamba-2's published
+    init: the scan through the kernel and through the plain version on the
+    same card tensors, then the mixer's output from each; in bf16, and with
+    the tensors taken to fp32.  Prints how much weight the carried state
+    has: the median per-chunk decay exp(sum a), and the share of |y| that
+    comes across chunk boundaries."""
+    blk = model.blocks[0]
+    seeded_dt = F.softplus(blk.ssm.dt_bias)  # dt at x . w_dt = 0
+    tree = dict(blk.ssm.tree())
+    pub = published_ssm_init({k: tree[k].cpu().numpy() for k in ("A_log", "dt_bias")}, 18)
+    tree.update({k: torch.from_numpy(v).to(dev) for k, v in pub.items()})
+    n = min(8, prompts.shape[0])  # a slice of the batch bounds the plain version's memory
+    x = rms_norm(model.embed_tokens(prompts[:n]), blk.ln, cfg.norm_eps)
+    S = x.shape[1]
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise RuntimeError("the layer-0 check wants whole chunks")
+    checks = {}
+    for dt in (torch.bfloat16, torch.float32):  # fp32 last: its tensors are reused below
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        p = SimpleNamespace(**{k: v.to(dt) if v.dtype == torch.bfloat16 else v
+                               for k, v in tree.items()})
+        z, _, xs, dtv, A, Bm, Cm = ssm_inputs(p, cfg, x.to(dt))
+        got = ssd_ops.ssd_scan(xs, dtv, A, Bm, Cm, chunk=Q)
+        want = ssd_scan_ref(xs, dtv, A, Bm, Cm, chunk=Q)
+        for name, g, w in zip(("y", "state"), got, want):
+            tol = ssd_tol(w)
+            err = check_close(f"layer-0 scan {name} {tag}", g, w, tol, errs)
+            checks[f"scan_{name}_{tag}"] = dict(max_abs_err=err, max_abs_out=float(w.abs().max()),
+                                                **tol)
+        out_k, out_p = ssm_output(p, cfg, z, xs, got[0]), ssm_output(p, cfg, z, xs, want[0])
+        mean_abs = float(out_p.float().abs().mean())
+        # bf16: as layer 0's attention (an atol of 5% of the mean |out|, the
+        # rtol of 2e-2); the scan's y agrees to ~1e-5, so at most a bf16
+        # rounding of the mixer's inputs flips.  fp32: the scan's tolerance.
+        tol = (dict(atol=FULL_WIDTH_BF16_ATOL_SHARE * mean_abs, rtol=BF16_TOL["rtol"])
+               if dt == torch.bfloat16 else ssd_tol(out_p))
+        err = check_close(f"layer-0 mixer output {tag}", out_k, out_p, tol, [])
+        checks[f"mixer_{tag}"] = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
+        log(f"layer-0 ssm {tag}, full width: max |kernel - plain| y "
+            f"{checks[f'scan_y_{tag}']['max_abs_err']:.3g} (max |y| "
+            f"{checks[f'scan_y_{tag}']['max_abs_out']:.3g}), state "
+            f"{checks[f'scan_state_{tag}']['max_abs_err']:.3g}, mixer output {err:.3g} "
+            f"(mean |out| {mean_abs:.3g})")
+    # the carried state's weight, on the fp32 pass's tensors: y against the
+    # same chunks scanned each from a zero state
+    nc = S // Q
+    decay = torch.exp((dtv * A).reshape(n, nc, Q, -1).sum(dim=2))
+    seeded = torch.exp(-Q * seeded_dt.float().mean())
+    alone = ssd_scan_ref(*(t.reshape((n * nc, Q) + t.shape[2:]) for t in (xs, dtv)), A,
+                         *(t.reshape(n * nc, Q, -1) for t in (Bm, Cm)), chunk=Q)[0]
+    carried = float((want[0] - alone.reshape(want[0].shape)).norm() / want[0].norm())
+    report["layer0_ssm"] = dict(
+        batch=n, prompt=S, chunk=Q, checks=checks,
+        median_chunk_decay=float(decay.median()),
+        chunk_decay_share_above_1pct=float((decay > 1e-2).float().mean()),
+        carried_share_of_y=carried, seeded_init_chunk_decay=float(seeded))
+    log(f"layer-0 ssm with the published A and dt: median per-chunk decay exp(sum a) "
+        f"{float(decay.median()):.4g} ({100 * float((decay > 1e-2).float().mean()):.1f}% of "
+        f"(sequence, chunk, head) above 1e-2); the carried state is "
+        f"{100 * carried:.2f}% of |y| (seeded init: per-chunk decay ~{float(seeded):.3g})")
+
+
+def ssd_timing(sc, dev, cfg, name, report):
+    """`ssd_scan` at the prefill's shape (x, B and C sliced out of one bf16
+    projection, published A and dt): kernel and plain version by CUDA
+    events, beside the bound.  No single PyTorch call computes this."""
+    B, S = sc["batch"], sc["prompt"]
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, S)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen, device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    _, dt, A, _, _ = ssd_draw(gen, (B, S, H, 8, 8), torch.bfloat16, dev, True)
+    ms = event_times(dev, lambda i=0: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q))
+    plain = event_times(dev, lambda i=0: ssd_scan_ref(x, dt, A, Bm, Cm, chunk=Q))
+    qs = [min(Q, S - c) for c in range(0, S, Q)]
+    ops_ = B * H * sum(2 * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P) for q in qs)
+    bytes_ = (2 * x.numel() + 4 * B * S * H * P + 2 * 2 * B * S * N + 4 * dt.numel()
+              + 4 * H + 4 * B * H * P * N)
+    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    t = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
+             bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
+             operations=ops_, bytes=bytes_, shape=[B, S, H, P, N, Q],
+             tflops=ops_ / ms / 1e9)
+    report["ssd_timing"] = t
+    log(f"ssd_scan {t['shape']}: {ms:.4f} ms (plain {plain:.4f} ms, no library call), "
+        f"{t['tflops']:.2f} TFLOP/s; bound {bound:.4f} ms by {t['bound_by']} = "
+        f"{100 * bound / ms:.2f}% of the card's peak")
+    return t
+
+
 def rehearse():
     """Both paths at a tiny size on the CPU: control flow only, no kernels,
     no timing claims and no result line."""
@@ -800,8 +1013,9 @@ def rehearse():
     report = {}
     spec, store, proj = main_path(TINY, dev, report)
     check_results(TINY, dev, spec, store, proj, report)
-    cfg, model = serving_model(SERVE_TINY, dev)
-    serving_path(SERVE_TINY, dev, cfg, model, report)
+    for sc in (SERVE_TINY, SSM_TINY):
+        cfg, model = serving_model(sc, dev)
+        serving_path(sc, dev, cfg, model, report)
     log(json.dumps({"rehearsal": report}))
     return 0
 
@@ -841,7 +1055,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     report = {"card": smi}
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build(KERNELS)
     report["build_s"] = time.perf_counter() - t0
     log(f"built {list(KERNELS)} in {report['build_s']:.2f} s")
@@ -880,11 +1094,33 @@ def main(argv=None) -> int:
     serving_small_vs_cpu(dev, report)
     attention_kernel_checks(dev, errs)
     timings = attention_timings(SERVE_FULL, dev, cfg, name, report)
+    del model
+    torch.cuda.empty_cache()
+
+    # the ssm serving path
+    cfg, model = serving_model(SSM_FULL, dev)
+    serving_path(SSM_TINY | dict(smoke=False), dev, cfg, model, {})  # warm-up
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts, generated, cache = serving_path(SSM_FULL, dev, cfg, model, report)
+    ssm_launches = read_launches("ssm_serving")
+    launches.update(ssm_launches)
+    report["ssm_serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the ssm_serving path: {ssm_launches}; max memory allocated "
+        f"{report['ssm_serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    serving_profile(SSM_FULL, dev, cfg, model, prompts, cache, generated, report)
+    errs["ssd_scan"] = []
+    layer0_ssm_vs_plain(SSM_FULL, dev, cfg, model, prompts, report, errs["ssd_scan"])
+    del prompts, generated, cache
+    torch.cuda.empty_cache()
+    serving_small_vs_cpu(dev, report, "mamba2-370m")
+    ssd_kernel_checks(dev, errs["ssd_scan"])
+    timings["ssd_scan"] = ssd_timing(SSM_FULL, dev, cfg, name, report)
 
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
                  bound_by="bytes", library_ms=None)]
-    for n in ("flash_attention", "flash_decode"):
+    for n in ("flash_attention", "flash_decode", "ssd_scan"):
         t = timings[n]
         rows.append(dict(name=n, max_abs_err=max(errs[n]), ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -895,6 +1131,8 @@ def main(argv=None) -> int:
                  launches=launches[r["name"]], **{k: v for k, v in r.items()
                                                   if k != "name"}) for r in rows]
     report["kernels"] = rows
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"smoke wall time {report['wall_s']:.1f} s (from the build on)")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

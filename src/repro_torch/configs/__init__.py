@@ -22,7 +22,7 @@ ARCH_IDS: List[str] = [
     "mamba2_370m",
 ]
 
-SUPPORTED = ("smollm_135m",)
+SUPPORTED = ("smollm_135m", "mamba2_370m")
 
 _LATER = {
     "minitron_8b": "ROADMAP A7 (dense configs beyond smollm-135m)",
@@ -33,7 +33,6 @@ _LATER = {
     "granite_moe_1b_a400m": "ROADMAP A10 (moe family)",
     "recurrentgemma_2b": "ROADMAP A10 (hybrid family)",
     "seamless_m4t_medium": "ROADMAP A10 (encoder-decoder family)",
-    "mamba2_370m": "ROADMAP A10 (ssm family, kernel B4)",
 }
 
 

@@ -5,8 +5,8 @@ The XLA and TPU knobs have no meaning here and are left out
 `attn_block_q`/`attn_block_kv`, `remat`, `scan_layers`): the route is fixed
 by the device, a CUDA tensor going through the hand-written kernels and a
 CPU tensor through their plain versions.  Only the fields of the dense
-family are kept; the MoE, SSM, hybrid and encoder-decoder fields come with
-the slices that run those families (ROADMAP A10, A13).
+and ssm families are kept; the MoE, hybrid and encoder-decoder fields come
+with the slices that run those families (ROADMAP A10, A13).
 """
 from __future__ import annotations
 
@@ -33,9 +33,24 @@ class ModelConfig:
     fused_prefill_kv: bool = False   # build the decode cache from the forward
                                      # pass's K/V (no second projection)
 
+    # --- ssm (mamba2 / SSD) ---
+    conv_width: int = 4
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+
     def __post_init__(self):
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def d_inner(self) -> int:        # ssm
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced copy for smoke tests."""

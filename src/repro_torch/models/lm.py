@@ -1,4 +1,4 @@
-"""Decoder-only LM (`repro.models.lm.LM`), dense family.
+"""Decoder-only LM (`repro.models.lm.LM`), dense and ssm families.
 
 The module holds its parameters: the token embedding, the final norm, an
 untied head where the config asks for one, and one `ParamTree` per layer
@@ -8,8 +8,10 @@ scans them; here they are a Python loop).  Weights keep the JAX layout
 load unchanged (`carry.lm_params_from_numpy`).  Parameters do not require
 gradients: this slice serves.
 
-The KV cache is the JAX tree ``{"blocks": {"k": (L, B, S, K, hd), "v":
-...}}``; `decode_step` writes it in place.
+The dense family's cache is the JAX tree ``{"blocks": {"k": (L, B, S, K,
+hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
+N) fp32, "conv": (L, B, conv_width - 1, d_inner + 2N)}}``, O(1) in the
+sequence.  `decode_step` writes either in place.
 """
 from __future__ import annotations
 
@@ -26,11 +28,11 @@ from .attention import attention, attention_decode, attention_specs, prefill_kv
 from .config import ModelConfig
 from .layers import mlp, mlp_specs, rms_norm, rms_norm_spec
 from .params import ParamSpec, init_params, map_specs
+from .ssm import ssm_block, ssm_decode_step, ssm_specs
 
 F32 = torch.float32
 
 _LATER_FAMILIES = {"moe": "ROADMAP A10 (moe family, kernel B5)",
-                   "ssm": "ROADMAP A10 (ssm family, kernel B4)",
                    "hybrid": "ROADMAP A10 (hybrid family)"}
 
 
@@ -40,7 +42,9 @@ def stack_specs(tree, n: int):
 
 
 def block_specs(cfg: ModelConfig) -> dict:
-    """One dense layer's parameters."""
+    """One layer's parameters."""
+    if cfg.family == "ssm":
+        return {"ln": rms_norm_spec(cfg.d_model), "ssm": ssm_specs(cfg)}
     return {"ln1": rms_norm_spec(cfg.d_model),
             "attn": attention_specs(cfg),
             "ln2": rms_norm_spec(cfg.d_model),
@@ -102,7 +106,7 @@ def _as_index(index):
 
 
 class LM(nn.Module):
-    """Decoder-only language model over a ModelConfig (dense family).
+    """Decoder-only language model over a ModelConfig (dense or ssm family).
 
     ``params`` is a tree in the JAX package's structure (blocks stacked on
     a leading layer axis); without it the parameters are drawn by
@@ -116,7 +120,7 @@ class LM(nn.Module):
         if cfg.family in _LATER_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not in the port "
                                       f"yet; see {_LATER_FAMILIES[cfg.family]}")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise ValueError(f"LM does not handle family {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -142,6 +146,8 @@ class LM(nn.Module):
     # -------------------------------------------------------- forward ----
     def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return x + ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps))
         x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
         return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
 
@@ -159,7 +165,7 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor):
         """tokens (B, S) int.  Returns (logits, aux); aux (the MoE router
-        loss) is 0 for the dense family."""
+        loss) is 0 for the dense and ssm families."""
         x = self.embed_tokens(tokens)
         B, S, _ = x.shape
         positions = self._positions(B, S)
@@ -169,7 +175,17 @@ class LM(nn.Module):
 
     # ---------------------------------------------------------- decode ----
     def cache_specs(self, B: int, cache_len: int) -> dict:
+        """The decode cache: (L, B, cache_len, K, hd) K and V for the dense
+        family; for the ssm family O(1) states, whatever ``cache_len``."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            st = {"state": ParamSpec((B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                     ("batch", "heads_cache", None, None),
+                                     dtype="float32", init="zeros"),
+                  "conv": ParamSpec((B, cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                                    ("batch", None, "inner"), dtype=cfg.dtype,
+                                    init="zeros")}
+            return {"blocks": stack_specs(st, cfg.n_layers)}
         kv = ParamSpec((B, cache_len, cfg.n_kv_heads, cfg.head_dim),
                        ("batch", "kv_len", "kv_heads_cache", None),
                        dtype=cfg.dtype, init="zeros")
@@ -187,8 +203,16 @@ class LM(nn.Module):
         """token (B, 1) int; index an int position or (B,) per-sequence
         positions (continuous batching).  Returns (logits (B, 1, V), cache),
         the cache updated in place."""
-        index = _as_index(index)
         x = self.embed_tokens(token)
+        if self.cfg.family == "ssm":  # the recurrence has no positions
+            st, conv = cache["blocks"]["state"], cache["blocks"]["conv"]
+            for i, p in enumerate(self.blocks):
+                h, _, _ = ssm_decode_step(p.ssm, self.cfg,
+                                          rms_norm(x, p.ln, self.cfg.norm_eps),
+                                          st[i], conv[i])
+                x = x + h
+            return self.logits(x), cache
+        index = _as_index(index)
         ck, cv = cache["blocks"]["k"], cache["blocks"]["v"]
         for i, p in enumerate(self.blocks):
             x = self._block_decode(p, ck[i], cv[i], x, index)
@@ -200,10 +224,24 @@ class LM(nn.Module):
         positions.  Returns (last-token logits (B, 1, V), cache).  With
         ``fused_prefill_kv`` the forward pass's K/V fill the cache; without
         it they are projected a second time (`prefill_kv`), as the JAX
-        package's two bodies do."""
+        package's two bodies do.  The ssm family's cache is the chunked
+        forward pass's final states and conv tails (`ssm_block` with
+        ``return_cache``), where the JAX package steps the prompt through
+        `decode_step` token by token; the two agree (the duality), and
+        ``cache_len`` does not size it."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
+        if cfg.family == "ssm":
+            states, convs = [], []
+            for p in self.blocks:
+                h, st, conv = ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps),
+                                        return_cache=True)
+                x = x + h
+                states.append(st)
+                convs.append(conv)
+            return self.logits(x[:, -1:]), {"blocks": {"state": torch.stack(states),
+                                                       "conv": torch.stack(convs)}}
         positions = self._positions(B, S)
         shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.head_dim)
         ck = torch.zeros(shape, dtype=x.dtype, device=self.device)

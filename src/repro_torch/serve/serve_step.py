@@ -22,9 +22,12 @@ def make_serve_step(model, cfg: ModelConfig):
 
 
 def make_prefill_step(model, cfg: ModelConfig):
-    """Prompt -> (last-token logits, KV cache): the dense family's serving
-    prefill.  ``cache_len`` defaults to the prompt length, as in the JAX
-    package; a server that decodes next passes prompt + generation length."""
+    """Prompt -> (last-token logits, decode cache).  Dense family: the KV
+    cache of ``cache_len`` positions, which defaults to the prompt length as
+    in the JAX package (a server that decodes next passes prompt +
+    generation length).  Ssm family: the logits of the JAX prefill step
+    (forward, last position), and the O(1) state cache its server decodes
+    from, built by the same forward pass; ``cache_len`` does not size it."""
     def prefill(tokens: torch.Tensor, cache_len: Optional[int] = None):
         return model.prefill(tokens, cache_len=cache_len or tokens.shape[1])
 

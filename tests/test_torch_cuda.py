@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.vision import synapse_detector as sd
 
 pytestmark = pytest.mark.gpu
@@ -201,5 +203,133 @@ def test_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
         for rid, n in enumerate((5, 9, 3)):
             eng.submit(Request(rid, tok[rid, :n].tolist(), 6))
         served[model.device.type] = (torch.cat(out, 1), eng.run())
+    assert torch.equal(served["cuda"][0], served["cpu"][0])
+    assert served["cuda"][1] == served["cpu"][1]
+
+
+# ------------------------------------------------------------ ssd scan ----
+
+SSD_SHAPES = [  # (B, S, H, P, N, chunk): tests/test_kernels.py:171, then
+    (1, 64, 2, 32, 32, 32), (2, 128, 4, 64, 64, 32), (1, 96, 2, 32, 64, 32),
+    (1, 80, 3, 16, 32, 32), (2, 64, 2, 64, 128, 64),
+    (2, 100, 3, 8, 16, 256),     # Q = S = 100, not a power of two; P = 8
+    (2, 300, 3, 16, 16, 48),     # Q = 48, a ragged last chunk of 12
+    (2, 77, 3, 24, 40, 24),      # P, N multiples of 8 only
+    (2, 1000, 4, 64, 128, 256),  # mamba2-370m's head: Q 256, N 128, P 64
+    (1, 600, 2, 128, 128, 256)]  # the widest P and N the kernel takes
+
+
+def ssd_tol(want: torch.Tensor) -> dict:
+    """fp32-level: rtol 1e-4 and an atol of 1e-4 of the largest |want|.
+    Both sides compute in fp32 from the same inputs (bf16 ones too), but
+    their cumsums round differently; with the published ranges |cum|
+    reaches ~400 within a chunk, where an fp32 ulp is 3.05e-5, and a few
+    such ulps in exp(cum_i - cum_j) are ~1e-4 of a term."""
+    return dict(rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def ssd_inputs(gen, shape, dtype, dev, published):
+    """x, dt, A, B, C.  The JAX tests' draws (tests/test_kernels.py:185),
+    or Mamba-2's published init: A in -[1, 16], dt log-uniform in
+    [1e-3, 1e-1]."""
+    B, S, H, P, N, _ = shape
+    x = _randn(gen, (B, S, H, P), dtype, dev)
+    Bm = _randn(gen, (B, S, N), dtype, dev)
+    Cm = _randn(gen, (B, S, N), dtype, dev)
+    if published:
+        A = -(1 + 15 * torch.rand((H,), generator=gen, device=dev))
+        dt = torch.exp(np.log(1e-3) + np.log(100.0) * torch.rand((B, S, H), generator=gen,
+                                                                 device=dev))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+        A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=dev))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("published", [False, True], ids=["jax_draws", "published"])
+def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, published):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    args = ssd_inputs(gen, shape, dtype, cuda, published)
+    before = ssd_ops.launches
+    y, s = ssd_ops.ssd_scan(*args, chunk=shape[-1])
+    want_y, want_s = ssd_scan_ref(*args, chunk=shape[-1])
+    assert ssd_ops.launches == before + 1
+    assert y.dtype == s.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, **ssd_tol(want_y))
+    torch.testing.assert_close(s, want_s, **ssd_tol(want_s))
+
+
+def test_ssd_scan_reads_strided_slices(cuda):
+    """x, B and C cut out of one projection, as `models.ssm` hands them."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, S, H, P, N = 2, 300, 4, 64, 128
+    xbc = _randn(gen, (B, S, H * P + 2 * N), torch.bfloat16, cuda)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.rand((B, H, S), generator=gen, device=cuda).transpose(1, 2) * 0.1
+    A = -(1 + 15 * torch.rand((H,), generator=gen, device=cuda))
+    y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    want_y, want_s = ssd_scan_ref(x.contiguous(), dt.contiguous(), A, Bm.contiguous(),
+                                  Cm.contiguous(), chunk=256)
+    torch.testing.assert_close(y, want_y, **ssd_tol(want_y))
+    torch.testing.assert_close(s, want_s, **ssd_tol(want_s))
+
+
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 300, 2, 64), device=cuda)
+    dt = torch.zeros((1, 300, 2), device=cuda)
+    A = -torch.ones(2, device=cuda)
+    bc = torch.zeros((1, 300, 128), device=cuda)
+    with pytest.raises(ValueError, match="chunk 512"):
+        ssd_ops.ssd_scan(x, dt, A, bc, bc, chunk=512)
+    with pytest.raises(ValueError, match="head dim P 12"):
+        ssd_ops.ssd_scan(x[..., :12], dt, A, bc, bc)
+    with pytest.raises(ValueError, match="state size N 136"):
+        ssd_ops.ssd_scan(x, dt, A, torch.zeros((1, 300, 136), device=cuda),
+                         torch.zeros((1, 300, 136), device=cuda))
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ssd_ops.ssd_scan(x, dt, A, bc.bfloat16(), bc)
+    with pytest.raises(ValueError, match="dt and A must be float32"):
+        ssd_ops.ssd_scan(x, dt.bfloat16(), A, bc, bc)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, bc, bc)
+
+
+def test_ssm_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
+    """A 2-layer fp32 mamba2 at the smoke widths (published A and dt, so
+    the carried state counts): prefill + serve steps, and the batcher."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatcher, Request, make_prefill_step,
+                                   make_serve_step)
+
+    cfg = get_smoke_config("mamba2-370m").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    tree = lm_params_to_numpy(cpu)
+    rng = np.random.default_rng(6)
+    shape = tree["blocks"]["ssm"]["A_log"].shape
+    tree["blocks"]["ssm"]["A_log"] = np.log(rng.uniform(1, 16, shape)).astype(np.float32)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), shape))
+    tree["blocks"]["ssm"]["dt_bias"] = (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+    cpu = lm_params_from_numpy(cfg, tree, "cpu")
+    card = lm_params_from_numpy(cfg, tree, cuda)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 40)).astype(np.int32))
+    served = {}
+    before = ssd_ops.launches
+    for model in (cpu, card):
+        lg, cache = make_prefill_step(model, cfg)(tok.to(model.device))
+        nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        step, out = make_serve_step(model, cfg), [nxt.cpu()]
+        for i in range(10):
+            nxt, _, cache = step(cache, nxt, 40 + i)
+            out.append(nxt.cpu())
+        eng = ContinuousBatcher(model, cfg, n_slots=2, cache_len=32, device=model.device)
+        for rid, n in enumerate((5, 9, 3)):
+            eng.submit(Request(rid, tok[rid, :n].tolist(), 6))
+        served[model.device.type] = (torch.cat(out, 1), eng.run())
+    assert ssd_ops.launches == before + cfg.n_layers
     assert torch.equal(served["cuda"][0], served["cpu"][0])
     assert served["cuda"][1] == served["cpu"][1]

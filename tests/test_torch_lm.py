@@ -76,20 +76,29 @@ def test_params_round_trip_bit_exact(dtype):
     jax.tree.map(np.testing.assert_array_equal, again, got)
 
 
+SMOKE_WIDTHS = {  # the port's smoke() configs, as scalings of the JAX configs
+    "smollm_135m": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                        head_dim=16, d_ff=128, vocab=256),
+    "mamba2_370m": dict(n_layers=2, d_model=64, vocab=256, ssm_state=16,
+                        ssm_head_dim=16, ssm_chunk=16),
+}
+
+
 def test_specs_and_counts_match_jax():
-    for arch in ("smollm_135m",):
+    """The supported archs' configs, smoke configs, spec trees and counts
+    equal the JAX package's; every other arch raises with a ROADMAP pointer."""
+    for arch, widths in SMOKE_WIDTHS.items():
         jcfg = j_get_config(arch)
         cfg = get_config(arch)
         assert port_cfg(jcfg) == cfg
-        assert count_params(build_model(get_smoke_config(arch), device="cpu").specs()) \
-            == j_count_params(j_build_model(j_get_config(arch).scaled(
-                n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-                d_ff=128, vocab=256)).specs())
-        jm = j_build_model(jcfg)
+        assert port_cfg(jcfg.scaled(**widths)) == get_smoke_config(arch)
         tm_specs = build_model(get_smoke_config(arch), device="cpu").specs()
-        assert set(tm_specs) == set(jm.specs())
+        j_specs = j_build_model(jcfg.scaled(**widths)).specs()
+        assert count_params(tm_specs) == j_count_params(j_specs)
+        assert set(tm_specs) == set(j_build_model(jcfg).specs())
+        assert set(tm_specs["blocks"]) == set(j_specs["blocks"])
     for arch in ARCH_IDS:
-        if arch != "smollm_135m":
+        if arch not in SMOKE_WIDTHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_config(arch)
 

@@ -41,7 +41,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 37
+    assert len(MODULES) >= 42
 
 
 def test_store_defaults_to_the_card():
@@ -85,19 +85,20 @@ def test_lm_serving_defaults_to_the_card():
     from repro_torch.models import LM
     from repro_torch.serve import ContinuousBatcher
 
-    cfg = get_smoke_config("smollm-135m")
-    if torch.cuda.is_available():
-        assert LM(cfg).device.type == "cuda"
-        return
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        LM(cfg)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--arch", "smollm-135m", "--smoke"])
-    model = LM(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ContinuousBatcher(model, cfg, n_slots=2, cache_len=8)
-    assert ContinuousBatcher(model, cfg, n_slots=2, cache_len=8,
-                             device="cpu").cache["blocks"]["k"].device.type == "cpu"
+    for arch in ("smollm-135m", "mamba2-370m"):
+        cfg = get_smoke_config(arch)
+        if torch.cuda.is_available():
+            assert LM(cfg).device.type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LM(cfg)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", arch, "--smoke"])
+        model = LM(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ContinuousBatcher(model, cfg, n_slots=2, cache_len=8)
+        cache = ContinuousBatcher(model, cfg, n_slots=2, cache_len=8, device="cpu").cache
+        assert all(t.device.type == "cpu" for t in cache["blocks"].values())
 
 
 def test_kernel_build_flags_and_location():
@@ -164,6 +165,24 @@ def test_attention_kernel_sources_have_a_c_entry(name):
 
     src = _build.source_of(name).read_text()
     assert f'extern "C" int {name}_launch(' in src
+
+
+def test_ssd_scan_binding_matches_its_c_entry():
+    """The ctypes argument list declares as many arguments as the C entry
+    point takes, and the wrapper passes that many."""
+    import inspect
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import ops
+
+    src = _build.source_of("ssd_scan").read_text()
+    params = re.search(r'extern "C" int ssd_scan_launch\(([^)]*)\)', src).group(1)
+    assert len(params.split(",")) == len(ops.ARGTYPES)
+    tree = ast.parse(inspect.getsource(ops.ssd_scan_cuda))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "fn"]
+    assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
 
 
 def _smoke(*args):
