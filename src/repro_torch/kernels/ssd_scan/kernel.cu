@@ -41,14 +41,16 @@
 // (P, N) state held in shared memory from one chunk to the next.  A chunk
 // of up to 256 rows does not fit whole (B and C of 256 x 128 in fp32 are
 // 128 KB each), so its rows are taken in tiles of 64: for each output tile
-// I, the key tiles J <= I give G = (C_I . B_J^T) o L o dt_J in shared
-// memory and then G . x_J into registers (4 rows x up to 8 columns a
-// thread); the carried state adds exp(cum_i) C_I . S; then, once every
-// output tile has read the old state, a second pass over the chunk's tiles
-// updates it.  The within-chunk cumsum is a warp scan.  Rows of B, C and
-// the state are padded to N + 1 floats so the column reads of a warp fall
-// in distinct banks.  Shared memory: 2 * 64 (N + 1) + 64 P + 64 * 65 +
-// P (N + 1) + 512 floats, 134 KB at P 64 / N 128 and 184 KB at P = N = 128,
+// I, the key tiles J <= I give G = (C_I . B_J^T) o L in shared memory and
+// then G . (x dt)_J into registers (4 rows x up to 8 columns a thread); the
+// carried state adds (C_I exp(cum_I)) . S; then, once every output tile has
+// read the old state, a second pass over the chunk's tiles updates it.  The
+// within-chunk cumsum is a warp scan.  Every product reads shared memory
+// in 16-byte vectors (8 vector loads per 64 FMAs); rows of B and C are
+// padded to N + 4 floats so that 8 consecutive rows fall in distinct
+// banks, and the state is kept n-major so its rows are read as vectors.
+// Shared memory: 2 * 64 (N + 4) + 64 P + 64 * 68 + N (P + 4) + 512 floats,
+// 136 KB at P 64 / N 128 and 185 KB at P = N = 128 (one block per SM),
 // raised through cudaFuncSetAttribute at every launch.
 //
 // Shapes taken: Q from 1 to 256; P and N multiples of 8 up to 128; x, B
@@ -63,6 +65,7 @@ constexpr int kThreads = 256;  // a 16 x 16 grid
 constexpr int kT = 64;         // rows per tile
 constexpr int kMaxQ = 256;     // rows per chunk
 constexpr int kMaxPN = 128;    // largest P and N
+constexpr int GL = kT + 4;     // padded row of G
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -73,23 +76,37 @@ struct Strides3 {  // in elements; the last axis is contiguous
   int64_t b, s, h;
 };
 
+// Shared memory in floats.  Rows of B and C hold N + 4 floats: 16-byte
+// aligned, and N / 4 + 1 is odd, so the float4 reads of 8 consecutive
+// rows fall in distinct banks.  The state is n-major, rows of P + 4.
 size_t smem_floats(int P, int N) {
-  const int NL = N + 1;
-  return (size_t)2 * kT * NL + (size_t)kT * P + (size_t)kT * (kT + 1) +
-         (size_t)P * NL + 2 * kMaxQ;
+  return (size_t)2 * kT * (N + 4) + (size_t)kT * P + (size_t)kT * GL +
+         (size_t)N * (P + 4) + 2 * kMaxQ;
 }
 
-// rows [r0, r0 + kT) of a (S, width) matrix of batch b into dst[kT][ld],
-// rows at or past `rows` as zeros
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// rows [first, first + kT) of a (S, width) matrix into dst[kT][ld], rows
+// at or past `rows` (relative) as zeros, each scaled by scale[r] if given
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, int ld,
                                           const T* __restrict__ src,
                                           int64_t row_stride, int64_t first,
-                                          int rows, int width) {
-  for (int i = threadIdx.x; i < kT * width; i += kThreads) {
-    const int r = i / width, c = i - r * width;
-    dst[r * ld + c] =
-        r < rows ? to_float(src[(first + r) * row_stride + c]) : 0.f;
+                                          int rows, int width,
+                                          const float* scale) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int r = ty; r < kT; r += 16) {
+    const bool live = r < rows;
+    const float f = live && scale ? scale[r] : 1.f;
+    const T* row = src + (first + r) * row_stride;
+    for (int c = tx; c < width; c += 16)
+      dst[r * ld + c] = live ? to_float(row[c]) * f : 0.f;
   }
 }
 
@@ -101,22 +118,21 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ state, Strides3 xs, Strides3 ds,
                     Strides3 bs, Strides3 cs, int S, int H, int P, int N,
                     int Q) {
-  extern __shared__ float smem[];
-  const int NL = N + 1;                  // padded row of B, C and the state
-  constexpr int GL = kT + 1;             // padded row of G
-  float* Cs = smem;                      // [kT][NL]
-  float* Bs = Cs + kT * NL;              // [kT][NL]
-  float* Xs = Bs + kT * NL;              // [kT][P]  x dt (times seg in pass 2)
-  float* Gs = Xs + kT * P;               // [kT][GL]
-  float* Ss = Gs + kT * GL;              // [P][NL]  the carried state
-  float* cum = Ss + P * NL;              // [kMaxQ]
-  float* dts = cum + kMaxQ;              // [kMaxQ]
+  extern __shared__ float4 smem4[];
+  const int NL = N + 4, SL = P + 4;
+  float* Cs = reinterpret_cast<float*>(smem4);  // [kT][NL]
+  float* Bs = Cs + kT * NL;                      // [kT][NL]
+  float* Xs = Bs + kT * NL;                      // [kT][P]  x dt (x dt seg)
+  float* Gs = Xs + kT * P;                       // [kT][GL]
+  float* St = Gs + kT * GL;                      // [N][SL]  the carried state
+  float* cum = St + N * SL;                      // [kMaxQ]
+  float* dts = cum + kMaxQ;                      // [kMaxQ]
+  float* seg = Gs;  // [kMaxQ] exp(cum_last - cum_j), in G's room in pass 2
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int lane = threadIdx.x % 32;
   const float Ah = A[h];
-  const int PC = (P + 15) / 16;          // output columns per thread
   const T* xb = x + b * xs.b + h * xs.h;
   const T* Bb = Bm + b * bs.b;
   const T* Cb = Cm + b * cs.b;
@@ -124,12 +140,12 @@ __global__ void __launch_bounds__(kThreads)
   float* yb = y + ((int64_t)b * S * H + h) * P;
   const int64_t y_row = (int64_t)H * P;
 
-  for (int i = threadIdx.x; i < P * NL; i += kThreads) Ss[i] = 0.f;
+  for (int i = threadIdx.x; i < N * SL; i += kThreads) St[i] = 0.f;
 
   for (int c0 = 0; c0 < S; c0 += Q) {
     const int q = min(Q, S - c0);
     const int nt = (q + kT - 1) / kT;
-    __syncthreads();  // the previous chunk is done with cum and dts
+    __syncthreads();  // the previous chunk is done with cum, dts and seg
     for (int i = threadIdx.x; i < q; i += kThreads) {
       const float d = db[(int64_t)(c0 + i) * ds.s];
       dts[i] = d;
@@ -157,42 +173,42 @@ __global__ void __launch_bounds__(kThreads)
     const float total = cum[q - 1];
 
     // ---- y: intra-chunk products and the carried state's share ----
+    // thread (ty, tx) owns rows i0 + ty + 16 r and columns tx * 4 + 64 g
+    // + k of the output tile; of G, rows ty + 16 r and columns tx + 16 c
     for (int it = 0; it < nt; ++it) {
       const int i0 = it * kT;
-      float acc[4][8];
+      float4 acc[4][2];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+        for (int g = 0; g < 2; ++g) acc[r][g] = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int jt = 0; jt <= it; ++jt) {
         const int j0 = jt * kT;
         __syncthreads();  // Cs, Bs, Xs and Gs are free
-        if (jt == 0)
-          load_rows(Cs, NL, Cb, cs.s, c0 + i0, q - i0, N);
-        load_rows(Bs, NL, Bb, bs.s, c0 + j0, q - j0, N);
-        for (int i = threadIdx.x; i < kT * P; i += kThreads) {
-          const int r = i / P, p = i - r * P;
-          Xs[i] = r < q - j0
-                      ? to_float(xb[(int64_t)(c0 + j0 + r) * xs.s + p]) *
-                            dts[j0 + r]
-                      : 0.f;
-        }
+        if (jt == 0) load_rows(Cs, NL, Cb, cs.s, c0 + i0, q - i0, N, nullptr);
+        load_rows(Bs, NL, Bb, bs.s, c0 + j0, q - j0, N, nullptr);
+        load_rows(Xs, P, xb, xs.s, c0 + j0, q - j0, P, dts + j0);
         __syncthreads();
-        float g[4][4];
+        float gv[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) g[r][c] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cr[4], bc[4];
+          for (int c = 0; c < 4; ++c) gv[r][c] = 0.f;
+        for (int n = 0; n < N; n += 4) {
+          float4 cr[4], bc[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) cr[r] = Cs[(ty + 16 * r) * NL + n];
+          for (int r = 0; r < 4; ++r) cr[r] = ld4(Cs + (ty + 16 * r) * NL + n);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) bc[c] = Bs[(tx + 16 * c) * NL + n];
+          for (int c = 0; c < 4; ++c) bc[c] = ld4(Bs + (tx + 16 * c) * NL + n);
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) g[r][c] += cr[r] * bc[c];
+            for (int c = 0; c < 4; ++c) {
+              gv[r][c] += cr[r].x * bc[c].x;
+              gv[r][c] += cr[r].y * bc[c].y;
+              gv[r][c] += cr[r].z * bc[c].z;
+              gv[r][c] += cr[r].w * bc[c].w;
+            }
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -201,43 +217,70 @@ __global__ void __launch_bounds__(kThreads)
           for (int c = 0; c < 4; ++c) {
             const int jl = tx + 16 * c, j = j0 + jl;
             float v = 0.f;
-            if (i < q && j <= i) v = g[r][c] * expf(cum[i] - cum[j]);
+            if (i < q && j <= i) v = gv[r][c] * expf(cum[i] - cum[j]);
             Gs[il * GL + jl] = v;
           }
         }
         __syncthreads();
-        const int jn = min(kT, q - j0);
-        for (int j = 0; j < jn; ++j) {
-          float gr[4];
+        // G . (x dt); columns of G past the chunk are 0, rows of Xs too
+        const int jn = (min(kT, q - j0) + 3) & ~3;
+        for (int j = 0; j < jn; j += 4) {
+          float4 gr[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) gr[r] = Gs[(ty + 16 * r) * GL + j];
+          for (int r = 0; r < 4; ++r) gr[r] = ld4(Gs + (ty + 16 * r) * GL + j);
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            if (c < PC && tx + 16 * c < P) {
-              const float xv = Xs[j * P + tx + 16 * c];
+          for (int k = 0; k < 4; ++k) {
 #pragma unroll
-              for (int r = 0; r < 4; ++r) acc[r][c] += gr[r] * xv;
+            for (int g = 0; g < 2; ++g) {
+              const int p = tx * 4 + 64 * g;
+              if (p < P) {
+                const float4 xv = ld4(Xs + (j + k) * P + p);
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                  const float w = comp(gr[r], k);
+                  acc[r][g].x += w * xv.x;
+                  acc[r][g].y += w * xv.y;
+                  acc[r][g].z += w * xv.z;
+                  acc[r][g].w += w * xv.w;
+                }
+              }
             }
           }
         }
       }
-      // exp(cum_i) C_i . S with the state carried into this chunk
+      // (C_i exp(cum_i)) . S with the state carried into this chunk
       float e[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = i0 + ty + 16 * r;
         e[r] = i < q ? expf(cum[i]) : 0.f;
       }
-      for (int n = 0; n < N; ++n) {
-        float cr[4];
+      for (int n = 0; n < N; n += 4) {
+        float4 cr[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) cr[r] = Cs[(ty + 16 * r) * NL + n] * e[r];
+        for (int r = 0; r < 4; ++r) {
+          cr[r] = ld4(Cs + (ty + 16 * r) * NL + n);
+          cr[r].x *= e[r];
+          cr[r].y *= e[r];
+          cr[r].z *= e[r];
+          cr[r].w *= e[r];
+        }
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          if (c < PC && tx + 16 * c < P) {
-            const float sv = Ss[(tx + 16 * c) * NL + n];
+        for (int k = 0; k < 4; ++k) {
 #pragma unroll
-            for (int r = 0; r < 4; ++r) acc[r][c] += cr[r] * sv;
+          for (int g = 0; g < 2; ++g) {
+            const int p = tx * 4 + 64 * g;
+            if (p < P) {
+              const float4 sv = ld4(St + (n + k) * SL + p);
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const float w = comp(cr[r], k);
+                acc[r][g].x += w * sv.x;
+                acc[r][g].y += w * sv.y;
+                acc[r][g].z += w * sv.z;
+                acc[r][g].w += w * sv.w;
+              }
+            }
           }
         }
       }
@@ -247,60 +290,55 @@ __global__ void __launch_bounds__(kThreads)
         if (i >= q) continue;
         float* yr = yb + (int64_t)(c0 + i) * y_row;
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          if (c < PC && tx + 16 * c < P) yr[tx + 16 * c] = acc[r][c];
+        for (int g = 0; g < 2; ++g) {
+          const int p = tx * 4 + 64 * g;
+          if (p < P) *reinterpret_cast<float4*>(yr + p) = acc[r][g];
+        }
       }
     }
 
     // ---- the state: S = exp(cum_last) S + sum_j B_j (x_j dt_j seg_j) ----
     __syncthreads();  // every output tile has read the old state
     const float decay = expf(total);
-    for (int i = threadIdx.x; i < P * NL; i += kThreads) Ss[i] *= decay;
+    for (int i = threadIdx.x; i < N * SL; i += kThreads) St[i] *= decay;
+    for (int i = threadIdx.x; i < q; i += kThreads)
+      seg[i] = dts[i] * expf(total - cum[i]);
     for (int jt = 0; jt < nt; ++jt) {
       const int j0 = jt * kT;
-      __syncthreads();  // Bs and Xs are free
-      load_rows(Bs, NL, Bb, bs.s, c0 + j0, q - j0, N);
-      for (int i = threadIdx.x; i < kT * P; i += kThreads) {
-        const int r = i / P, p = i - r * P;
-        const int j = j0 + r;
-        Xs[i] = j < q ? to_float(xb[(int64_t)(c0 + j) * xs.s + p]) * dts[j] *
-                            expf(total - cum[j])
-                      : 0.f;
-      }
+      __syncthreads();  // Bs and Xs are free; seg is written
+      load_rows(Bs, NL, Bb, bs.s, c0 + j0, q - j0, N, nullptr);
+      load_rows(Xs, P, xb, xs.s, c0 + j0, q - j0, P, seg + j0);
       __syncthreads();
       const int jn = min(kT, q - j0);
-      for (int p0 = 0; p0 < P; p0 += 64) {
-        for (int n0 = 0; n0 < N; n0 += 64) {
-          float s[4][4];
+      // thread (ty, tx) owns state rows n0 + ty * 4 + r, columns p0 + tx * 4 + k
+      for (int n0 = 0; n0 < N; n0 += 64) {
+        for (int p0 = 0; p0 < P; p0 += 64) {
+          const int nn = n0 + ty * 4, pp = p0 + tx * 4;
+          if (nn >= N || pp >= P) continue;
+          float4 sv[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+          for (int r = 0; r < 4; ++r) sv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
           for (int j = 0; j < jn; ++j) {
-            float u[4], bn[4];
+            const float4 bn = ld4(Bs + j * NL + nn);
+            const float4 u = ld4(Xs + j * P + pp);
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const int p = p0 + ty + 16 * r;
-              u[r] = p < P ? Xs[j * P + p] : 0.f;
+              const float w = comp(bn, r);
+              sv[r].x += w * u.x;
+              sv[r].y += w * u.y;
+              sv[r].z += w * u.z;
+              sv[r].w += w * u.w;
             }
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int n = n0 + tx + 16 * c;
-              bn[c] = n < N ? Bs[j * NL + n] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) s[r][c] += u[r] * bn[c];
           }
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            const int p = p0 + ty + 16 * r;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int n = n0 + tx + 16 * c;
-              if (p < P && n < N) Ss[p * NL + n] += s[r][c];
-            }
+            float4* dst = reinterpret_cast<float4*>(St + (nn + r) * SL + pp);
+            float4 v = *dst;
+            v.x += sv[r].x;
+            v.y += sv[r].y;
+            v.z += sv[r].z;
+            v.w += sv[r].w;
+            *dst = v;
           }
         }
       }
@@ -310,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sb = state + ((int64_t)b * H + h) * P * N;
   for (int i = threadIdx.x; i < P * N; i += kThreads) {
     const int p = i / N, n = i - p * N;
-    sb[i] = Ss[p * NL + n];
+    sb[i] = St[n * SL + p];
   }
 }
 
