@@ -71,6 +71,30 @@ Phases (any failure raises and the exit code is non-zero):
    chunk and mamba2-370m's heads, fp32 and bf16, the JAX tests' draws and
    the published ranges; then timed at the prefill's shape beside the
    bound and the plain version (no single PyTorch call computes it).
+11. The MoE serving path, once, at granite-moe-1b-a400m's full width in
+   bf16 (seeded weights), with the launch counts set to 0 just before it
+   and read just after: 32 prompts of 2,048 tokens (one global dispatch of
+   65,536 tokens, capacity 20,480), 128 greedy steps, then a
+   `ContinuousBatcher` of 16 slots draining 24 requests (prompts of 64-256
+   tokens, 32 new tokens each).  `moe_gemm` must have launched once per
+   layer of the prefill and of every decode step, and `flash_attention`
+   and `flash_decode` (16 query heads over 8 kv heads) must have launched.
+   The same rates and profiles as the other paths, and the share of
+   dispatched picks dropped at the prefill and at one decode step.
+12. Its results checked: a 2-layer fp32 granite at the smoke widths serves
+   the same greedy tokens on the card and on the CPU, batched and through
+   the batcher, with any top-k pick that differs between the two reported
+   beside its router-probability gap; at full width, layer 0's MoE on the
+   prefill's tokens, dispatched twice (the routing must be equal), through
+   the kernel and through the plain version: fp32 within rtol 1e-4 and
+   1e-4 of max |y|, bf16 within rtol 2e-2 and 5% of mean |y|.
+13. `moe_gemm` against its plain version over the shapes of
+   tests/test_kernels.py and granite's experts (C 640), fp32 and bf16,
+   counts in [0, C] with 0, C and one past C, the buffer zero or random
+   past the counts; then timed at the prefill's shape with layer 0's own
+   counts beside the bound, the plain version and a yardstick of three
+   bf16 `torch.bmm` over the whole buffer (no single PyTorch call computes
+   this function).
 
 The last three lines are the card's name and power limit, the JSON kernel
 report, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -79,6 +103,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -109,10 +134,13 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import ops as mg_ops  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.attention import qkv  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.attention import attention, qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
 from repro_torch.models.ssm import ssm_inputs, ssm_output  # noqa: E402
 from repro_torch.serve import (ContinuousBatcher, Request,  # noqa: E402
@@ -124,22 +152,27 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
-        ops=gather_ops, path="detection"),
+        ops=gather_ops, paths=("detection",)),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
-        ops=fa_ops, path="serving"),
+        ops=fa_ops, paths=("serving", "moe_serving")),
     "flash_decode": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
         replaces="src/repro/kernels/flash_decode/kernel.py:66",
-        ops=fd_ops, path="serving"),
+        ops=fd_ops, paths=("serving", "moe_serving")),
     "ssd_scan": dict(
         route="cuda",
         source="src/repro_torch/kernels/ssd_scan/kernel.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:67",
-        ops=ssd_ops, path="ssm_serving"),
+        ops=ssd_ops, paths=("ssm_serving",)),
+    "moe_gemm": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/moe_gemm/kernel.cu",
+        replaces="src/repro/kernels/moe_gemm/kernel.py:55",
+        ops=mg_ops, paths=("moe_serving",)),
 }
 
 FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
@@ -160,6 +193,10 @@ SSM_FULL = dict(arch="mamba2-370m", key="ssm_serving", smoke=False, batch=32,
                 prompt=2048, steps=128, slots=16, requests=32, plen=(64, 256),
                 max_new=32)
 SSM_TINY = SERVE_TINY | dict(arch="mamba2-370m", key="ssm_serving", prompt=40)
+MOE_FULL = dict(arch="granite-moe-1b-a400m", key="moe_serving", smoke=False, batch=32,
+                prompt=2048, steps=128, slots=16, requests=24, plen=(64, 256),
+                max_new=32)
+MOE_TINY = SERVE_TINY | dict(arch="granite-moe-1b-a400m", key="moe_serving")
 
 
 def log(msg: str) -> None:
@@ -636,18 +673,24 @@ def serving_small_vs_cpu(dev, report, arch="smollm-135m"):
     card = lm_params_from_numpy(cfg, tree, dev)
     tok = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(4, 24)).astype(np.int32))
-    served = {}
+    served, routes = {}, {}
     for model in (card, cpu):
-        lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=40)
-        nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
-        step, out = make_serve_step(model, cfg), [nxt.cpu()]
-        for i in range(15):
-            nxt, _, cache = step(cache, nxt, 24 + i)
-            out.append(nxt.cpu())
-        eng = ContinuousBatcher(model, cfg, n_slots=2, cache_len=40, device=model.device)
-        for rid, n in enumerate((5, 17, 3, 24)):
-            eng.submit(Request(rid, tok[rid % 4, :n].tolist(), 12))
-        served[model.device.type] = (torch.cat(out, 1), eng.run())
+        routes[model.device.type] = calls = []
+        with (recorded_dispatches(routing_of(calls)) if cfg.family == "moe"
+              else contextlib.nullcontext()):
+            lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=40)
+            nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+            step, out = make_serve_step(model, cfg), [nxt.cpu()]
+            for i in range(15):
+                nxt, _, cache = step(cache, nxt, 24 + i)
+                out.append(nxt.cpu())
+            eng = ContinuousBatcher(model, cfg, n_slots=2, cache_len=40, device=model.device)
+            for rid, n in enumerate((5, 17, 3, 24)):
+                eng.submit(Request(rid, tok[rid % 4, :n].tolist(), 12))
+            served[model.device.type] = (torch.cat(out, 1), eng.run())
+    if cfg.family == "moe":
+        report[f"{arch}_routing"] = router_flips(arch, routes[dev.type], routes["cpu"],
+                                                 cfg.top_k)
     if not torch.equal(served[dev.type][0], served["cpu"][0]):
         raise RuntimeError(f"{arch} smoke model: batched tokens differ between card and CPU")
     if served[dev.type][1] != served["cpu"][1]:
@@ -1006,6 +1049,227 @@ def ssd_timing(sc, dev, cfg, name, report):
     return t
 
 
+# -------------------------------------------------------------- the MoE ----
+
+@contextlib.contextmanager
+def recorded_dispatches(record):
+    """Every MoE dispatch inside also calls ``record(p, xt, dispatch)``."""
+    plain = moe_mod.dispatch
+
+    def wrapped(p, cfg, xt, with_aux=True):
+        disp = plain(p, cfg, xt, with_aux)
+        record(p, xt, disp)
+        return disp
+
+    moe_mod.dispatch = wrapped
+    try:
+        yield
+    finally:
+        moe_mod.dispatch = plain
+
+
+def routing_of(calls):
+    """A ``record`` that appends each dispatch's router probabilities (fp32,
+    on the CPU) and expert ids to ``calls``."""
+    def record(p, xt, disp):
+        probs = torch.softmax(xt.float() @ p.w_router.float(), dim=-1)
+        calls.append((probs.cpu(), disp.expert_ids.cpu()))
+    return record
+
+
+def router_flips(arch, card_calls, cpu_calls, k):
+    """Top-k picks that differ between card and CPU, call by call, with the
+    gap between the k-th and (k+1)-th router probability of each token
+    (on the CPU): a near-tie that rounding can flip shows as a small gap."""
+    flipped, gaps, min_gap = 0, [], float("inf")
+    for (pc, ic), (_, ih) in zip(card_calls, cpu_calls):
+        top = torch.topk(pc, k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        min_gap = min(min_gap, float(gap.min()))
+        if ic.shape != ih.shape:
+            break  # the two runs no longer serve the same tokens
+        diff = (ic != ih).any(dim=-1)
+        flipped += int(diff.sum())
+        gaps += [float(g) for g in gap[diff]]
+    out = dict(calls=len(cpu_calls), flipped_tokens=flipped, gaps_at_flips=gaps,
+               min_gap=min_gap)
+    log(f"{arch} smoke model routing: {len(cpu_calls)} dispatches, {flipped} tokens whose "
+        f"top-{k} picks differ between card and CPU (gaps {gaps}); the smallest gap between "
+        f"the {k}-th and {k + 1}-th router probability is {min_gap:.3g}")
+    return out
+
+
+def check_moe_launches(sc, cfg, report, counts):
+    """One `moe_gemm` launch per layer of the prefill and of every decode
+    step, the batcher's ticks included."""
+    want = cfg.n_layers * (1 + sc["steps"] + report[sc["key"]]["batcher_ticks"])
+    if counts["moe_gemm"] != want:
+        raise RuntimeError(f"moe_gemm launched {counts['moe_gemm']} times on the "
+                           f"{sc['key']} path, want {want} (one per layer and step)")
+
+
+def moe_drop_shares(sc, dev, cfg, model, prompts, cache, generated, report):
+    """The share of dispatched picks that found their expert full, over all
+    layers of one prefill and of one decode step."""
+    out, runs = {}, [("prefill", []), ("decode_step", [])]
+
+    def drops_into(entries):
+        return lambda p, xt, disp: entries.append((disp.keep.numel() - disp.keep.sum(),
+                                                   disp.keep.numel()))
+
+    with recorded_dispatches(drops_into(runs[0][1])):
+        make_prefill_step(model, cfg)(prompts)
+    with recorded_dispatches(drops_into(runs[1][1])):
+        make_serve_step(model, cfg)(cache, generated[:, -1:], sc["prompt"] + sc["steps"] - 1)
+    for label, entries in runs:
+        dropped = [int(d) for d, _ in entries]
+        picks = sum(n for _, n in entries)
+        out[label] = dict(dropped=sum(dropped), picks=picks, share=sum(dropped) / picks,
+                          max_layer_share=max(dropped) / entries[0][1])
+        log(f"{cfg.name} {label}: {sum(dropped)} of {picks} dispatched picks dropped "
+            f"({100 * sum(dropped) / picks:.4f}%; at most {100 * max(dropped) / entries[0][1]:.4f}% "
+            f"in one layer)")
+    report[sc["key"]]["drops"] = out
+
+
+MOE_FP32_REL = 1e-4
+
+
+def moe_tol(want):
+    """fp32: rtol 1e-4 and 1e-4 of the largest |y| (sums in another order).
+    bf16: as the attention checks (rtol 2e-2, an atol of 5% of the mean
+    |y|): both sides round h and y to bf16 from fp32 sums, and a sum on
+    the other side of a rounding boundary moves a value by one bf16 ulp."""
+    if want.dtype == torch.float32:
+        return dict(rtol=MOE_FP32_REL, atol=MOE_FP32_REL * float(want.abs().max()))
+    return dict(rtol=BF16_TOL["rtol"],
+                atol=FULL_WIDTH_BF16_ATOL_SHARE * float(want.float().abs().mean()))
+
+
+def layer0_moe_vs_plain(sc, dev, cfg, model, prompts, report, errs):
+    """Layer 0's MoE at full width on the prefill's tokens: one dispatch
+    for the kernel and one for the plain version on the same card tensors
+    (the routing must be equal), the expert GEMM through each, and the
+    combined outputs; in fp32 and in bf16.  Returns the bf16 arguments of
+    the GEMM, for timing at the path's own counts."""
+    blk = model.blocks[0]
+    x = model.embed_tokens(prompts)
+    B, S, d = x.shape
+    x = x + attention(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
+                      torch.arange(S, device=dev).expand(B, S))
+    xt = rms_norm(x, blk.ln2, cfg.norm_eps).reshape(B * S, d)
+    del x
+    checks, timing_args = {}, None
+    for dt in (torch.float32, torch.bfloat16):  # bf16 last: its dispatch is timed
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        p = SimpleNamespace(**{k: v.to(dt) if v.dtype == torch.bfloat16 else v
+                               for k, v in blk.moe.tree().items()})
+        dk = moe_mod.dispatch(p, cfg, xt.to(dt), with_aux=False)
+        dp = moe_mod.dispatch(p, cfg, xt.to(dt), with_aux=False)
+        for field in ("expert_ids", "keep", "slot", "counts", "grouped"):
+            if not torch.equal(getattr(dk, field), getattr(dp, field)):
+                raise RuntimeError(f"layer-0 MoE {tag}: two dispatches of the same tokens "
+                                   f"differ in {field}")
+        yk = mg_ops.moe_gemm(dk.grouped, p.w_gate, p.w_up, p.w_down, dk.counts)
+        yp = moe_gemm_ref(dp.grouped, p.w_gate, p.w_up, p.w_down, dp.counts)
+        tol = moe_tol(yp)
+        err = check_close(f"layer-0 moe_gemm {tag}", yk, yp, tol, errs)
+        ok, op = moe_mod.combine(yk, dk), moe_mod.combine(yp, dp)
+        tol_out = moe_tol(op)
+        err_out = check_close(f"layer-0 MoE output {tag}", ok, op, tol_out, [])
+        C = dk.grouped.shape[1]
+        checks[tag] = dict(max_abs_err=err, max_abs_y=float(yp.float().abs().max()),
+                           mean_abs_y=float(yp.float().abs().mean()), **tol,
+                           out_max_abs_err=err_out, out_tol=tol_out)
+        log(f"layer-0 MoE {tag}, full width ({B * S} tokens, C {C}): max |kernel - plain| "
+            f"y {err:.3g} (max |y| {checks[tag]['max_abs_y']:.3g}, within atol "
+            f"{tol['atol']:.3g} rtol {tol['rtol']:.3g}), combined output {err_out:.3g}")
+        if dt == torch.bfloat16:
+            timing_args = (dk.grouped, p.w_gate, p.w_up, p.w_down, dk.counts)
+        del dk, dp, yk, yp, ok, op
+        torch.cuda.empty_cache()
+    counts = timing_args[-1]
+    report["layer0_moe"] = dict(tokens=B * S, capacity=C, checks=checks,
+                                live_rows=int(counts.clamp(0, C).sum()),
+                                counts_min=int(counts.min()), counts_max=int(counts.max()))
+    return timing_args
+
+
+MG_SHAPES = [  # (E, C, d, f): tests/test_kernels.py:301-307, then granite's experts
+    (4, 64, 32, 16), (8, 96, 64, 32), (2, 50, 32, 64), (32, 40, 64, 32),
+    (32, 640, 1024, 512)]
+
+
+def moe_draw(gen, shape, dtype, dev, junk):
+    """x (rows past the counts zero, or random: ``junk``), weights scaled by
+    1/sqrt(fan-in) so that g, u and y are O(1), and counts in [0, C] with
+    0, C and C + 7 among them."""
+    E, C, d, f = shape
+    x = torch.randn((E, C, d), generator=gen, device=dev)
+    w = [torch.randn(s, generator=gen, device=dev) * s[1] ** -0.5
+         for s in ((E, d, f), (E, d, f), (E, f, d))]
+    counts = torch.randint(0, C + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    n = min(3, E)
+    counts[:n] = torch.tensor([0, C, C + 7][:n], dtype=torch.int32, device=dev)
+    if not junk:
+        x = x * (torch.arange(C, device=dev)[None, :] < counts[:, None])[..., None]
+    return [t.to(dtype) for t in [x] + w] + [counts]
+
+
+def moe_kernel_checks(dev, errs):
+    """The kernel against its plain version over the test shapes and
+    granite's width, fp32 and bf16, with the buffer zero past the counts
+    and with random rows there (the kernel must mask them)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n = 0
+    for shape in MG_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for junk in (False, True):
+                args = moe_draw(gen, shape, dt, dev, junk)
+                want = moe_gemm_ref(*args)
+                got = mg_ops.moe_gemm(*args)
+                label = f"moe_gemm {dt} {shape} {'junk' if junk else 'zeroed'} past the counts"
+                check_close(label, got, want, moe_tol(want), errs)
+                dead = torch.arange(shape[1], device=dev)[None, :] >= args[-1][:, None]
+                if bool(got[dead].any()):
+                    raise RuntimeError(f"{label}: rows past the counts are not 0")
+                n += 1
+    log(f"moe_gemm: {n} small and granite-width cases within tolerance of plain "
+        f"(fp32 rtol {MOE_FP32_REL} and {MOE_FP32_REL} of max |y|; bf16 rtol "
+        f"{BF16_TOL['rtol']} and {FULL_WIDTH_BF16_ATOL_SHARE} of mean |y|)")
+
+
+def moe_timing(dev, name, report, x, wg, wu, wd, counts):
+    """`moe_gemm` at the prefill's shape with layer 0's own counts: kernel
+    and plain version by CUDA events, beside the bound and a library
+    yardstick (three bf16 bmm over the whole buffer and the silu product:
+    no single PyTorch call computes this function)."""
+    E, C, d = x.shape
+    f = wg.shape[-1]
+    rows = int(counts.clamp(0, C).sum())
+    ms = event_times(dev, lambda i=0: mg_ops.moe_gemm(x, wg, wu, wd, counts))
+    plain = event_times(dev, lambda i=0: moe_gemm_ref(x, wg, wu, wd, counts))
+
+    def three_bmm(i=0):
+        return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+    lib = event_times(dev, three_bmm)
+    ops_ = 2 * 3 * d * f * rows
+    bytes_ = x.element_size() * (rows * d + E * C * d + 3 * E * d * f)
+    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+             bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
+             library="3 x torch.bmm (bf16, whole buffer, no skipping) + silu product",
+             operations=ops_, bytes=bytes_, shape=[E, C, d, f], live_rows=rows,
+             tflops=ops_ / ms / 1e9)
+    report["moe_timing"] = t
+    log(f"moe_gemm {t['shape']} ({rows} live rows): {ms:.4f} ms (plain {plain:.4f} ms; "
+        f"yardstick 3 x bmm {lib:.4f} ms), {t['tflops']:.2f} TFLOP/s; bound {bound:.4f} ms "
+        f"by {t['bound_by']} = {100 * bound / ms:.2f}% of the card's peak")
+    return t
+
+
 def rehearse():
     """Both paths at a tiny size on the CPU: control flow only, no kernels,
     no timing claims and no result line."""
@@ -1013,7 +1277,7 @@ def rehearse():
     report = {}
     spec, store, proj = main_path(TINY, dev, report)
     check_results(TINY, dev, spec, store, proj, report)
-    for sc in (SERVE_TINY, SSM_TINY):
+    for sc in (SERVE_TINY, SSM_TINY, MOE_TINY):
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
     log(json.dumps({"rehearsal": report}))
@@ -1027,7 +1291,7 @@ def reset_launches():
 
 def read_launches(path):
     """Launch counts of the kernels of ``path``; each must be > 0."""
-    counts = {n: k["ops"].launches for n, k in KERNELS.items() if k["path"] == path}
+    counts = {n: k["ops"].launches for n, k in KERNELS.items() if path in k["paths"]}
     for n, c in counts.items():
         if c <= 0:
             raise RuntimeError(f"kernel {n} was not launched on the {path} path")
@@ -1064,9 +1328,9 @@ def main(argv=None) -> int:
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     spec, store, proj = main_path(FULL, dev, report)
-    launches = read_launches("detection")
+    by_path = {"detection": read_launches("detection")}
     report["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    log(f"launches on the detection path: {launches}; max memory allocated "
+    log(f"launches on the detection path: {by_path['detection']}; max memory allocated "
         f"{report['max_memory_allocated'] / 2 ** 30:.2f} GiB")
     check_results(FULL, dev, spec, store, proj, report)
     where_time_goes(FULL, dev, spec, store, report)
@@ -1081,8 +1345,7 @@ def main(argv=None) -> int:
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     prompts, generated, cache = serving_path(SERVE_FULL, dev, cfg, model, report)
-    serve_launches = read_launches("serving")
-    launches.update(serve_launches)
+    by_path["serving"] = serve_launches = read_launches("serving")
     report["serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     log(f"launches on the serving path: {serve_launches}; max memory allocated "
         f"{report['serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
@@ -1103,8 +1366,7 @@ def main(argv=None) -> int:
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     prompts, generated, cache = serving_path(SSM_FULL, dev, cfg, model, report)
-    ssm_launches = read_launches("ssm_serving")
-    launches.update(ssm_launches)
+    by_path["ssm_serving"] = ssm_launches = read_launches("ssm_serving")
     report["ssm_serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     log(f"launches on the ssm_serving path: {ssm_launches}; max memory allocated "
         f"{report['ssm_serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
@@ -1116,11 +1378,38 @@ def main(argv=None) -> int:
     serving_small_vs_cpu(dev, report, "mamba2-370m")
     ssd_kernel_checks(dev, errs["ssd_scan"])
     timings["ssd_scan"] = ssd_timing(SSM_FULL, dev, cfg, name, report)
+    del model
+    torch.cuda.empty_cache()
+
+    # the MoE serving path
+    cfg, model = serving_model(MOE_FULL, dev)
+    serving_path(MOE_TINY | dict(smoke=False), dev, cfg, model, {})  # warm-up
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts, generated, cache = serving_path(MOE_FULL, dev, cfg, model, report)
+    by_path["moe_serving"] = moe_launches = read_launches("moe_serving")
+    check_moe_launches(MOE_FULL, cfg, report, moe_launches)
+    report["moe_serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the moe_serving path: {moe_launches}; max memory allocated "
+        f"{report['moe_serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    serving_profile(MOE_FULL, dev, cfg, model, prompts, cache, generated, report)
+    moe_drop_shares(MOE_FULL, dev, cfg, model, prompts, cache, generated, report)
+    del generated, cache
+    torch.cuda.empty_cache()
+    errs["moe_gemm"] = []
+    gemm_args = layer0_moe_vs_plain(MOE_FULL, dev, cfg, model, prompts, report,
+                                    errs["moe_gemm"])
+    del prompts
+    serving_small_vs_cpu(dev, report, "granite-moe-1b-a400m")
+    moe_kernel_checks(dev, errs["moe_gemm"])
+    timings["moe_gemm"] = moe_timing(dev, name, report, *gemm_args)
+    del gemm_args, model
+    torch.cuda.empty_cache()
 
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
                  bound_by="bytes", library_ms=None)]
-    for n in ("flash_attention", "flash_decode", "ssd_scan"):
+    for n in ("flash_attention", "flash_decode", "ssd_scan", "moe_gemm"):
         t = timings[n]
         rows.append(dict(name=n, max_abs_err=max(errs[n]), ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -1128,8 +1417,10 @@ def main(argv=None) -> int:
     rows = [dict(name=r["name"], route=KERNELS[r["name"]]["route"],
                  source=KERNELS[r["name"]]["source"],
                  replaces=KERNELS[r["name"]]["replaces"],
-                 launches=launches[r["name"]], **{k: v for k, v in r.items()
-                                                  if k != "name"}) for r in rows]
+                 launches=sum(c[r["name"]] for c in by_path.values() if r["name"] in c),
+                 **{k: v for k, v in r.items() if k != "name"},
+                 launches_by_path={pth: c[r["name"]] for pth, c in by_path.items()
+                                   if r["name"] in c}) for r in rows]
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     log(f"smoke wall time {report['wall_s']:.1f} s (from the build on)")

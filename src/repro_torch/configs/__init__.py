@@ -22,15 +22,14 @@ ARCH_IDS: List[str] = [
     "mamba2_370m",
 ]
 
-SUPPORTED = ("smollm_135m", "mamba2_370m")
+SUPPORTED = ("smollm_135m", "granite_moe_1b_a400m", "mamba2_370m")
 
 _LATER = {
     "minitron_8b": "ROADMAP A7 (dense configs beyond smollm-135m)",
     "gemma_2b": "ROADMAP A7 (dense configs beyond smollm-135m)",
     "llama3_405b": "ROADMAP A13 (sharded dense models)",
     "internvl2_76b": "ROADMAP A13 (sharded dense models, patch frontend)",
-    "arctic_480b": "ROADMAP A10 (moe family)",
-    "granite_moe_1b_a400m": "ROADMAP A10 (moe family)",
+    "arctic_480b": "ROADMAP A13 (sharded MoE models: 480B does not fit one card)",
     "recurrentgemma_2b": "ROADMAP A10 (hybrid family)",
     "seamless_m4t_medium": "ROADMAP A10 (encoder-decoder family)",
 }

@@ -18,26 +18,13 @@ import argparse
 import ctypes
 import math
 import pathlib
-import statistics
-import subprocess
 import sys
 
 import torch
 
 from ...configs import get_config
-from .. import _build
+from .. import _bench, _build
 from . import ops
-
-
-def _compile(src: pathlib.Path, out: pathlib.Path) -> str:
-    """Build ``src`` into ``out`` and return ptxas's register report."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                        "-o", str(out), str(src)], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
-    return "\n".join(line.strip() for line in r.stderr.splitlines()
-                     if "registers" in line or "spill" in line)
 
 
 def _bind(lib: pathlib.Path):
@@ -61,20 +48,6 @@ def _bind(lib: pathlib.Path):
     return scan
 
 
-def _event_ms(fn, reps: int = 25) -> float:
-    fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    torch.cuda._sleep(50_000_000)  # queue the launches behind the device
-    for s, e in zip(starts, ends):
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=pathlib.Path,
@@ -84,10 +57,10 @@ def main(argv=None) -> int:
         print("no CUDA device; nothing measured", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    print("kernel.cu:", _compile(_build.source_of("ssd_scan"),
-                                 _build.BUILD_DIR / "bench" / "this.so"), flush=True)
+    print(_bench.card())
+    print("kernel.cu:", _bench.compile_with_report(_build.source_of("ssd_scan"),
+                                                   _build.BUILD_DIR / "bench" / "this.so"),
+          flush=True)
     cfg = get_config("mamba2-370m")
     B, S = 32, 2048
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -102,7 +75,7 @@ def main(argv=None) -> int:
     runs = [("kernel.cu", lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q))]
     if args.against:
         lib = _build.BUILD_DIR / "bench" / "other.so"
-        print(f"{args.against}:", _compile(args.against, lib), flush=True)
+        print(f"{args.against}:", _bench.compile_with_report(args.against, lib), flush=True)
         other = _bind(lib)
         (y0, s0), (y1, s1) = runs[0][1](), other(x, dt, A, Bm, Cm, Q)
         print(f"max |this - other|: y {float((y0 - y1).abs().max()):.3g} (max |y| "
@@ -111,7 +84,7 @@ def main(argv=None) -> int:
         runs = [(str(args.against), lambda: other(x, dt, A, Bm, Cm, Q)), mine, mine,
                 (str(args.against), lambda: other(x, dt, A, Bm, Cm, Q))]
     for name, fn in runs:
-        print(f"{name}: {_event_ms(fn):.4f} ms at B {B}, S {S}, H {H}, P {P}, N {N}, "
+        print(f"{name}: {_bench.event_ms(fn):.4f} ms at B {B}, S {S}, H {H}, P {P}, N {N}, "
               f"Q {Q}", flush=True)
     return 0
 

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the decoder LM, dense and ssm families (`repro.models`)."""
+"""Model zoo of the port: the decoder LM, dense, MoE and ssm families
+(`repro.models`)."""
 from typing import Dict, Optional
 
 import torch
@@ -12,7 +13,7 @@ from .params import ParamSpec, count_params, init_params
 def build_model(cfg: ModelConfig, params: Optional[Dict] = None, *,
                 device: DeviceLike = "cuda",
                 generator: Optional[torch.Generator] = None) -> LM:
-    """The model of ``cfg`` (dense or ssm family in this slice)."""
+    """The model of ``cfg`` (dense, MoE or ssm family)."""
     return LM(cfg, params, device=device, generator=generator)
 
 

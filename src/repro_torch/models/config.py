@@ -4,9 +4,12 @@ The XLA and TPU knobs have no meaning here and are left out
 (`use_flash_kernel`, `use_flash_decode`, `use_ssd_kernel`, `attn_unroll`,
 `attn_block_q`/`attn_block_kv`, `remat`, `scan_layers`): the route is fixed
 by the device, a CUDA tensor going through the hand-written kernels and a
-CPU tensor through their plain versions.  Only the fields of the dense
-and ssm families are kept; the MoE, hybrid and encoder-decoder fields come
-with the slices that run those families (ROADMAP A10, A13).
+CPU tensor through their plain versions.  Only the fields of the dense,
+MoE and ssm families are kept; the hybrid and encoder-decoder fields come
+with the slices that run those families (ROADMAP A10).  ``moe_dispatch``
+is left out: its ``"local"`` mode is a vmap over a data-parallel mesh axis
+and falls back to the one global dispatch without a sharding plan, which
+is what the port always does (sharding is ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -32,6 +35,13 @@ class ModelConfig:
 
     fused_prefill_kv: bool = False   # build the decode cache from the forward
                                      # pass's K/V (no second projection)
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_dense_residual: bool = False  # arctic: dense FFN in parallel w/ MoE
+    router_aux_coef: float = 0.01
 
     # --- ssm (mamba2 / SSD) ---
     conv_width: int = 4

@@ -1,4 +1,4 @@
-"""Decoder-only LM (`repro.models.lm.LM`), dense and ssm families.
+"""Decoder-only LM (`repro.models.lm.LM`), dense, MoE and ssm families.
 
 The module holds its parameters: the token embedding, the final norm, an
 untied head where the config asks for one, and one `ParamTree` per layer
@@ -8,8 +8,8 @@ scans them; here they are a Python loop).  Weights keep the JAX layout
 load unchanged (`carry.lm_params_from_numpy`).  Parameters do not require
 gradients: this slice serves.
 
-The dense family's cache is the JAX tree ``{"blocks": {"k": (L, B, S, K,
-hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
+The dense and MoE families' cache is the JAX tree ``{"blocks": {"k": (L,
+B, S, K, hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
 N) fp32, "conv": (L, B, conv_width - 1, d_inner + 2N)}}``, O(1) in the
 sequence.  `decode_step` writes either in place.
 """
@@ -27,13 +27,13 @@ from ..device import DeviceLike, resolve_device
 from .attention import attention, attention_decode, attention_specs, prefill_kv
 from .config import ModelConfig
 from .layers import mlp, mlp_specs, rms_norm, rms_norm_spec
+from .moe import moe, moe_specs
 from .params import ParamSpec, init_params, map_specs
 from .ssm import ssm_block, ssm_decode_step, ssm_specs
 
 F32 = torch.float32
 
-_LATER_FAMILIES = {"moe": "ROADMAP A10 (moe family, kernel B5)",
-                   "hybrid": "ROADMAP A10 (hybrid family)"}
+_LATER_FAMILIES = {"hybrid": "ROADMAP A10 (hybrid family)"}
 
 
 def stack_specs(tree, n: int):
@@ -45,10 +45,14 @@ def block_specs(cfg: ModelConfig) -> dict:
     """One layer's parameters."""
     if cfg.family == "ssm":
         return {"ln": rms_norm_spec(cfg.d_model), "ssm": ssm_specs(cfg)}
-    return {"ln1": rms_norm_spec(cfg.d_model),
-            "attn": attention_specs(cfg),
-            "ln2": rms_norm_spec(cfg.d_model),
-            "mlp": mlp_specs(cfg)}
+    out = {"ln1": rms_norm_spec(cfg.d_model),
+           "attn": attention_specs(cfg),
+           "ln2": rms_norm_spec(cfg.d_model)}
+    if cfg.family == "moe":
+        out["moe"] = moe_specs(cfg)
+    if cfg.family == "dense" or cfg.moe_dense_residual:
+        out["mlp"] = mlp_specs(cfg)
+    return out
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -106,7 +110,8 @@ def _as_index(index):
 
 
 class LM(nn.Module):
-    """Decoder-only language model over a ModelConfig (dense or ssm family).
+    """Decoder-only language model over a ModelConfig (dense, MoE or ssm
+    family).
 
     ``params`` is a tree in the JAX package's structure (blocks stacked on
     a leading layer axis); without it the parameters are drawn by
@@ -120,7 +125,7 @@ class LM(nn.Module):
         if cfg.family in _LATER_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not in the port "
                                       f"yet; see {_LATER_FAMILIES[cfg.family]}")
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise ValueError(f"LM does not handle family {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -144,12 +149,27 @@ class LM(nn.Module):
         return out
 
     # -------------------------------------------------------- forward ----
-    def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, p, x: torch.Tensor, with_aux: bool = True):
+        """The feed-forward half of a layer on the normed x: the MLP, or the
+        MoE (plus the MLP under ``moe_dense_residual``).  Returns (out, aux
+        or None)."""
+        cfg = self.cfg
+        if cfg.family == "dense":
+            return mlp(p.mlp, x, cfg.act), None
+        y, aux = moe(p.moe, cfg, x, with_aux)
+        if cfg.moe_dense_residual:
+            y = y + mlp(p.mlp, x, cfg.act)
+        return y, aux
+
+    def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor,
+                   with_aux: bool = True):
+        """One layer; returns (x, the MoE aux loss or None)."""
         cfg = self.cfg
         if cfg.family == "ssm":
-            return x + ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps))
+            return x + ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps)), None
         x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
-        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+        y, aux = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), with_aux)
+        return x + y, aux
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens.to(self.device), self.top.embed)
@@ -164,19 +184,22 @@ class LM(nn.Module):
         return torch.arange(S, device=self.device).expand(B, S)
 
     def forward(self, tokens: torch.Tensor):
-        """tokens (B, S) int.  Returns (logits, aux); aux (the MoE router
-        loss) is 0 for the dense and ssm families."""
+        """tokens (B, S) int.  Returns (logits, aux); aux is the sum of the
+        layers' MoE router losses (fp32), 0 for the dense and ssm families."""
         x = self.embed_tokens(tokens)
         B, S, _ = x.shape
         positions = self._positions(B, S)
+        aux = torch.zeros((), dtype=F32, device=self.device)
         for p in self.blocks:
-            x = self._block_fwd(p, x, positions)
-        return self.logits(x), torch.zeros((), dtype=F32, device=self.device)
+            x, a = self._block_fwd(p, x, positions)
+            if a is not None:
+                aux = aux + a
+        return self.logits(x), aux
 
     # ---------------------------------------------------------- decode ----
     def cache_specs(self, B: int, cache_len: int) -> dict:
         """The decode cache: (L, B, cache_len, K, hd) K and V for the dense
-        family; for the ssm family O(1) states, whatever ``cache_len``."""
+        and MoE families; for the ssm family O(1) states, whatever ``cache_len``."""
         cfg = self.cfg
         if cfg.family == "ssm":
             st = {"state": ParamSpec((B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
@@ -197,7 +220,8 @@ class LM(nn.Module):
         h, _, _ = attention_decode(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
                                    cache_k, cache_v, index)
         x = x + h
-        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+        y, _ = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), with_aux=False)
+        return x + y
 
     def decode_step(self, cache: Dict, token: torch.Tensor, index):
         """token (B, 1) int; index an int position or (B,) per-sequence
@@ -251,12 +275,12 @@ class LM(nn.Module):
             if cfg.fused_prefill_kv:
                 h, (k, v) = attention(p.attn, cfg, xin, positions, return_kv=True)
                 x = x + h
-                x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+                x = x + self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), with_aux=False)[0]
                 ck[i, :, :S] = k
                 cv[i, :, :S] = v
             else:
                 k, v = prefill_kv(p.attn, cfg, xin, positions, cache_len)
-                x = self._block_fwd(p, x, positions)
+                x, _ = self._block_fwd(p, x, positions, with_aux=False)
                 ck[i].copy_(k)
                 cv[i].copy_(v)
         return self.logits(x[:, -1:]), {"blocks": {"k": ck, "v": cv}}

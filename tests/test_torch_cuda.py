@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.moe_gemm import ops as mg_ops
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.vision import synapse_detector as sd
@@ -331,5 +333,105 @@ def test_ssm_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
             eng.submit(Request(rid, tok[rid, :n].tolist(), 6))
         served[model.device.type] = (torch.cat(out, 1), eng.run())
     assert ssd_ops.launches == before + cfg.n_layers
+    assert torch.equal(served["cuda"][0], served["cpu"][0])
+    assert served["cuda"][1] == served["cpu"][1]
+
+
+# ------------------------------------------------------------ moe gemm ----
+
+MG_SHAPES = [  # (E, C, d, f): tests/test_kernels.py:301-307, then
+    (4, 64, 32, 16), (8, 96, 64, 32), (2, 50, 32, 64), (32, 40, 64, 32),
+    (3, 130, 24, 40),        # C over three row tiles; d and f multiples of 8 only
+    (32, 640, 1024, 512),    # granite-moe-1b-a400m's experts
+    (32, 10, 1024, 512)]     # its decode step: C 10 at batch 32
+
+
+def moe_tol(want: torch.Tensor) -> dict:
+    """fp32: rtol 1e-4 and 1e-4 of the largest |y| (sums in another
+    order).  bf16: rtol 2e-2 and an atol of 5% of the mean |y|: both sides
+    round h and y to bf16 from fp32 sums, and a sum that lands the other
+    side of a rounding boundary moves a value by one bf16 ulp."""
+    if want.dtype == torch.float32:
+        return dict(rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    return dict(rtol=2e-2, atol=5e-2 * float(want.float().abs().mean()))
+
+
+def moe_inputs(gen, shape, dtype, dev, junk=False):
+    """x (rows past the counts zero, or ``junk``), weights scaled by
+    1/sqrt(fan-in) so that g, u and y are O(1), and counts in [0, C] with
+    0, C and a count past C among them."""
+    E, C, d, f = shape
+    x = _randn(gen, (E, C, d), torch.float32, dev)
+    w = [_randn(gen, s, torch.float32, dev) * s[1] ** -0.5
+         for s in ((E, d, f), (E, d, f), (E, f, d))]
+    counts = torch.randint(0, C + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    n = min(3, E)
+    counts[:n] = torch.tensor([0, C, C + 7][:n], dtype=torch.int32, device=dev)
+    if not junk:
+        x = x * (torch.arange(C, device=dev)[None, :] < counts[:, None])[..., None]
+    return [t.to(dtype) for t in [x] + w] + [counts]
+
+
+@pytest.mark.parametrize("shape", MG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("junk", [False, True], ids=["zeroed", "junk_past_counts"])
+def test_moe_gemm_kernel_matches_plain(cuda, shape, dtype, junk):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    args = moe_inputs(gen, shape, dtype, cuda, junk)
+    before = mg_ops.launches
+    got = mg_ops.moe_gemm(*args)
+    want = moe_gemm_ref(*args)
+    assert mg_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, **moe_tol(want))
+    dead = torch.arange(shape[1], device=cuda)[None, :] >= args[-1][:, None]
+    assert not bool(got[dead].any())
+
+
+def test_moe_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, wg, wu, wd, counts = moe_inputs(gen, (4, 64, 32, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        mg_ops.moe_gemm(x, wg.bfloat16(), wu, wd, counts)
+    with pytest.raises(ValueError, match="does not match"):
+        mg_ops.moe_gemm(x, wg, wu, wd[:, :8], counts)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        mg_ops.moe_gemm(x, wg, wu, wd, counts.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        mg_ops.moe_gemm(x, wg, wu, wd, counts.long())
+    with pytest.raises(ValueError, match="f 12"):
+        mg_ops.moe_gemm(x, wg[..., :12], wu[..., :12], wd[:, :12], counts)
+    with pytest.raises(ValueError, match="contiguous"):
+        mg_ops.moe_gemm(x.transpose(0, 1).contiguous().transpose(0, 1), wg, wu, wd, counts)
+
+
+def test_moe_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
+    """A 2-layer fp32 granite at the smoke widths: prefill + serve steps,
+    and the batcher, through `moe_gemm` on the card."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatcher, Request, make_prefill_step,
+                                   make_serve_step)
+
+    cfg = get_smoke_config("granite-moe-1b-a400m").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(3, 20)).astype(np.int32))
+    served = {}
+    before = mg_ops.launches
+    for model in (cpu, card):
+        lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=32)
+        nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        step, out = make_serve_step(model, cfg), [nxt.cpu()]
+        for i in range(10):
+            nxt, _, cache = step(cache, nxt, 20 + i)
+            out.append(nxt.cpu())
+        eng = ContinuousBatcher(model, cfg, n_slots=2, cache_len=32, device=model.device)
+        for rid, n in enumerate((5, 9, 3)):
+            eng.submit(Request(rid, tok[rid, :n].tolist(), 6))
+        served[model.device.type] = (torch.cat(out, 1), eng.run())
+    assert mg_ops.launches >= before + cfg.n_layers * 11
     assert torch.equal(served["cuda"][0], served["cpu"][0])
     assert served["cuda"][1] == served["cpu"][1]

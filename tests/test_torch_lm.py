@@ -81,6 +81,9 @@ SMOKE_WIDTHS = {  # the port's smoke() configs, as scalings of the JAX configs
                         head_dim=16, d_ff=128, vocab=256),
     "mamba2_370m": dict(n_layers=2, d_model=64, vocab=256, ssm_state=16,
                         ssm_head_dim=16, ssm_chunk=16),
+    "granite_moe_1b_a400m": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                                 head_dim=16, d_ff=64, vocab=256, n_experts=8,
+                                 top_k=4),
 }
 
 

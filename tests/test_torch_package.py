@@ -85,7 +85,7 @@ def test_lm_serving_defaults_to_the_card():
     from repro_torch.models import LM
     from repro_torch.serve import ContinuousBatcher
 
-    for arch in ("smollm-135m", "mamba2-370m"):
+    for arch in ("smollm-135m", "mamba2-370m", "granite-moe-1b-a400m"):
         cfg = get_smoke_config(arch)
         if torch.cuda.is_available():
             assert LM(cfg).device.type == "cuda"
@@ -183,6 +183,39 @@ def test_ssd_scan_binding_matches_its_c_entry():
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Name) and n.func.id == "fn"]
     assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
+
+
+def test_moe_gemm_binding_matches_its_c_entry():
+    """The ctypes argument list declares as many arguments as the C entry
+    point takes, and the wrapper passes that many."""
+    import inspect
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gemm import ops
+
+    src = _build.source_of("moe_gemm").read_text()
+    params = re.search(r'extern "C" int moe_gemm_launch\(([^)]*)\)', src).group(1)
+    assert len(params.split(",")) == len(ops.ARGTYPES)
+    tree = ast.parse(inspect.getsource(ops.moe_gemm_cuda))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "fn"]
+    assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
+
+
+def test_moe_gemm_wrapper_never_reads_counts_on_the_host():
+    """The dispatch and the kernel wrapper keep counts on the device: no
+    host sync per layer (.item(), .tolist(), .cpu(), int(), bool masks)."""
+    import inspect
+
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.models import moe
+
+    for fn in (ops._check, ops.moe_gemm_cuda, ops.moe_gemm, moe.dispatch, moe.combine,
+               moe.moe):
+        src = inspect.getsource(fn)
+        for bad in (".item(", ".tolist(", ".cpu(", "int(counts", "nonzero"):
+            assert bad not in src, (fn.__name__, bad)
 
 
 def _smoke(*args):
