@@ -41,9 +41,12 @@ Phases (any failure raises and the exit code is non-zero):
    the same greedy tokens on the card and on the CPU, through
    `make_serve_step` and through `ContinuousBatcher`; at full width, layer
    0's attention through the kernels agrees with the plain versions on the
-   same card tensors, at prefill and at a decode step with mixed lengths
-   over split kv axes: in bf16 within rtol 2e-2 and an atol of 5% of the
-   outputs' mean magnitude, and with the tensors taken to fp32 within 2e-5.
+   same card tensors, at the prefill of the whole batch and at a decode
+   step over the whole cache with mixed lengths (split kv axes): in bf16
+   within rtol 2e-2 and an atol of 5% of the outputs' mean magnitude, and
+   with the tensors taken to fp32 within 2e-5; `flash_decode` at the
+   batcher's shape (16 slots, lengths from 1 to the cache) within the
+   small cases' tolerances.
 7. `flash_attention` and `flash_decode` against their plain versions on
    the card over the shapes of tests/test_kernels.py (fp32 at 2e-5, bf16
    at 2e-2; causal, non-causal, window 48; per-sequence lengths) and
@@ -87,9 +90,12 @@ Phases (any failure raises and the exit code is non-zero):
    beside its router-probability gap; at full width, layer 0's MoE on the
    prefill's tokens, dispatched twice (the routing must be equal), through
    the kernel and through the plain version: fp32 within rtol 1e-4 and
-   1e-4 of max |y|, bf16 within rtol 2e-2 and 5% of mean |y|.
+   1e-4 of max |y|, bf16 within rtol 2e-2 and 5% of mean |y|; layer 0's
+   attention (16 query heads over 8 kv heads) and the batcher's decode
+   attention at this path's shapes, as in phase 6.
 13. `moe_gemm` against its plain version over the shapes of
-   tests/test_kernels.py and granite's experts (C 640), fp32 and bf16,
+   tests/test_kernels.py and granite's experts (C 640, and the decode
+   step's C 10 and the batcher's C 8), fp32 and bf16,
    counts in [0, C] with 0, C and one past C, the buffer zero or random
    past the counts; then timed at the prefill's shape with layer 0's own
    counts beside the bound, the plain version and a yardstick of three
@@ -676,7 +682,7 @@ def serving_small_vs_cpu(dev, report, arch="smollm-135m"):
     served, routes = {}, {}
     for model in (card, cpu):
         routes[model.device.type] = calls = []
-        with (recorded_dispatches(routing_of(calls)) if cfg.family == "moe"
+        with (moe_mod.observe(routing_of(calls)) if cfg.family == "moe"
               else contextlib.nullcontext()):
             lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=40)
             nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
@@ -713,17 +719,26 @@ FP32_TOL = dict(atol=2e-5, rtol=2e-5)
 FULL_WIDTH_BF16_ATOL_SHARE = 5e-2
 
 
+def sliced(plain, n):
+    """``plain`` over the batch in slices of ``n`` sequences (the plain
+    attention's scores take O(Sq * Skv) memory per sequence), concatenated."""
+    return lambda *args: torch.cat([plain(*(a[i:i + n] for a in args))
+                                    for i in range(0, args[0].shape[0], n)])
+
+
 def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs):
-    """Layer 0's attention at full width: kernel path vs plain version on
-    the same card tensors, at prefill and at one decode step with mixed
+    """Layer 0's attention at full width and at the path's own shapes:
+    kernel vs plain version on the same card tensors, at the prefill of
+    the whole batch and at one decode step over the whole cache with mixed
     lengths (the split and merge path of flash_decode): in bf16 with an
     absolute tolerance scaled to the outputs, and again with the same
     tensors taken to fp32 at the fp32 tolerance."""
     p = model.blocks[0]
-    n = min(8, prompts.shape[0])  # a slice of the batch bounds the plain version's memory
-    x = rms_norm(model.embed_tokens(prompts[:n]), p.ln1, cfg.norm_eps)
+    n = prompts.shape[0]
+    x = rms_norm(model.embed_tokens(prompts), p.ln1, cfg.norm_eps)
     positions = torch.arange(prompts.shape[1], device=dev).expand(n, -1)
     q, k, v = qkv(p.attn, cfg, x, positions)
+    del x
     scale = cfg.head_dim ** -0.5
 
     B, S = cache["blocks"]["k"].shape[1:3]
@@ -745,7 +760,7 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
         cases = (
             ("prefill", "flash_attention",
              lambda a, b, c: fa_ops.flash_attention(a, b, c, causal=True, scale=scale),
-             lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale),
+             sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale), 8),
              (q, k, v)),
             ("decode", "flash_decode",
              lambda a, b, c: fd_ops.flash_decode(a, b, c, lens, scale=scale),
@@ -764,10 +779,37 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
                 f"{err:.3g}, mean |out| {mean_abs:.3g}, within atol {tol['atol']:.3g} "
                 f"rtol {tol['rtol']:.3g}")
             del got, want, args
-    report["layer0_attention"] = dict(prefill_batch=n, decode_lens=[
-        int(lens.min()), int(lens.max())], decode_splits=splits, checks=checks)
-    log(f"layer-0 attention at full width: prefill {n} x {prompts.shape[1]}, decode "
-        f"lens {int(lens.min())}-{int(lens.max())} over {splits} splits")
+    report[sc["key"]]["layer0_attention"] = dict(
+        prefill_shape=list(q.shape), decode_cache=list(ck.shape),
+        decode_lens=[int(lens.min()), int(lens.max())], decode_splits=splits, checks=checks)
+    log(f"{cfg.name} layer-0 attention at full width: prefill {n} x {prompts.shape[1]} "
+        f"({cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads), decode over "
+        f"{B} x {S} cached positions, lens {int(lens.min())}-{int(lens.max())}, "
+        f"{splits} splits")
+
+
+def batcher_decode_checks(sc, dev, cfg, report, errs):
+    """`flash_decode` at the batcher's shape of the path (its slots over its
+    cache, the model's heads) against its plain version, with per-slot
+    lengths from 1 (an idle slot) to the whole cache, fp32 and bf16 (the
+    tolerances of the small cases)."""
+    B, S = sc["slots"], sc["plen"][1] + sc["max_new"]
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lens[:2] = torch.tensor([1, S], dtype=torch.int32, device=dev)
+    splits, err = fd_ops.n_splits(B, K, S, dev), {}
+    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, kc, vc = (torch.randn(s, generator=gen, device=dev).to(dt)
+                     for s in ((B, 1, H, D), (B, S, K, D), (B, S, K, D)))
+        got = fd_ops.flash_decode(q, kc, vc, lens, scale=D ** -0.5)
+        want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
+        err[str(dt)[6:]] = check_close(f"{cfg.name} batcher flash_decode {dt} "
+                                       f"{(B, S, H, K, D)}", got, want, tol, errs)
+    report[sc["key"]]["batcher_decode_check"] = dict(shape=[B, S, H, K, D], splits=splits,
+                                                     max_abs_err=err)
+    log(f"{cfg.name} batcher decode attention ({B} slots x {S} cached positions, {H} "
+        f"query heads over {K} kv heads, {splits} splits): max |kernel - plain| {err}")
 
 
 def check_close(label, got, want, tol, errs):
@@ -1051,25 +1093,8 @@ def ssd_timing(sc, dev, cfg, name, report):
 
 # -------------------------------------------------------------- the MoE ----
 
-@contextlib.contextmanager
-def recorded_dispatches(record):
-    """Every MoE dispatch inside also calls ``record(p, xt, dispatch)``."""
-    plain = moe_mod.dispatch
-
-    def wrapped(p, cfg, xt, with_aux=True):
-        disp = plain(p, cfg, xt, with_aux)
-        record(p, xt, disp)
-        return disp
-
-    moe_mod.dispatch = wrapped
-    try:
-        yield
-    finally:
-        moe_mod.dispatch = plain
-
-
 def routing_of(calls):
-    """A ``record`` that appends each dispatch's router probabilities (fp32,
+    """A `moe.observe` callback that appends each dispatch's router probabilities (fp32,
     on the CPU) and expert ids to ``calls``."""
     def record(p, xt, disp):
         probs = torch.softmax(xt.float() @ p.w_router.float(), dim=-1)
@@ -1117,9 +1142,9 @@ def moe_drop_shares(sc, dev, cfg, model, prompts, cache, generated, report):
         return lambda p, xt, disp: entries.append((disp.keep.numel() - disp.keep.sum(),
                                                    disp.keep.numel()))
 
-    with recorded_dispatches(drops_into(runs[0][1])):
+    with moe_mod.observe(drops_into(runs[0][1])):
         make_prefill_step(model, cfg)(prompts)
-    with recorded_dispatches(drops_into(runs[1][1])):
+    with moe_mod.observe(drops_into(runs[1][1])):
         make_serve_step(model, cfg)(cache, generated[:, -1:], sc["prompt"] + sc["steps"] - 1)
     for label, entries in runs:
         dropped = [int(d) for d, _ in entries]
@@ -1164,8 +1189,8 @@ def layer0_moe_vs_plain(sc, dev, cfg, model, prompts, report, errs):
         tag = "bf16" if dt == torch.bfloat16 else "fp32"
         p = SimpleNamespace(**{k: v.to(dt) if v.dtype == torch.bfloat16 else v
                                for k, v in blk.moe.tree().items()})
-        dk = moe_mod.dispatch(p, cfg, xt.to(dt), with_aux=False)
-        dp = moe_mod.dispatch(p, cfg, xt.to(dt), with_aux=False)
+        dk = moe_mod.dispatch(p, cfg, xt.to(dt))
+        dp = moe_mod.dispatch(p, cfg, xt.to(dt))
         for field in ("expert_ids", "keep", "slot", "counts", "grouped"):
             if not torch.equal(getattr(dk, field), getattr(dp, field)):
                 raise RuntimeError(f"layer-0 MoE {tag}: two dispatches of the same tokens "
@@ -1197,7 +1222,9 @@ def layer0_moe_vs_plain(sc, dev, cfg, model, prompts, report, errs):
 
 MG_SHAPES = [  # (E, C, d, f): tests/test_kernels.py:301-307, then granite's experts
     (4, 64, 32, 16), (8, 96, 64, 32), (2, 50, 32, 64), (32, 40, 64, 32),
-    (32, 640, 1024, 512)]
+    (32, 640, 1024, 512),
+    (32, 10, 1024, 512),   # a decode step at batch 32
+    (32, 8, 1024, 512)]    # a batcher tick over 16 slots
 
 
 def moe_draw(gen, shape, dtype, dev, junk):
@@ -1216,12 +1243,13 @@ def moe_draw(gen, shape, dtype, dev, junk):
     return [t.to(dtype) for t in [x] + w] + [counts]
 
 
-def moe_kernel_checks(dev, errs):
+def moe_kernel_checks(dev, report, errs):
     """The kernel against its plain version over the test shapes and
     granite's width, fp32 and bf16, with the buffer zero past the counts
-    and with random rows there (the kernel must mask them)."""
+    and with random rows there (the kernel must mask them).  Cases where
+    the two differ at all are listed in the report."""
     gen = torch.Generator(device=dev).manual_seed(22)
-    n = 0
+    n, differ = 0, []
     for shape in MG_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             for junk in (False, True):
@@ -1229,12 +1257,18 @@ def moe_kernel_checks(dev, errs):
                 want = moe_gemm_ref(*args)
                 got = mg_ops.moe_gemm(*args)
                 label = f"moe_gemm {dt} {shape} {'junk' if junk else 'zeroed'} past the counts"
-                check_close(label, got, want, moe_tol(want), errs)
+                err = check_close(label, got, want, moe_tol(want), errs)
+                if err:
+                    differ.append(dict(case=label, max_abs_err=err,
+                                       max_abs_y=float(want.float().abs().max())))
                 dead = torch.arange(shape[1], device=dev)[None, :] >= args[-1][:, None]
                 if bool(got[dead].any()):
                     raise RuntimeError(f"{label}: rows past the counts are not 0")
                 n += 1
-    log(f"moe_gemm: {n} small and granite-width cases within tolerance of plain "
+    report["moe_kernel_checks"] = dict(cases=n, differ=differ)
+    log(f"moe_gemm: differs from plain in {differ}")
+    log(f"moe_gemm: {n} small and granite-width cases (prefill-like, decode and "
+        f"batcher capacities) within tolerance of plain "
         f"(fp32 rtol {MOE_FP32_REL} and {MOE_FP32_REL} of max |y|; bf16 rtol "
         f"{BF16_TOL['rtol']} and {FULL_WIDTH_BF16_ATOL_SHARE} of mean |y|)")
 
@@ -1352,6 +1386,7 @@ def main(argv=None) -> int:
     serving_profile(SERVE_FULL, dev, cfg, model, prompts, cache, generated, report)
     errs = {"flash_attention": [], "flash_decode": []}
     layer0_attention_vs_plain(SERVE_FULL, dev, cfg, model, prompts, cache, report, errs)
+    batcher_decode_checks(SERVE_FULL, dev, cfg, report, errs["flash_decode"])
     del prompts, generated, cache
     torch.cuda.empty_cache()
     serving_small_vs_cpu(dev, report)
@@ -1394,6 +1429,8 @@ def main(argv=None) -> int:
         f"{report['moe_serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
     serving_profile(MOE_FULL, dev, cfg, model, prompts, cache, generated, report)
     moe_drop_shares(MOE_FULL, dev, cfg, model, prompts, cache, generated, report)
+    layer0_attention_vs_plain(MOE_FULL, dev, cfg, model, prompts, cache, report, errs)
+    batcher_decode_checks(MOE_FULL, dev, cfg, report, errs["flash_decode"])
     del generated, cache
     torch.cuda.empty_cache()
     errs["moe_gemm"] = []
@@ -1401,7 +1438,7 @@ def main(argv=None) -> int:
                                     errs["moe_gemm"])
     del prompts
     serving_small_vs_cpu(dev, report, "granite-moe-1b-a400m")
-    moe_kernel_checks(dev, errs["moe_gemm"])
+    moe_kernel_checks(dev, report, errs["moe_gemm"])
     timings["moe_gemm"] = moe_timing(dev, name, report, *gemm_args)
     del gemm_args, model
     torch.cuda.empty_cache()

@@ -149,26 +149,25 @@ class LM(nn.Module):
         return out
 
     # -------------------------------------------------------- forward ----
-    def _ffn(self, p, x: torch.Tensor, with_aux: bool = True):
+    def _ffn(self, p, x: torch.Tensor):
         """The feed-forward half of a layer on the normed x: the MLP, or the
         MoE (plus the MLP under ``moe_dense_residual``).  Returns (out, aux
         or None)."""
         cfg = self.cfg
         if cfg.family == "dense":
             return mlp(p.mlp, x, cfg.act), None
-        y, aux = moe(p.moe, cfg, x, with_aux)
+        y, aux = moe(p.moe, cfg, x)
         if cfg.moe_dense_residual:
             y = y + mlp(p.mlp, x, cfg.act)
         return y, aux
 
-    def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor,
-                   with_aux: bool = True):
+    def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor):
         """One layer; returns (x, the MoE aux loss or None)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return x + ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps)), None
         x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
-        y, aux = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), with_aux)
+        y, aux = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))
         return x + y, aux
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -220,7 +219,7 @@ class LM(nn.Module):
         h, _, _ = attention_decode(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
                                    cache_k, cache_v, index)
         x = x + h
-        y, _ = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), with_aux=False)
+        y, _ = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))
         return x + y
 
     def decode_step(self, cache: Dict, token: torch.Tensor, index):
@@ -275,12 +274,12 @@ class LM(nn.Module):
             if cfg.fused_prefill_kv:
                 h, (k, v) = attention(p.attn, cfg, xin, positions, return_kv=True)
                 x = x + h
-                x = x + self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps), with_aux=False)[0]
+                x = x + self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))[0]
                 ck[i, :, :S] = k
                 cv[i, :, :S] = v
             else:
                 k, v = prefill_kv(p.attn, cfg, xin, positions, cache_len)
-                x, _ = self._block_fwd(p, x, positions, with_aux=False)
+                x, _ = self._block_fwd(p, x, positions)
                 ck[i].copy_(k)
                 cv[i].copy_(v)
         return self.logits(x[:, -1:]), {"blocks": {"k": ck, "v": cv}}

@@ -18,11 +18,17 @@ source zeroed by ``keep`` instead of a boolean mask, and the combine adds
 each token's k contributions in a fixed order (ascending expert id, the
 order the JAX scatter-add sees them) in the working dtype, where an
 atomic ``index_add_`` would sum bf16 in an order that varies by run.
+
+The router's load-balancing loss is computed on every call, as in the JAX
+package, and the LM discards it outside ``forward``.  Instruments read
+the routing through `observe` (a callback on every dispatch), not by
+replacing functions of this module.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Iterator, List, Tuple
 
 import torch
 
@@ -57,17 +63,33 @@ class Dispatch:
     and ``slot`` (T, k) (row of the flattened (E * C) buffer; clipped to
     the expert's last row where dropped).  ``counts`` (E,) int32 counts
     every pick, dropped ones too; ``grouped`` is the (E, C, d) buffer;
-    ``aux`` the load-balancing loss, or None where it was not asked for."""
+    ``aux`` the load-balancing loss (fp32 scalar)."""
     expert_ids: torch.Tensor
     gates: torch.Tensor
     keep: torch.Tensor
     slot: torch.Tensor
     counts: torch.Tensor
     grouped: torch.Tensor
-    aux: Optional[torch.Tensor]
+    aux: torch.Tensor
 
 
-def dispatch(p, cfg: ModelConfig, xt: torch.Tensor, with_aux: bool = True) -> Dispatch:
+_observers: List[Callable] = []
+
+
+@contextlib.contextmanager
+def observe(fn: Callable) -> Iterator[None]:
+    """Within the block, every `moe` call also calls ``fn(p, xt, dispatch)``
+    with its parameters, its (T, d) tokens and their `Dispatch`, before the
+    expert GEMM.  For instruments (routing, drop shares); ``fn`` must not
+    change what it is given."""
+    _observers.append(fn)
+    try:
+        yield
+    finally:
+        _observers.remove(fn)
+
+
+def dispatch(p, cfg: ModelConfig, xt: torch.Tensor) -> Dispatch:
     """Route the tokens xt (T, d) and fill the capacity buffer."""
     T, d = xt.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -79,12 +101,11 @@ def dispatch(p, cfg: ModelConfig, xt: torch.Tensor, with_aux: bool = True) -> Di
     gates, ids = torch.topk(probs, k, dim=-1)                    # (T, k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)  # renorm
 
-    aux = None
-    if with_aux:  # Switch/GShard load-balancing loss
-        me = probs.mean(dim=0)
-        ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
-            0, ids.reshape(-1), torch.full((T * k,), 1.0 / (T * k), device=dev))
-        aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    # Switch/GShard load-balancing loss
+    me = probs.mean(dim=0)
+    ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
+        0, ids.reshape(-1), torch.full((T * k,), 1.0 / (T * k), device=dev))
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
     # a token's picks in ascending expert id: the stable sort below sees
     # one pick per (token, expert), so it orders each expert's picks by
@@ -131,11 +152,13 @@ def combine(y: torch.Tensor, disp: Dispatch) -> torch.Tensor:
     return out
 
 
-def moe(p, cfg: ModelConfig, x: torch.Tensor, with_aux: bool = True
-        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x (B, S, d) -> (out (B, S, d), aux loss, or None without
-    ``with_aux``).  All B * S tokens go through one dispatch."""
+def moe(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux loss).  All B * S tokens go
+    through one dispatch."""
     B, S, d = x.shape
-    disp = dispatch(p, cfg, x.reshape(B * S, d), with_aux)
+    xt = x.reshape(B * S, d)
+    disp = dispatch(p, cfg, xt)
+    for fn in _observers:
+        fn(p, xt, disp)
     y = moe_gemm(disp.grouped, p.w_gate, p.w_up, p.w_down, disp.counts)
     return combine(y, disp).reshape(B, S, d), disp.aux

@@ -117,11 +117,14 @@ def test_store_on_card_matches_cpu(cuda):
 ATTN_SHAPES = [  # (B, Sq, Skv, H, K, D): tests/test_kernels.py:37, smollm
     (1, 64, 64, 4, 4, 64), (2, 128, 128, 8, 2, 64), (1, 96, 96, 4, 1, 128),
     (1, 32, 128, 4, 2, 64), (2, 64, 64, 4, 4, 256), (2, 200, 200, 9, 3, 64),
-    (2, 40, 40, 4, 2, 16), (1, 70, 70, 8, 1, 32)]
+    (2, 40, 40, 4, 2, 16), (1, 70, 70, 8, 1, 32),
+    (2, 256, 256, 16, 8, 64)]  # granite-moe-1b-a400m's heads
 FD_SHAPES = [  # (B, S, H, K, D, cache_len): tests/test_kernels.py:262, smollm
     (2, 128, 8, 2, 64, 128), (1, 256, 4, 4, 64, 100), (2, 96, 4, 1, 128, 50),
     (1, 64, 8, 8, 64, 1), (4, 2176, 9, 3, 64, 2100), (2, 512, 8, 1, 256, 300),
-    (3, 40, 4, 2, 16, 33), (2, 600, 6, 2, 32, 599)]
+    (3, 40, 4, 2, 16, 33), (2, 600, 6, 2, 32, 599),
+    (32, 2176, 16, 8, 64, 2100),  # granite's decode at batch 32 (split kv axis)
+    (16, 288, 16, 8, 64, 200)]    # granite's 16-slot batcher (split kv axis)
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
@@ -343,7 +346,8 @@ MG_SHAPES = [  # (E, C, d, f): tests/test_kernels.py:301-307, then
     (4, 64, 32, 16), (8, 96, 64, 32), (2, 50, 32, 64), (32, 40, 64, 32),
     (3, 130, 24, 40),        # C over three row tiles; d and f multiples of 8 only
     (32, 640, 1024, 512),    # granite-moe-1b-a400m's experts
-    (32, 10, 1024, 512)]     # its decode step: C 10 at batch 32
+    (32, 10, 1024, 512),     # its decode step: C 10 at batch 32
+    (32, 8, 1024, 512)]      # its 16-slot batcher: C 8
 
 
 def moe_tol(want: torch.Tensor) -> dict:

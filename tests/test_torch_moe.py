@@ -43,7 +43,7 @@ from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build_model, count_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.moe import capacity, dispatch, moe
+from repro_torch.models.moe import capacity, combine, dispatch, moe, observe
 from repro_torch.serve import (ContinuousBatcher, Request, make_prefill_step,
                                make_serve_step)
 
@@ -195,15 +195,31 @@ def test_moe_layer_matches_jax(monkeypatch, capacity_factor):
 
 
 def test_moe_layer_without_aux_gives_the_same_output():
-    """Decode and prefill skip the aux loss (the JAX package discards it
-    there); the output does not change."""
+    """Decode and prefill discard the aux loss (as the JAX package does);
+    the output is the dispatch, the expert GEMM and the combine alone."""
     jcfg, p, xt = layer_inputs(40, capacity_factor=0.5)
     cfg = port_cfg(jcfg)
     tp = type("P", (), {k: torch.from_numpy(v) for k, v in p.items()})
     out, aux = moe(tp, cfg, torch.from_numpy(xt)[None])
-    again, none = moe(tp, cfg, torch.from_numpy(xt)[None], with_aux=False)
-    assert none is None and aux is not None and torch.equal(out, again)
-    assert not bool(dispatch(tp, cfg, torch.from_numpy(xt)).keep.all())
+    disp = dispatch(tp, cfg, torch.from_numpy(xt))
+    y = moe_gemm_ref(disp.grouped, tp.w_gate, tp.w_up, tp.w_down, disp.counts)
+    assert torch.equal(out[0], combine(y, disp)) and torch.equal(aux, disp.aux)
+    assert not bool(disp.keep.all())
+
+
+def test_moe_observe_sees_every_dispatch():
+    """`observe` calls back once per `moe` call with its tokens and
+    dispatch, and stops at the end of the block."""
+    jcfg, p, xt = layer_inputs(40, capacity_factor=0.5)
+    cfg = port_cfg(jcfg)
+    tp = type("P", (), {k: torch.from_numpy(v) for k, v in p.items()})
+    seen = []
+    with observe(lambda q, t, d: seen.append((q, t, d))):
+        out, _ = moe(tp, cfg, torch.from_numpy(xt)[None])
+    moe(tp, cfg, torch.from_numpy(xt)[None])
+    assert len(seen) == 1 and seen[0][0] is tp
+    assert torch.equal(seen[0][1], torch.from_numpy(xt))
+    assert torch.equal(seen[0][2].expert_ids, dispatch(tp, cfg, torch.from_numpy(xt)).expert_ids)
 
 
 # ------------------------------------------------------------- the model ----
