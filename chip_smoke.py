@@ -101,6 +101,21 @@ Phases (any failure raises and the exit code is non-zero):
    counts beside the bound, the plain version and a yardstick of three
    bf16 `torch.bmm` over the whole buffer (no single PyTorch call computes
    this function).
+14. The tile-order path of `morton_matmul`, once, with the launch counts set
+   to 0 just before it and read just after: the port's public
+   `morton_matmul` in bf16 at its default blocks (256 x 256 x 256) on the
+   study's shapes, M = N = K = 8192 and 6,000 x 10,000 x 4,000, in each
+   order; the orders' outputs must be bit-identical and finite.  Then the
+   kernel against its plain version (the fp32 product rounded to the dtype)
+   over the shapes of tests/test_kernels.py at 128 x 128 x 64 (the clamped
+   384 x 256 grid and the padding shape among them) and the study's shapes
+   at 128 x 128 x 64 and 256 x 256 x 256, fp32 and bf16, each order, within
+   the JAX test's |got - want| / (|want| + 1) < 1e-4 (fp32) and 3e-2 (bf16),
+   the fp32 one grown as K / 512 past the test's K 512 (`mm_bench.rel_tol`);
+   the orders bit-identical; a traced call per order showing that block b
+   computed tile ``tile_order[b]`` and every tile exactly once.  Then the
+   8192^3 bf16 product timed per order at both block sizes, in turns, beside
+   the bound, the plain version and `torch.matmul` in bf16 (a yardstick).
 
 The last three lines are the card's name and power limit, the JSON kernel
 report, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -142,6 +157,9 @@ from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as mg_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
+from repro_torch.kernels.morton_matmul import bench as mm_bench  # noqa: E402
+from repro_torch.kernels.morton_matmul import ops as mm_ops  # noqa: E402
+from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -179,6 +197,11 @@ KERNELS = {
         source="src/repro_torch/kernels/moe_gemm/kernel.cu",
         replaces="src/repro/kernels/moe_gemm/kernel.py:55",
         ops=mg_ops, paths=("moe_serving",)),
+    "morton_matmul": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/morton_matmul/kernel.cu",
+        replaces="src/repro/kernels/morton_matmul/kernel.py:49",
+        ops=mm_ops, paths=("morton_matmul",)),
 }
 
 FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
@@ -203,6 +226,9 @@ MOE_FULL = dict(arch="granite-moe-1b-a400m", key="moe_serving", smoke=False, bat
                 prompt=2048, steps=128, slots=16, requests=24, plen=(64, 256),
                 max_new=32)
 MOE_TINY = SERVE_TINY | dict(arch="granite-moe-1b-a400m", key="moe_serving")
+# the tile-order study's products (M, N, K), and a tiny rehearsal of them
+MM_FULL = mm_bench.SHAPES
+MM_TINY = [(96, 80, 64), (60, 100, 40)]
 
 
 def log(msg: str) -> None:
@@ -1304,6 +1330,99 @@ def moe_timing(dev, name, report, x, wg, wu, wd, counts):
     return t
 
 
+MM_SHAPES = [  # (M, N, K): tests/test_kernels.py:78-80
+    (256, 128, 256), (512, 256, 512), (128, 128, 128),
+    (384, 256, 128),  # a 3 x 2 grid: clamped curve cells
+    (256, 96, 200)]   # the padding path
+MM_TEST_BLOCKS = (128, 128, 64)  # tests/test_kernels.py:90
+
+
+def morton_path(shapes, dev, report):
+    """The public `morton_matmul` in bf16 at its default blocks, in each
+    order, on each shape: the orders' outputs must be bit-identical and
+    finite.  Returns the launches it made."""
+    runs = []
+    for M, N, K in shapes:
+        a, b = mm_bench.inputs(M, N, K, torch.bfloat16, dev)
+        t0 = time.perf_counter()
+        outs = [mm_ops.morton_matmul(a, b, order=o) for o in mm_ops.ORDERS]
+        sync(dev)
+        wall = time.perf_counter() - t0
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise RuntimeError(f"morton_matmul {(M, N, K)}: the orders' outputs differ")
+        if tuple(outs[0].shape) != (M, N) or not bool(torch.isfinite(outs[0]).all()):
+            raise RuntimeError(f"morton_matmul {(M, N, K)}: output not finite or misshapen")
+        runs.append(dict(shape=[M, N, K], orders=list(mm_ops.ORDERS), wall_s=wall))
+        log(f"morton_matmul path {M} x {N} x {K} bf16, default blocks, "
+            f"{len(mm_ops.ORDERS)} orders: bit-identical, finite, {wall:.3f} s")
+        del a, b, outs
+    report["morton_matmul"] = dict(path=runs)
+
+
+def morton_kernel_checks(dev, report, errs):
+    """The kernel against its plain version over the JAX test's shapes and
+    the study's, fp32 and bf16, each order, with a traced call per order
+    (`mm_bench.check_orders`: bit-identical orders, every tile once)."""
+    cases = []
+    for shapes, blocks_list in ((MM_SHAPES, [MM_TEST_BLOCKS]),
+                                (MM_FULL, mm_bench.BLOCKS)):
+        for M, N, K in shapes:
+            for dt in (torch.float32, torch.bfloat16):
+                a, b = mm_bench.inputs(M, N, K, dt, dev)
+                want = morton_matmul_ref(a, b)
+                for blocks in blocks_list:
+                    c = mm_bench.check_orders(a, b, blocks, want)
+                    errs.append(c["max_abs_err"])
+                    cases.append(dict(shape=[M, N, K], dtype=str(dt), blocks=list(blocks),
+                                      max_abs_err=c["max_abs_err"],
+                                      max_rel_err=c["max_rel_err"], tol=c["tol"],
+                                      tiles=c["traces"]["morton"]["tiles"],
+                                      max_start_lag={o: t["max_start_lag"]
+                                                     for o, t in c["traces"].items()}))
+                del a, b, want
+    report["morton_matmul"]["checks"] = cases
+    worst = max(cases, key=lambda c: c["max_rel_err"] / c["tol"])
+    log(f"morton_matmul: {len(cases)} cases x {len(mm_ops.ORDERS)} orders within tolerance "
+        f"of plain (|got - want| / (|want| + 1): 3e-2 bf16, 1e-4 fp32 at K <= 512 and "
+        f"1e-4 K / 512 past it; worst {worst}), the orders bit-identical, every tile "
+        f"computed once by the block tile_order gives it")
+
+
+def morton_timing(dev, name, report):
+    """The 8192^3 bf16 product per order at both block sizes, in turns, by
+    CUDA events (median of 25), beside the bound, the plain version and
+    `torch.matmul` in bf16 (a yardstick, never called by the port)."""
+    M, N, K = MM_FULL[0]
+    a, b = mm_bench.inputs(M, N, K, torch.bfloat16, dev)
+    times = {}
+    for blocks in reversed(mm_bench.BLOCKS):  # the default blocks first
+        bm, bn, bk = blocks
+        per = {o: [] for o in mm_ops.ORDERS}
+        for order in mm_bench.TURNS:
+            per[order].append(event_times(dev, lambda i=0: mm_ops.morton_matmul(
+                a, b, block_m=bm, block_n=bn, block_k=bk, order=order)))
+        times["x".join(map(str, blocks))] = per
+    plain = event_times(dev, lambda i=0: morton_matmul_ref(a, b))
+    lib = event_times(dev, lambda i=0: torch.matmul(a, b))
+    ops_ = 2 * M * N * K
+    bytes_ = a.element_size() * (M * K + K * N + M * N)
+    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    ms = times["256x256x256"]["morton"][0]
+    t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+             bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
+             library="torch.matmul (bf16)", operations=ops_, bytes=bytes_,
+             shape=[M, N, K], orders_ms=times, tflops=ops_ / ms / 1e9)
+    report["morton_matmul"]["timing"] = t
+    for blk, per in times.items():
+        log(f"morton_matmul {M}^3 bf16 blocks {blk}: " + "; ".join(
+            f"{o} {' / '.join(f'{x:.4f}' for x in v)} ms" for o, v in per.items()))
+    log(f"morton_matmul {M}^3 bf16 (morton, default blocks): {ms:.4f} ms, "
+        f"{t['tflops']:.2f} TFLOP/s (plain {plain:.4f} ms; torch.matmul {lib:.4f} ms); "
+        f"bound {bound:.4f} ms by {t['bound_by']} = {100 * bound / ms:.2f}% of the card's peak")
+    return t
+
+
 def rehearse():
     """Both paths at a tiny size on the CPU: control flow only, no kernels,
     no timing claims and no result line."""
@@ -1314,6 +1433,7 @@ def rehearse():
     for sc in (SERVE_TINY, SSM_TINY, MOE_TINY):
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
+    morton_path(MM_TINY, dev, report)
     log(json.dumps({"rehearsal": report}))
     return 0
 
@@ -1443,10 +1563,23 @@ def main(argv=None) -> int:
     del gemm_args, model
     torch.cuda.empty_cache()
 
+    # the tile-order path of morton_matmul
+    t0 = time.perf_counter()
+    reset_launches()
+    morton_path(MM_FULL, dev, report)
+    by_path["morton_matmul"] = read_launches("morton_matmul")
+    log(f"launches on the morton_matmul path: {by_path['morton_matmul']}")
+    errs["morton_matmul"] = []
+    morton_kernel_checks(dev, report, errs["morton_matmul"])
+    timings["morton_matmul"] = morton_timing(dev, name, report)
+    report["morton_matmul"]["phase_s"] = time.perf_counter() - t0
+    log(f"morton_matmul phase {report['morton_matmul']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
                  bound_by="bytes", library_ms=None)]
-    for n in ("flash_attention", "flash_decode", "ssd_scan", "moe_gemm"):
+    for n in ("flash_attention", "flash_decode", "ssd_scan", "moe_gemm", "morton_matmul"):
         t = timings[n]
         rows.append(dict(name=n, max_abs_err=max(errs[n]), ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

@@ -6,6 +6,7 @@ with unequal per-dimension bit widths for anisotropic grids (exhausted
 dimensions drop out of the interleave, so the index stays dense in
 ``[0, prod(2^bits))``).  Pure numpy on the host — the plan is computed
 before any device work, and only the resulting cell list moves to the card.
+The 2-d Hilbert decode serves `kernels/morton_matmul`'s tile orders.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import functools
 from typing import Sequence, Tuple
 
 import numpy as np
+
 
 @functools.lru_cache(maxsize=None)
 def bit_placement(bits: Tuple[int, ...]) -> Tuple[Tuple[int, int], ...]:
@@ -63,3 +65,29 @@ def morton_encode_torch(coords, bits: Tuple[int, ...]):
     for pos, (dim, src_bit) in enumerate(bit_placement(bits)):
         out |= ((coords[..., dim] >> src_bit) & 1) << pos
     return out
+
+
+def hilbert_decode_2d(t, order: int):
+    """Vectorized 2-d Hilbert curve decode: t -> (x, y) on a 2^order grid.
+
+    Every step of the curve moves to a grid neighbour, the property a
+    capacity-1 panel-reuse schedule wants (`kernels/morton_matmul`).
+    """
+    t = np.asarray(t, dtype=np.int64)
+    x = np.zeros_like(t)
+    y = np.zeros_like(t)
+    tt = t.copy()
+    for s in range(order):
+        rx = (tt >> 1) & 1
+        ry = (tt ^ rx) & 1
+        swap = ry == 0  # rotate the quadrant
+        flip = swap & (rx == 1)
+        side = 1 << s
+        x_f = np.where(flip, side - 1 - x, x)
+        y_f = np.where(flip, side - 1 - y, y)
+        x_r = np.where(swap, y_f, x_f)
+        y_r = np.where(swap, x_f, y_f)
+        x = x_r + rx * side
+        y = y_r + ry * side
+        tt >>= 2
+    return x, y

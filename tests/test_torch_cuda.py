@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.morton_matmul import ops as mm_ops
+from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.vision import synapse_detector as sd
@@ -439,3 +441,72 @@ def test_moe_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
     assert mg_ops.launches >= before + cfg.n_layers * 11
     assert torch.equal(served["cuda"][0], served["cpu"][0])
     assert served["cuda"][1] == served["cpu"][1]
+
+
+# tests/test_kernels.py:78-80, then a grid of 3 x 3 blocks with non-consecutive
+# repeats, a ragged edge in every dimension and a row stride that is not a
+# multiple of 16 bytes
+MM_SHAPES = [(256, 128, 256), (512, 256, 512), (128, 128, 128), (384, 256, 128),
+             (256, 96, 200), (300, 300, 300), (130, 67, 33)]
+MM_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # tests/test_kernels.py:96
+
+
+@pytest.mark.parametrize("mnk", MM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [(128, 128, 64), (256, 256, 256)])
+def test_morton_matmul_kernel_matches_plain_in_every_order(cuda, mnk, dtype, blocks):
+    """Within the JAX test's tolerance of the plain version, the three
+    orders bit-identical, and every tile computed once, by the block that
+    `tile_order` gives it."""
+    M, N, K = mnk
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((K, N), generator=gen, device=cuda).to(dtype)
+    want = morton_matmul_ref(a, b).float()
+    bm, bn, bk, nm, nn = mm_ops.grid(M, N, K, *blocks)
+    outs = []
+    for order in mm_ops.ORDERS:
+        trace = mm_ops.new_trace(nm, nn, cuda)
+        before = mm_ops.launches
+        got = mm_ops.morton_matmul(a, b, block_m=bm, block_n=bn, block_k=bk,
+                                   order=order, trace=trace)
+        assert mm_ops.launches == before + 1
+        assert got.dtype == dtype and tuple(got.shape) == (M, N)
+        rel = (got.float() - want).abs() / (want.abs() + 1)
+        assert float(rel.max()) < MM_REL[dtype]
+        mm_ops.check_trace(trace, mm_ops.tile_order(nm, nn, order, cuda))
+        outs.append(got)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_morton_matmul_takes_unaligned_operands(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    base = torch.randn(70 * 45 + 1, generator=gen, device=cuda)
+    a = base[1:].view(70, 45)  # 4-byte aligned, rows of 180 bytes
+    b = torch.randn((45, 29), generator=gen, device=cuda)
+    got = mm_ops.morton_matmul(a, b, block_m=32, block_n=16, block_k=8, order="hilbert")
+    want = morton_matmul_ref(a, b)
+    assert float(((got - want).abs() / (want.abs() + 1)).max()) < 1e-4
+
+
+def test_morton_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((64, 32), device=cuda)
+    b = torch.zeros((32, 16), device=cuda)
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        mm_ops.morton_matmul(a, b.bfloat16())
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        mm_ops.morton_matmul(a.half(), b.half())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        mm_ops.morton_matmul(a, b.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        mm_ops.morton_matmul(a.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="want a"):
+        mm_ops.morton_matmul(a[None], b)
+    with pytest.raises(ValueError, match="trace"):
+        mm_ops.morton_matmul(a, b, trace=mm_ops.new_trace(2, 2, cuda))
+
+
+def test_morton_matmul_tile_order_is_built_once_on_the_card(cuda):
+    a = mm_ops.tile_order(47, 79, "hilbert", cuda)
+    assert a.is_cuda and a is mm_ops.tile_order(47, 79, "hilbert", "cuda")
+    assert 1 <= mm_ops.blocks_per_sm(torch.bfloat16) <= 8

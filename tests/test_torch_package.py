@@ -203,6 +203,24 @@ def test_moe_gemm_binding_matches_its_c_entry():
     assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
 
 
+def test_morton_matmul_binding_matches_its_c_entry():
+    """The ctypes argument list declares as many arguments as the C entry
+    point takes, and the wrapper passes that many."""
+    import inspect
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.morton_matmul import ops
+
+    src = _build.source_of("morton_matmul").read_text()
+    params = re.search(r'extern "C" int morton_matmul_launch\(([^)]*)\)', src).group(1)
+    assert len(params.split(",")) == len(ops.ARGTYPES)
+    tree = ast.parse(inspect.getsource(ops.morton_matmul_cuda))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "fn"]
+    assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
+
+
 def test_moe_gemm_wrapper_never_reads_counts_on_the_host():
     """The dispatch and the kernel wrapper keep counts on the device: no
     host sync per layer (.item(), .tolist(), .cpu(), int(), bool masks)."""
