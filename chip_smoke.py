@@ -49,8 +49,9 @@ Phases (any failure raises and the exit code is non-zero):
    small cases' tolerances.
 7. `flash_attention` and `flash_decode` against their plain versions on
    the card over the shapes of tests/test_kernels.py (fp32 at 2e-5, bf16
-   at 2e-2; causal, non-causal, window 48; per-sequence lengths) and
-   smollm's heads over 1,024-2,176 cached positions (split kv axes), then
+   at 2e-2; causal, non-causal, window 48; per-sequence lengths), smollm's
+   heads over 1,024-2,176 cached positions (split kv axes) and 10 and 16
+   query heads per kv head (`flash_decode` takes any group), then
    timed at the serving path's shapes (CUDA events, median of >= 20)
    beside the bound, the plain version and one PyTorch call computing the
    same function (scaled_dot_product_attention, timed here only).
@@ -116,6 +117,9 @@ Phases (any failure raises and the exit code is non-zero):
    computed tile ``tile_order[b]`` and every tile exactly once.  Then the
    8192^3 bf16 product timed per order at both block sizes, in turns, beside
    the bound, the plain version and `torch.matmul` in bf16 (a yardstick).
+
+`flash_attention` and `morton_matmul` have two bodies, a tensor-core one
+for bf16 and an FMA one for fp32; each phase prints which body ran.
 
 The last three lines are the card's name and power limit, the JSON kernel
 report, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -248,6 +252,18 @@ def hbm_peak_bytes_per_s(name: str) -> float:
 def bf16_peak_flops(name: str) -> float:
     """Published dense bf16 tensor rate of the H100 (NVIDIA data sheet)."""
     return 756e12 if "PCIe" in name else 989e12  # PCIe, else SXM
+
+
+# which body of a kernel a dtype runs: flash_attention and morton_matmul
+# have a tensor-core body for bf16 and an FMA body for fp32
+TC_BODIES = {"flash_attention": "tensor-core bf16 (mma.sync m16n8k16)",
+             "morton_matmul": "tensor-core bf16 (wgmma m64nNk16 + TMA)"}
+
+
+def body(kernel: str, dtype: torch.dtype) -> str:
+    if dtype == torch.bfloat16 and kernel in TC_BODIES:
+        return TC_BODIES[kernel]
+    return f"FMA {str(dtype)[6:]} (CUDA cores)"
 
 
 # --------------------------------------------------------------- volume ----
@@ -801,7 +817,8 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
             err = check_close(f"layer-0 {phase} attention {tag}", got, want, tol,
                               errs[kname])
             checks[f"{phase}_{tag}"] = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
-            log(f"layer-0 {phase} attention, {tag}, full width: max |kernel - plain| "
+            log(f"layer-0 {phase} attention, {tag} [{kname}: {body(kname, dt)}], full width: "
+                f"max |kernel - plain| "
                 f"{err:.3g}, mean |out| {mean_abs:.3g}, within atol {tol['atol']:.3g} "
                 f"rtol {tol['rtol']:.3g}")
             del got, want, args
@@ -862,7 +879,9 @@ ATTN_SHAPES = [  # (B, Sq, Skv, H, K, D): tests/test_kernels.py:37-44
 FD_SHAPES = [  # (B, S, H, K, D, cache_len): tests/test_kernels.py:262-267
     (2, 128, 8, 2, 64, 128), (1, 256, 4, 4, 64, 100), (2, 96, 4, 1, 128, 50),
     (1, 64, 8, 8, 64, 1),
-    (4, 2176, 9, 3, 64, 2100)]  # smollm's heads: the kv axis split, then merged
+    (4, 2176, 9, 3, 64, 2100),  # smollm's heads: the kv axis split, then merged
+    (2, 256, 10, 1, 64, 200), (1, 256, 16, 1, 128, 256),  # G 10 and 16
+    (2, 2176, 16, 1, 64, 2100)]  # G 16 over a split kv axis
 
 
 def attention_kernel_checks(dev, errs):
@@ -897,7 +916,9 @@ def attention_kernel_checks(dev, errs):
     if split_cases < 4:
         raise RuntimeError("the flash_decode checks do not reach the split path in "
                            "both dtypes")
-    log(f"flash_attention / flash_decode: {n} small cases within tolerance of plain "
+    log(f"flash_attention ({body('flash_attention', torch.bfloat16)} and "
+        f"{body('flash_attention', torch.float32)}) / flash_decode: {n} small cases within "
+        f"tolerance of plain "
         f"({split_cases} of them over split kv axes)")
 
 
@@ -927,6 +948,7 @@ def attention_timings(sc, dev, cfg, name, report):
         scale=scale, enable_gqa=True))
     bound = max(ops_ / flops, bytes_ / hbm) * 1e3
     out["flash_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                  body=body("flash_attention", bf),
                                   bound_by="operations" if ops_ / flops > bytes_ / hbm
                                   else "bytes", operations=ops_, bytes=bytes_,
                                   shape=[B, S, S, H, K, D], tflops=ops_ / ms / 1e9)
@@ -955,7 +977,8 @@ def attention_timings(sc, dev, cfg, name, report):
                                gbps=bytes_ / ms / 1e6,
                                splits=fd_ops.n_splits(B, K, Sc, dev))
     for kname, t in out.items():
-        log(f"{kname} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+        log(f"{kname} {t['shape']} [{body(kname, bf)}]: {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f} ms, "
             f"scaled_dot_product_attention {t['library_ms']:.4f} ms), bound "
             f"{t['bound_ms']:.4f} ms by {t['bound_by']} = {100 * t['bound_ms'] / t['ms']:.2f}% "
             f"of the card's peak")
@@ -1353,7 +1376,8 @@ def morton_path(shapes, dev, report):
         if tuple(outs[0].shape) != (M, N) or not bool(torch.isfinite(outs[0]).all()):
             raise RuntimeError(f"morton_matmul {(M, N, K)}: output not finite or misshapen")
         runs.append(dict(shape=[M, N, K], orders=list(mm_ops.ORDERS), wall_s=wall))
-        log(f"morton_matmul path {M} x {N} x {K} bf16, default blocks, "
+        log(f"morton_matmul path {M} x {N} x {K} bf16 [{body('morton_matmul', torch.bfloat16)}], "
+            f"default blocks, "
             f"{len(mm_ops.ORDERS)} orders: bit-identical, finite, {wall:.3f} s")
         del a, b, outs
     report["morton_matmul"] = dict(path=runs)
@@ -1374,6 +1398,7 @@ def morton_kernel_checks(dev, report, errs):
                     c = mm_bench.check_orders(a, b, blocks, want)
                     errs.append(c["max_abs_err"])
                     cases.append(dict(shape=[M, N, K], dtype=str(dt), blocks=list(blocks),
+                                      body=body("morton_matmul", dt),
                                       max_abs_err=c["max_abs_err"],
                                       max_rel_err=c["max_rel_err"], tol=c["tol"],
                                       tiles=c["traces"]["morton"]["tiles"],
@@ -1382,7 +1407,9 @@ def morton_kernel_checks(dev, report, errs):
                 del a, b, want
     report["morton_matmul"]["checks"] = cases
     worst = max(cases, key=lambda c: c["max_rel_err"] / c["tol"])
-    log(f"morton_matmul: {len(cases)} cases x {len(mm_ops.ORDERS)} orders within tolerance "
+    log(f"morton_matmul ({body('morton_matmul', torch.bfloat16)} and "
+        f"{body('morton_matmul', torch.float32)}): {len(cases)} cases x "
+        f"{len(mm_ops.ORDERS)} orders within tolerance "
         f"of plain (|got - want| / (|want| + 1): 3e-2 bf16, 1e-4 fp32 at K <= 512 and "
         f"1e-4 K / 512 past it; worst {worst}), the orders bit-identical, every tile "
         f"computed once by the block tile_order gives it")
@@ -1411,13 +1438,15 @@ def morton_timing(dev, name, report):
     ms = times["256x256x256"]["morton"][0]
     t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
              bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
-             library="torch.matmul (bf16)", operations=ops_, bytes=bytes_,
+             library="torch.matmul (bf16)", body=body("morton_matmul", torch.bfloat16),
+             operations=ops_, bytes=bytes_,
              shape=[M, N, K], orders_ms=times, tflops=ops_ / ms / 1e9)
     report["morton_matmul"]["timing"] = t
     for blk, per in times.items():
         log(f"morton_matmul {M}^3 bf16 blocks {blk}: " + "; ".join(
             f"{o} {' / '.join(f'{x:.4f}' for x in v)} ms" for o, v in per.items()))
-    log(f"morton_matmul {M}^3 bf16 (morton, default blocks): {ms:.4f} ms, "
+    log(f"morton_matmul {M}^3 bf16 [{body('morton_matmul', torch.bfloat16)}] (morton, "
+        f"default blocks): {ms:.4f} ms, "
         f"{t['tflops']:.2f} TFLOP/s (plain {plain:.4f} ms; torch.matmul {lib:.4f} ms); "
         f"bound {bound:.4f} ms by {t['bound_by']} = {100 * bound / ms:.2f}% of the card's peak")
     return t
@@ -1568,7 +1597,9 @@ def main(argv=None) -> int:
     reset_launches()
     morton_path(MM_FULL, dev, report)
     by_path["morton_matmul"] = read_launches("morton_matmul")
-    log(f"launches on the morton_matmul path: {by_path['morton_matmul']}")
+    report["morton_matmul"]["padded_copies"] = mm_ops.padded_copies
+    log(f"launches on the morton_matmul path: {by_path['morton_matmul']}; bf16 operands "
+        f"copied for TMA: {mm_ops.padded_copies}")
     errs["morton_matmul"] = []
     morton_kernel_checks(dev, report, errs["morton_matmul"])
     timings["morton_matmul"] = morton_timing(dev, name, report)

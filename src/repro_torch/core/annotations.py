@@ -4,8 +4,11 @@ An `AnnotationProject` pairs a host metadata table (a small RAMON-like
 ontology with predicate queries) and a host object index with a label
 database held as a `DeviceCuboidStore` registered to an image dataset.
 Labels are uint32 identifiers in the reference; on the device they are
-int32 (identifiers stay below 2^31) and come back as uint32 at the numpy
-boundary (`carry`).
+held as int32 with the same bits, so an id at or above 2^31 is stored as
+a negative int32.  Ids are uint32 at every boundary: index keys and
+metadata use the unsigned value (`_uint_ids`), writes reinterpret uint32
+labels bit for bit, and reads compare against an id's int32 view
+(`_stored_id`); the numpy boundary (`carry`) hands back uint32.
 
 The batch write applies many objects as one voxel scatter with the same
 result as writing them one after another: for ``overwrite`` the last
@@ -31,6 +34,16 @@ from .spatial_index import ObjectIndex
 from .store import DeviceCuboidStore
 
 RAMON_TYPES = ("generic", "seed", "synapse", "segment", "neuron", "organelle")
+
+
+def _stored_id(ann_id: int) -> int:
+    """The int32 that holds uint32 id ``ann_id`` on the device."""
+    return int(np.array(ann_id, dtype=np.uint32).view(np.int32))
+
+
+def _uint_ids(ids: torch.Tensor) -> torch.Tensor:
+    """Stored int32 ids as their uint32 values, in int64."""
+    return ids.to(torch.int64) & 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -120,7 +133,7 @@ class AnnotationProject:
         grid = self.spec.grid(r)
         cs = torch.tensor(grid.cuboid_shape, device=coords.device)
         cell = morton.morton_encode_torch(coords // cs, grid.bits)
-        keys = torch.unique(ids.to(torch.int64) * grid.n_cells + cell).tolist()
+        keys = torch.unique(_uint_ids(ids) * grid.n_cells + cell).tolist()
         updates: Dict[int, set] = {}
         for key in keys:
             updates.setdefault(key // grid.n_cells, set()).add(key % grid.n_cells)
@@ -138,7 +151,10 @@ class AnnotationProject:
         Visible at resolution ``r`` at once; other levels stay stale until
         the label hierarchy is rebuilt (deferred consistency, paper §3.2).
         """
-        labels = as_device_tensor(labels, self.store.device).to(torch.int32)
+        labels = as_device_tensor(labels, self.store.device)
+        # uint32 ids keep their bits; other integer labels are cast
+        labels = (labels.view(torch.int32) if labels.dtype == torch.uint32
+                  else labels.to(torch.int32))
         write_cutout(self.store, r, lo, labels, discipline=discipline)
         nz = labels.nonzero()
         coords = nz + torch.tensor([int(l) for l in lo], device=nz.device)
@@ -182,7 +198,7 @@ class AnnotationProject:
             los, device=dev)[order_t]
         keep = self._in_volume(r, coords_t)
         coords_t, order_t = coords_t[keep], order_t[keep]
-        ids_t = torch.tensor(ids, dtype=torch.int32, device=dev)
+        ids_t = torch.from_numpy(np.asarray(ids, dtype=np.uint32).view(np.int32)).to(dev)
         self._scatter_labels(r, coords_t, order_t, ids_t, discipline)
         self._index_voxels(r, coords_t, ids_t[order_t])
         return ids
@@ -228,7 +244,7 @@ class AnnotationProject:
             return np.zeros((0, grid.rank), dtype=np.int64)
         rows = packed.index_select(
             0, torch.tensor(cells, dtype=torch.int64, device=packed.device))
-        hit = (rows == int(ann_id)).nonzero().cpu().numpy()
+        hit = (rows == _stored_id(ann_id)).nonzero().cpu().numpy()
         origins = morton.morton_decode(np.asarray(cells),
                                        grid.bits) * np.asarray(grid.cuboid_shape)
         return origins[hit[:, 0]] + hit[:, 1:]

@@ -27,7 +27,7 @@ SLAB_ELEMENTS = 1 << 29
 
 def as_device_tensor(data, device: torch.device) -> torch.Tensor:
     """A tensor on ``device`` from a tensor or numpy array; uint32 labels
-    become int32 (identifiers stay below 2^31)."""
+    become int32 with the same bits (ids at or above 2^31 turn negative)."""
     if isinstance(data, torch.Tensor):
         return data.to(device)
     arr = np.asarray(data)

@@ -11,10 +11,10 @@ level that was never written returns zeros, like the reference's lazy
 cuboids.  That keeps an annotation project registered to a large image
 dataset from allocating label levels it never touches.
 
-Label data (``dtype="uint32"``) is held as int32 on the device: PyTorch's
-uint32 lacks ``index_select`` and ``max``, and identifiers stay below
-2^31.  Data movement copies bytes, so the values are unchanged; the numpy
-boundary (`carry`) hands back uint32.
+Label data (``dtype="uint32"``) is held as int32 on the device with the
+same bits: PyTorch's uint32 lacks ``index_select`` and ``max``.  Data
+movement copies bytes, so the values are unchanged; the numpy boundary
+(`carry`) hands back uint32.
 """
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ passes ``data_ptr()`` integers and PyTorch's current stream.  No PyTorch
 header is included, so a build takes seconds rather than the minutes a
 ``torch/extension.h`` translation unit costs.
 
-Libraries are keyed by a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is reused.  `build` compiles several
-sources at once, one ``nvcc`` each.  A failed build raises with the
+Libraries are keyed by a hash of the source, of every header it includes
+with ``#include "..."`` (found beside the source or in this directory,
+which nvcc gets as ``-I``; `includes`), and of the flags, so an edited
+kernel or header is rebuilt and an unchanged one is reused.  `build`
+compiles several sources at once, one ``nvcc`` each.  A failed build raises with the
 compiler's output; nothing falls back to another implementation.
 
     python -m repro_torch.kernels._build     # on a machine with nvcc
@@ -23,18 +25,22 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_ext"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
+
+INCLUDE_FLAGS = ("-I", str(KERNELS_DIR))  # for the shared headers (_hopper.cuh)
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_guard = threading.Lock()
@@ -57,10 +63,35 @@ def source_of(name: str) -> pathlib.Path:
     return KERNELS_DIR / name / "kernel.cu"
 
 
+def includes(src: pathlib.Path) -> List[pathlib.Path]:
+    """The headers ``src`` includes with ``#include "..."``, and theirs, in
+    the order first met; each is looked up beside its includer, then in
+    the kernels' directory (nvcc's ``-I``)."""
+    found: List[pathlib.Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_text()):
+            for base in (cur.parent, KERNELS_DIR):
+                path = (base / name).resolve()
+                if path.exists():
+                    if path not in found:
+                        found.append(path)
+                        todo.append(path)
+                    break
+            else:
+                raise FileNotFoundError(f"{cur} includes {name!r}, which is not in "
+                                        f"{cur.parent} or {KERNELS_DIR}")
+    return found
+
+
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256(source_of(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    src = source_of(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in includes(src):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(names: Iterable[str]) -> None:
@@ -73,7 +104,8 @@ def _compile(names: Iterable[str]) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_of(name))]
+        cmd = [_nvcc(), *NVCC_FLAGS, *INCLUDE_FLAGS, "-o", str(tmp),
+               str(source_of(name))]
         started.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []

@@ -3,7 +3,10 @@
 `flash_attention` launches the hand-written CUDA kernel (``kernel.cu``)
 for tensors on the card and uses the plain PyTorch version (``ref.py``)
 only for tensors on the CPU.  `launches` counts kernel launches, so a run
-can show that its path went through the kernel.
+can show that its path went through the kernel.  In bf16 the kernel runs
+on the tensor cores and moves q, k and v in 16-byte chunks: a tensor whose
+base or strides do not allow that goes to the same kernel as an explicit
+contiguous copy (`chunk_ready`), counted in `aligned_copies`.
 """
 from __future__ import annotations
 
@@ -21,13 +24,14 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 64  # query heads per kv head: one block holds them all
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke)
+aligned_copies = 0  # bf16 inputs copied for 16-byte chunks since the last reset
 _count_guard = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, aligned_copies
     with _count_guard:
-        launches = 0
+        launches = aligned_copies = 0
 
 
 def _count_launch() -> None:
@@ -38,19 +42,48 @@ def _count_launch() -> None:
 
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# q, k, v, out; B, Sq, Skv, K, G, D; 12 strides; causal, window; scale;
+# dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 4 + [_I64] * 20 + [ctypes.c_float, _I64, ctypes.c_void_p]
 
 
 def _entry():
     fn = _build.library(NAME).flash_attention_launch
     if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [_I64] * 20
-                       + [ctypes.c_float, _I64, ctypes.c_void_p])
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
 
+def launch_args(q, k, v, out, *, causal: bool, scale: float, window: Optional[int]):
+    """The C entry's arguments but the stream, for tensors the wrapper has
+    checked."""
+    B, Sq, H, D = q.shape
+    _, Skv, K, _ = k.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, K,
+            H // K, D, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+            int(causal), window or 0, scale, _DTYPES[q.dtype])
+
+
 def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def chunk_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 body can move ``t`` (B, S, heads, D) in 16-byte
+    chunks: a 16-byte aligned base, and every stride a multiple of 8
+    elements (the D axis contiguous)."""
+    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(t.stride(i) % 8 == 0 for i in range(3)))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    global aligned_copies
+    if chunk_ready(t):
+        return t
+    with _count_guard:
+        aligned_copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,13 +116,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Skv, K, G, D, *_strides(q), *_strides(k), *_strides(v),
-                 *_strides(out), int(causal), window or 0, scale,
-                 _DTYPES[q.dtype], stream)
+        err = fn(*launch_args(q, k, v, out, causal=causal, scale=scale, window=window),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed (cudaError {err})")
     _count_launch()

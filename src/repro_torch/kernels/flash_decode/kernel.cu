@@ -28,8 +28,10 @@
 // so a warp reads 32 / LP rows per step, coalesced; each group of LP lanes
 // keeps its own online softmax over its rows for all G heads (partial
 // dot products reduced by xor shuffles inside the group), and the block's
-// groups are merged through shared memory at the end.  Plain fp32 FMAs.
-// D is 16, 32, 64, 128 or 256; G at most 8.
+// groups are merged through shared memory at the end.  The G query heads
+// are held in registers GM (4 or 8) at a time; a larger G walks the rows
+// once per group of 8, so any G is taken.  Plain fp32 FMAs.  D is 16, 32,
+// 64, 128 or 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,91 +106,98 @@ __global__ void __launch_bounds__(kThreads)
   const int len = min(max(lens[b], 0), S);
   const int lo = split * chunk, hi = min(lo + chunk, len);
 
-  float qr[GM][EPL], acc[GM][EPL], m[GM], l[GM];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    m[g] = kNeg;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      acc[g][e] = 0.f;
-      qr[g][e] = g < G ? to_float(q[b * qs.b + (kh * G + g) * qs.h +
-                                    sub * EPL + e]) * scale
-                       : 0.f;
-    }
-  }
+  const int64_t part = ((int64_t)b * K + kh) * nsplit + split;
 
-  // warp-uniform trip count (the shuffles need every lane); a lane whose
-  // row is past `hi` reads nothing and leaves its state as it is
-  for (int base = lo + warp * L::RPW; base < hi; base += L::GROUPS) {
-    const int pos = base + lane / L::LP;
-    const bool live = pos < hi;
-    float kr[EPL], vr[EPL];
-    if (live) {
-      const uint4* kp = reinterpret_cast<const uint4*>(
-          k + b * ks.b + pos * ks.s + kh * ks.h + sub * EPL);
-      const uint4* vp = reinterpret_cast<const uint4*>(
-          v + b * vs.b + pos * vs.s + kh * vs.h + sub * EPL);
-#pragma unroll
-      for (int n = 0; n < L::NV; ++n) {
-        unpack(__ldg(kp + n), kr + n * VEC, T());
-        unpack(__ldg(vp + n), vr + n * VEC, T());
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) kr[e] = vr[e] = 0.f;
-    }
+  // the G heads in register groups of GM: each group walks the block's
+  // rows again (from L2 after the first), so any G is taken
+  for (int g0 = 0; g0 < G; g0 += GM) {
+    const int gn = min(GM, G - g0);  // heads in this group
+    float qr[GM][EPL], acc[GM][EPL], m[GM], l[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g >= G) break;
-      float s = 0.f;
+      m[g] = kNeg;
+      l[g] = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) s = fmaf(qr[g][e], kr[e], s);
-#pragma unroll
-      for (int o = L::LP / 2; o > 0; o /= 2)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (live) {
-        const float m_new = fmaxf(m[g], s);
-        const float corr = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
-        const float pr = to_float(from_float<T>(p));
-        l[g] = l[g] * corr + p;
-        m[g] = m_new;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pr, vr[e], acc[g][e] * corr);
+      for (int e = 0; e < EPL; ++e) {
+        acc[g][e] = 0.f;
+        qr[g][e] = g < gn ? to_float(q[b * qs.b + (kh * G + g0 + g) * qs.h +
+                                       sub * EPL + e]) * scale
+                          : 0.f;
       }
     }
-  }
 
-  // merge the block's groups
+    // warp-uniform trip count (the shuffles need every lane); a lane whose
+    // row is past `hi` reads nothing and leaves its state as it is
+    for (int base = lo + warp * L::RPW; base < hi; base += L::GROUPS) {
+      const int pos = base + lane / L::LP;
+      const bool live = pos < hi;
+      float kr[EPL], vr[EPL];
+      if (live) {
+        const uint4* kp = reinterpret_cast<const uint4*>(
+            k + b * ks.b + pos * ks.s + kh * ks.h + sub * EPL);
+        const uint4* vp = reinterpret_cast<const uint4*>(
+            v + b * vs.b + pos * vs.s + kh * vs.h + sub * EPL);
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (sub == 0) {
-      sm_m[grp][g] = m[g];
-      sm_l[grp][g] = l[g];
-    }
+        for (int n = 0; n < L::NV; ++n) {
+          unpack(__ldg(kp + n), kr + n * VEC, T());
+          unpack(__ldg(vp + n), vr + n * VEC, T());
+        }
+      } else {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_o[grp][g][sub * EPL + e] = acc[g][e];
-  }
-  __syncthreads();
-  const int64_t part = ((int64_t)b * K + kh) * nsplit + split;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D, d = i - (i / D) * D;
-    float M = kNeg;
-    for (int r = 0; r < L::GROUPS; ++r) M = fmaxf(M, sm_m[r][g]);
-    float Ls = 0.f, A = 0.f;
-    for (int r = 0; r < L::GROUPS; ++r) {
-      const float w = expf(sm_m[r][g] - M);
-      Ls = fmaf(sm_l[r][g], w, Ls);
-      A = fmaf(sm_o[r][g][d], w, A);
+        for (int e = 0; e < EPL; ++e) kr[e] = vr[e] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= gn) break;
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) s = fmaf(qr[g][e], kr[e], s);
+#pragma unroll
+        for (int o = L::LP / 2; o > 0; o /= 2)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (live) {
+          const float m_new = fmaxf(m[g], s);
+          const float corr = expf(m[g] - m_new);
+          const float p = expf(s - m_new);
+          const float pr = to_float(from_float<T>(p));
+          l[g] = l[g] * corr + p;
+          m[g] = m_new;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pr, vr[e], acc[g][e] * corr);
+        }
+      }
     }
-    if (nsplit == 1) {
-      out[b * os.b + (kh * G + g) * os.h + d] = from_float<T>(A / fmaxf(Ls, 1e-30f));
-    } else {
-      part_o[part * G * D + i] = A;
-      if (d == 0) {
-        part_m[part * G + g] = M;
-        part_l[part * G + g] = Ls;
+
+    // merge the block's groups
+    __syncthreads();  // the previous head group's merge is done with sm_*
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (sub == 0) {
+        sm_m[grp][g] = m[g];
+        sm_l[grp][g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sm_o[grp][g][sub * EPL + e] = acc[g][e];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < gn * D; i += kThreads) {
+      const int g = i / D, d = i - (i / D) * D, h = g0 + g;
+      float M = kNeg;
+      for (int r = 0; r < L::GROUPS; ++r) M = fmaxf(M, sm_m[r][g]);
+      float Ls = 0.f, A = 0.f;
+      for (int r = 0; r < L::GROUPS; ++r) {
+        const float w = expf(sm_m[r][g] - M);
+        Ls = fmaf(sm_l[r][g], w, Ls);
+        A = fmaf(sm_o[r][g][d], w, A);
+      }
+      if (nsplit == 1) {
+        out[b * os.b + (kh * G + h) * os.h + d] = from_float<T>(A / fmaxf(Ls, 1e-30f));
+      } else {
+        part_o[(part * G + h) * D + d] = A;
+        if (d == 0) {
+          part_m[part * G + h] = M;
+          part_l[part * G + h] = Ls;
+        }
       }
     }
   }
@@ -248,8 +257,7 @@ cudaError_t launch(const Args& a) {
 template <typename T, int D>
 cudaError_t dispatch_g(const Args& a) {
   if (a.G <= 4) return launch<T, D, 4>(a);
-  if (a.G <= 8) return launch<T, D, 8>(a);
-  return cudaErrorInvalidValue;
+  return launch<T, D, 8>(a);  // groups of 8 heads, the last one partial
 }
 
 template <typename T>
@@ -286,7 +294,7 @@ extern "C" int flash_decode_launch(
     int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
     int64_t osb, int64_t osh, int64_t nsplit, float scale, int64_t dtype,
     void* stream) {
-  if (nsplit < 1) return cudaErrorInvalidValue;
+  if (nsplit < 1 || G < 1) return cudaErrorInvalidValue;
   if (B <= 0 || K <= 0) return cudaSuccess;
   Args a{q,
          k,

@@ -1,10 +1,16 @@
 """The tile-order study: `morton_matmul` on the card in its three orders.
 
     python -m repro_torch.kernels.morton_matmul.bench [--out FILE] [--reps N]
+        [--against OLD.cu]
 
 (with ``src`` on ``PYTHONPATH``, on a machine with a CUDA card and nvcc).
 Prints the card, the compiler's register and spill report for
-``kernel.cu`` and the kernel's blocks per SM, then for M = N = K = 8192
+``kernel.cu``, how many ``HGMMA`` (wgmma) instructions its SASS holds, and
+the kernel's blocks per SM.  With ``--against``, another source with the
+same C entry point (an earlier ``kernel.cu``) is built with the same flags
+and timed in turns with this one (other, this, this, other) in bf16 at
+default blocks (Morton order) on both shapes, with the largest difference
+between the two outputs.  Then for M = N = K = 8192
 (a square grid) and M 6,000, N 10,000, K 4,000 (a ragged grid whose Morton
 and Hilbert walks have clamped cells), in bf16 and fp32, at blocks 128 x
 128 x 64 and 256 x 256 x 256:
@@ -28,6 +34,7 @@ With ``--out`` the whole study is written as JSON.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import pathlib
 import sys
@@ -47,6 +54,48 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # tests/test_kernels.py:96
 CAPACITIES = (1, 4, 16, 64)
 TURNS = ("morton", "hilbert", "rowmajor", "rowmajor", "hilbert", "morton")
+
+
+def _bind(lib: pathlib.Path):
+    """`morton_matmul` (contiguous, aligned operands) through another build
+    of the kernel's C entry point."""
+    fn = ctypes.CDLL(str(lib)).morton_matmul_launch
+    fn.argtypes = ops.ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def matmul(a, b, blocks=(256, 256, 256), order="morton"):
+        (M, K), N = a.shape, b.shape[1]
+        bm, bn, bk, nm, nn = ops.grid(M, N, K, *blocks)
+        tiles = ops.tile_order(nm, nn, order, a.device)
+        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), tiles.data_ptr(), None, M, N,
+                 K, bm, bn, bk, nm * nn, int(a.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"morton_matmul launch failed (cudaError {err})")
+        return out
+
+    return matmul
+
+
+def against(other, reps: int, dev) -> list:
+    """This kernel and ``other`` in bf16 at default blocks on each shape, in
+    turns (other, this, this, other)."""
+    rows = []
+    for M, N, K in SHAPES:
+        a, b = inputs(M, N, K, torch.bfloat16, dev)
+        diff = float((ops.morton_matmul(a, b).float() - other(a, b).float()).abs().max())
+        runs = [("other", lambda: other(a, b)), ("this", lambda: ops.morton_matmul(a, b))]
+        ms = {"other": [], "this": []}
+        for name, fn in (runs[0], runs[1], runs[1], runs[0]):
+            ms[name].append(_bench.event_ms(fn, reps))
+        rows.append(dict(shape=[M, N, K], ms=ms, max_abs_diff=diff))
+        print(f"--against {M} x {N} x {K} bf16: other {' / '.join(f'{t:.4f}' for t in ms['other'])}"
+              f" ms; this {' / '.join(f'{t:.4f}' for t in ms['this'])} ms; max |this - other| "
+              f"{diff:.4g}", flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+    return rows
 
 
 def bound_ms(M: int, N: int, K: int, dtype: torch.dtype) -> tuple:
@@ -127,6 +176,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, help="write the study as JSON here")
     ap.add_argument("--reps", type=int, default=21, help="timed calls per median")
+    ap.add_argument("--against", type=pathlib.Path,
+                    help="another morton_matmul kernel source to time in turns with this one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device; nothing measured", file=sys.stderr)
@@ -134,11 +185,17 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")  # and TF32 off for the plain version
     card = _bench.card()
     print(card)
-    print("kernel.cu:", _bench.compile_with_report(_build.source_of(ops.NAME),
-                                                   _build.BUILD_DIR / "bench" / "mm.so"),
-          flush=True)
+    lib = _build.BUILD_DIR / "bench" / "mm.so"
+    print("kernel.cu:", _bench.compile_with_report(_build.source_of(ops.NAME), lib), flush=True)
+    sass = _bench.sass_counts(lib, ("HGMMA", "HMMA", "FFMA"))
+    print(f"kernel.cu SASS: {sass}", flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    study = dict(card=card, sms=sms, cases=[])
+    study = dict(card=card, sms=sms, sass=sass, cases=[])
+    if args.against:
+        other_lib = _build.BUILD_DIR / "bench" / "mm-other.so"
+        print(f"{args.against}:", _bench.compile_with_report(args.against, other_lib), flush=True)
+        study["against"] = dict(source=str(args.against),
+                                rows=against(_bind(other_lib), args.reps, dev))
     for M, N, K in SHAPES:
         for dname, dtype in DTYPES.items():
             a, b = inputs(M, N, K, dtype, dev)

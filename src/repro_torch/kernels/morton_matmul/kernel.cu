@@ -4,14 +4,12 @@
 // Replaces the Pallas kernel `morton_matmul_kernel`
 // (src/repro/kernels/morton_matmul/kernel.py:49, pallas_call at :101).
 //
-// What it computes.  out = a (M, K) . b (K, N), summed in fp32 over k in
-// order, rounded once to T (float or bfloat16).  For fp32 operands the
-// products are fp32 FMAs (the TPU kernel's HIGHEST precision; no TF32);
-// bf16 operands are widened to fp32, whose products are exact.  The output
-// is cut into (bm, bn) tiles, an nm x nn grid with ragged last rows and
-// columns, and block b of the launch computes tile tiles[b] (tile id
-// i * nn + j).  The wrapper builds `tiles` on the host from the TPU
-// kernel's own index maps (kernel.py:63-84) and keeps it on the card.
+// What it computes.  out = a (M, K) . b (K, N), summed in fp32, rounded
+// once to T (float or bfloat16).  The output is cut into (bm, bn) tiles,
+// an nm x nn grid with ragged last rows and columns, and block b of the
+// launch computes tile tiles[b] (tile id i * nn + j).  The wrapper builds
+// `tiles` on the host from the TPU kernel's own index maps (kernel.py:63-84)
+// and keeps it on the card.
 //
 // Duplicate curve cells.  On the TPU the grid is walked in order on one
 // core; for a grid that is not a power of two (or, for Hilbert, not a
@@ -22,36 +20,60 @@
 // duplicate block would write a tile while another writes it too.  So
 // `tiles` is the curve's first visit of each tile: a permutation of the
 // nm * nn tiles, one block each.  Every tile is written exactly once, with
-// no atomics, and each tile's arithmetic does not depend on the order, so
-// the three orders give bit-identical results.  The hardware dispatches
-// blocks in index order, so the launch follows the curve.
+// no atomics and no split of K, and each tile's arithmetic does not depend
+// on the block that computes it, so the three orders give bit-identical
+// results.  The hardware dispatches blocks in index order, so the launch
+// follows the curve.
 //
-// Design.  A block of 256 threads (16 x 16) computes its (bm, bn) tile as
-// consecutive 128 x 128 sub-tiles (a 256 x 256 fp32 accumulator would be
-// 256 KB, past both the registers and shared memory), each thread 8 x 8
-// outputs in registers.  K is walked in block_k steps, as the TPU grid's
-// inner axis walks it, each step in stages of 32 through shared memory: A
-// transposed and B row-major, both in fp32 (33 KB), read as 16-byte
-// vectors (4 vector loads per 64 FMAs).  The next stage's global loads go
-// to registers before the current stage's products.  Loads are 8 values a
-// thread; a chunk that is whole and 16-byte aligned is one or two vector
-// loads, any other (the ragged edges of M, N and K, a block_k step that
-// ends inside a stage, an unaligned row) is loaded value by value with
-// zeros past the edge, so any shape is taken.  Stores past the tile or the
-// matrix are masked.  Offsets are 64-bit.
+// Two bodies.
+//
+// fp32 (the TPU kernel's HIGHEST precision; TF32 would break the JAX
+// test's 1e-4): fp32 FMAs on the CUDA cores, summed over k in order.  A
+// block of 256 threads (16 x 16) computes its (bm, bn) tile as consecutive
+// 128 x 128 sub-tiles (a 256 x 256 fp32 accumulator would be 256 KB, past
+// both the registers and shared memory), each thread 8 x 8 outputs in
+// registers.  K is walked in block_k steps, as the TPU grid's inner axis
+// walks it, each step in stages of 32 through shared memory: A transposed
+// and B row-major (33 KB), read as 16-byte vectors (4 vector loads per 64
+// FMAs).  The next stage's global loads go to registers before the current
+// stage's products.  A chunk that is whole and 16-byte aligned is one or
+// two vector loads, any other (the ragged edges of M, N and K, a block_k
+// step that ends inside a stage, an unaligned row) is loaded value by value
+// with zeros past the edge, so any shape is taken.
+//
+// bf16: Hopper's tensor-core path.  A block of three warpgroups walks its
+// (bm, bn) tile in CTA sub-tiles of 128 x BN (BN 256 when bn > 128, else
+// 128).  Warpgroup 0 is the producer: one thread keeps a ring of 4
+// shared-memory stages filled by TMA (cp.async.bulk.tensor, 128-byte
+// swizzle), each stage a 128 x 64 A box and BN / 64 boxes of 64 x 64 of B,
+// completion counted on a `full` mbarrier per stage.  Warpgroups 1 and 2
+// are consumers, 64 rows of the sub-tile each: they wait on `full`, run
+// four wgmma.mma_async m64nBNk16 products (bf16 in, fp32 accumulators in
+// registers, BN / 2 a thread) reading A K-major and B, row-major (K, N) in
+// memory, MN-major through the descriptor's transpose bit (no transpose
+// copy), keep one stage's products in flight, and release the stage before
+// on an `empty` mbarrier.  K is summed in stages of 64 in order; block_k no
+// longer sets the order of the sum in this body.  The epilogue rounds the
+// accumulators once to bf16 and stores them, masked to the caller's tile
+// and to the matrix, while the producer already loads the next sub-tile.
+// TMA fills the boxes' parts past M, N or K with zeros, which covers the
+// ragged edges.  TMA needs 16-byte aligned bases and row strides: this
+// body reads rows of a and b at a stride of K and N rounded up to a
+// multiple of 8 elements, and the wrapper hands it padded, aligned copies
+// of operands that are not laid out so (and counts them).
 //
 // Bound.  At M = N = K = 8192 in bf16 the work is 2 * M * N * K = 1.10e12
 // operations, 1.11 ms at the card's 989 TFLOP/s bf16 tensor rate, against
 // 0.40 GB of operands and result (each read or written once), 0.12 ms at
 // 3.35 TB/s: operations bound it.  In fp32 the bound is the CUDA cores'
-// 67 TFLOP/s (16.4 ms).  This kernel does fp32 FMAs on the CUDA cores in
-// both cases, so in bf16 it sits far above its bound, and the tile order
-// can change little while the FMAs take the time: the curve decides which
-// A and B panels the blocks in flight share in L2, which matters once the
-// products run on tensor cores (mma.sync, wgmma, TMA: later work).
+// 67 TFLOP/s (16.4 ms).  Now that bf16 runs on the tensor cores, the
+// curve decides which A and B panels the blocks in flight share in L2,
+// which can show in the time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "_hopper.cuh"
 
 namespace {
 
@@ -78,24 +100,7 @@ __device__ __forceinline__ void load8(const float* p, int valid, float* v) {
     for (int i = 0; i < 8; ++i) v[i] = i < valid ? p[i] : 0.f;
   }
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, int valid, float* v) {
-  if (valid == 8 && aligned16(p)) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < valid ? __bfloat162float(p[i]) : 0.f;
-  }
-}
-
-// the first `valid` (1 to 4) of 4 fp32 values into T at p, rounded to
-// nearest even
+// the first `valid` (1 to 4) of 4 fp32 values at p
 __device__ __forceinline__ void store4(float* p, float4 v, int valid) {
   if (valid == 4 && aligned16(p)) {
     *reinterpret_cast<float4*>(p) = v;
@@ -106,22 +111,6 @@ __device__ __forceinline__ void store4(float* p, float4 v, int valid) {
     if (valid > 3) p[3] = v.w;
   }
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v, int valid) {
-  if (valid == 4 && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&lo);
-    u.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  } else {
-    if (valid > 0) p[0] = __float2bfloat16_rn(v.x);
-    if (valid > 1) p[1] = __float2bfloat16_rn(v.y);
-    if (valid > 2) p[2] = __float2bfloat16_rn(v.z);
-    if (valid > 3) p[3] = __float2bfloat16_rn(v.w);
-  }
-}
-
 __device__ __forceinline__ int clamp8(int n) { return max(0, min(8, n)); }
 
 // One stage of A: sub-tile rows [r0, r0 + 128) x depth [k0, k0 + 32) of a
@@ -280,20 +269,298 @@ cudaError_t launch(const void* a, const void* b, void* out, const int* tiles,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ bf16: tensor cores
+
+namespace tc {
+
+constexpr int kBM = 128;            // CTA sub-tile rows: two consumers of 64
+constexpr int kBK = 64;             // depth of a stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kThreads = 3 * 128;   // producer warpgroup + two consumers
+constexpr int kBox = 64;            // B box side (64 x 64 bf16, 8 KB)
+
+template <int BN>
+struct Smem {
+  static constexpr int kA = kBM * kBK;  // elements of a stage of A
+  static constexpr int kB = kBK * BN;   // of B: BN / 64 boxes of 64 x 64
+  static constexpr size_t bytes =
+      kStages * (kA + kB) * sizeof(__nv_bfloat16) + 2 * kStages * sizeof(uint64_t);
+  static constexpr size_t dynamic = bytes + 1024;  // room to align to 1024
+};
+
+// acc (64 x 128 fp32, 64 a thread) += A (smem, K-major) . B (smem,
+// MN-major: the transpose bit), one m64n128k16 bf16 product
+__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc (64 x 256 fp32, 128 a thread) += A (smem, K-major) . B (smem,
+// MN-major: the transpose bit), one m64n256k16 bf16 product
+__device__ __forceinline__ void wgmma_256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) {
+    wgmma_256(d, da, db);
+  } else {
+    wgmma_128(d, da, db);
+  }
+}
+
+// Block b computes tile tiles[b]; `trace` as in the fp32 body.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    morton_matmul_tc(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     __nv_bfloat16* __restrict__ out, const int* __restrict__ tiles,
+                     int* __restrict__ trace, int M, int N, int K, int bm, int bn,
+                     int nn, int n_tiles) {
+  using S = Smem<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms must start 1024-byte aligned (descriptor base offset 0)
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* Bs = As + kStages * S::kA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * S::kB);
+  uint64_t* empty = full + kStages;
+
+  const int tile = tiles[blockIdx.x];
+  if (threadIdx.x == 0) {
+    if (trace != nullptr) {
+      trace[blockIdx.x] = tile;
+      atomicAdd(trace + n_tiles + tile, 1);
+      trace[2 * n_tiles + blockIdx.x] = atomicAdd(trace + 3 * n_tiles, 1);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int ti = tile / nn, tj = tile % nn;
+  const int row0 = ti * bm, col0 = tj * bn;
+  const int row_end = min(row0 + bm, M), col_end = min(col0 + bn, N);
+  const int subs_n = (col_end - col0 + BN - 1) / BN;
+  const int subs = (row_end - row0 + kBM - 1) / kBM * subs_n;
+  const int nk = (K + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    // producer: one thread issues every load; the warpgroup gives up registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      for (int it = 0; it < subs * nk; ++it) {
+        const int s = it % kStages, round = it / kStages;
+        const int sub = it / nk, k0 = (it % nk) * kBK;
+        const int r0 = row0 + sub / subs_n * kBM, c0 = col0 + sub % subs_n * BN;
+        hopper::mbar_wait(&empty[s], (round & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], (S::kA + S::kB) * sizeof(__nv_bfloat16));
+        hopper::tma_load_2d(As + s * S::kA, &amap, &full[s], k0, r0);
+#pragma unroll
+        for (int c = 0; c < BN / kBox; ++c)
+          hopper::tma_load_2d(Bs + s * S::kB + c * kBox * kBK, &bmap, &full[s],
+                              c0 + c * kBox, k0);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;                     // rows [64 cw, 64 cw + 64) of a sub-tile
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const bool leader = t == 0;
+    float acc[BN / 2];
+    int it = 0;
+    for (int sub = 0; sub < subs; ++sub) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        acc[i] = 0.f;
+        hopper::fence_operand(acc[i]);
+      }
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&full[s], (it / kStages) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart, k16
+          // steps 32 bytes along the row.  B: MN-major, 64-column boxes
+          // kBK * 128 bytes apart (leading), 8-row groups 1024 bytes apart
+          // (stride), k16 steps 16 rows = 2048 bytes.
+          const uint64_t da = hopper::sw128_desc(As + s * S::kA + cw * 64 * kBK + kk * 16,
+                                                 16, 1024);
+          const uint64_t db = hopper::sw128_desc(Bs + s * S::kB + kk * 16 * kBox,
+                                                 kBox * kBK * 2, 1024);
+          wgmma_bn<BN>(acc, da, db);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the stage before this one is read
+        if (kb > 0 && leader) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) hopper::fence_operand(acc[i]);
+      if (leader) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+
+      // epilogue: acc[4 j + 2 h + e] is row warp * 16 + lane / 4 + 8 h,
+      // column 8 j + 2 (lane % 4) + e of this warpgroup's 64 x BN
+      const int r0 = row0 + sub / subs_n * kBM + cw * 64 + warp * 16 + lane / 4;
+      const int c0 = col0 + sub % subs_n * BN + 2 * (lane % 4);
+      const bool pairs = (N % 2) == 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r >= row_end) continue;
+        __nv_bfloat16* orow = out + (int64_t)r * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = c0 + 8 * j;
+          const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+          if (pairs && c + 1 < col_end) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(x0, x1);
+          } else {
+            if (c < col_end) orow[c] = __float2bfloat16_rn(x0);
+            if (c + 1 < col_end) orow[c + 1] = __float2bfloat16_rn(x1);
+          }
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function; it is looked up through
+// the runtime, so the library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) bf16 matrix with rows `ld` elements apart, in
+// boxes of box_rows x 64 with 128-byte swizzle; zeros past its edges
+bool make_map(CUtensorMap* map, const void* base, int64_t rows, int64_t cols,
+              int64_t ld, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch(const void* a, const void* b, void* out, const int* tiles, int* trace,
+                   int M, int N, int K, int bm, int bn, int nn, int n_tiles,
+                   cudaStream_t stream) {
+  const int64_t lda = (K + 7) / 8 * 8, ldb = (N + 7) / 8 * 8;
+  CUtensorMap amap, bmap;
+  if (!make_map(&amap, a, M, K, lda, kBM) || !make_map(&bmap, b, K, N, ldb, kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(morton_matmul_tc<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Smem<BN>::dynamic);
+  if (err != cudaSuccess) return err;
+  morton_matmul_tc<BN><<<n_tiles, kThreads, Smem<BN>::dynamic, stream>>>(
+      amap, bmap, static_cast<__nv_bfloat16*>(out), tiles, trace, M, N, K, bm, bn, nn,
+      n_tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // C entry point (bound with ctypes).  a (M, K), b (K, N) and out (M, N),
-// contiguous, in the dtype given (0 = float32, 1 = bfloat16); tiles
-// (n_tiles,) int32 on the device, a permutation of the ceil(M / bm) x
-// ceil(N / bn) tile ids i * nn + j; trace null or 3 n_tiles + 1 int32
-// zeros.  Returns the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidValue (1) for a shape the kernel does not take.
+// in the dtype given (0 = float32, 1 = bfloat16); tiles (n_tiles,) int32
+// on the device, a permutation of the ceil(M / bm) x ceil(N / bn) tile ids
+// i * nn + j; trace null or 3 n_tiles + 1 int32 zeros.  float32: all
+// contiguous.  bfloat16: out contiguous; a and b 16-byte aligned, with
+// rows K and N rounded up to a multiple of 8 elements apart (contiguous
+// when K and N are multiples of 8); bk is not used.  Returns the
+// cudaError_t of the launch (0 on success); cudaErrorInvalidValue (1) for
+// a shape or layout the kernel does not take.
 extern "C" int morton_matmul_launch(const void* a, const void* b, void* out,
                                     const void* tiles, void* trace, int64_t M,
                                     int64_t N, int64_t K, int64_t bm,
                                     int64_t bn, int64_t bk, int64_t n_tiles,
                                     int64_t dtype, void* stream) {
-  const int64_t kMax = (int64_t(1) << 31) - kS;
+  const int64_t kMax = (int64_t(1) << 31) - 256;
   if (M < 1 || N < 1 || K < 1 || bm < 1 || bn < 1 || bk < 1 || M > kMax ||
       N > kMax || K > kMax || bm > M || bn > N || bk > K)
     return cudaErrorInvalidValue;
@@ -305,21 +572,32 @@ extern "C" int morton_matmul_launch(const void* a, const void* b, void* out,
   if (dtype == 0)
     return launch<float>(a, b, out, t, tr, (int)M, (int)N, (int)K, (int)bm,
                          (int)bn, (int)bk, (int)nn, (int)n_tiles, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, out, t, tr, (int)M, (int)N, (int)K,
-                                 (int)bm, (int)bn, (int)bk, (int)nn,
-                                 (int)n_tiles, s);
+  if (dtype == 1) {
+    if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15)
+      return cudaErrorInvalidValue;
+    if (bn > 128)
+      return tc::launch<256>(a, b, out, t, tr, (int)M, (int)N, (int)K, (int)bm, (int)bn,
+                             (int)nn, (int)n_tiles, s);
+    return tc::launch<128>(a, b, out, t, tr, (int)M, (int)N, (int)K, (int)bm, (int)bn,
+                           (int)nn, (int)n_tiles, s);
+  }
   return cudaErrorInvalidValue;
 }
 
-// Blocks of the kernel that one SM holds at once, for the dtype given, in
-// *blocks; returns the cudaError_t of the query.
+// Blocks of the kernel that one SM holds at once, for the dtype given (the
+// bf16 body at its 128 x 256 sub-tile), in *blocks; returns the
+// cudaError_t of the query.
 extern "C" int morton_matmul_blocks_per_sm(int64_t dtype, int* blocks) {
   if (dtype == 0)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, morton_matmul_kernel<float>, kThreads, 0);
-  if (dtype == 1)
+  if (dtype == 1) {
+    cudaError_t err = cudaFuncSetAttribute(tc::morton_matmul_tc<256>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)tc::Smem<256>::dynamic);
+    if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, morton_matmul_kernel<__nv_bfloat16>, kThreads, 0);
+        blocks, tc::morton_matmul_tc<256>, tc::kThreads, tc::Smem<256>::dynamic);
+  }
   return cudaErrorInvalidValue;
 }

@@ -12,6 +12,11 @@ from the TPU kernel's own index maps.  `tile_sequence` and `panel_traffic`
 are the JAX package's traffic model, kept as it behaves (consecutive
 repeats removed, later repeats kept).  `launches` counts kernel launches,
 so a run can show that its path went through the kernel.
+
+In bf16 the kernel runs on the tensor cores and reads its operands by TMA,
+which takes only 16-byte aligned bases and rows a multiple of 16 bytes
+apart.  An operand laid out otherwise goes to the same kernel as an
+explicit zero-padded copy (`tma_copy`), counted in `padded_copies`.
 """
 from __future__ import annotations
 
@@ -32,13 +37,14 @@ NAME = "morton_matmul"
 ORDERS = ("morton", "hilbert", "rowmajor")
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke)
+padded_copies = 0  # bf16 operands copied for TMA since the last reset
 _count_guard = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, padded_copies
     with _count_guard:
-        launches = 0
+        launches = padded_copies = 0
 
 
 def _count_launch() -> None:
@@ -197,6 +203,30 @@ def check_trace(trace: torch.Tensor, tiles: torch.Tensor) -> dict:
 
 # --------------------------------------------------------------- wrapper ----
 
+TMA_ALIGN = 16  # bytes: TMA's base and row-stride alignment
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether a contiguous bf16 matrix can be read by TMA as it is: its
+    base 16-byte aligned and its rows a multiple of 16 bytes long."""
+    return (t.data_ptr() % TMA_ALIGN == 0
+            and t.shape[1] * t.element_size() % TMA_ALIGN == 0)
+
+
+def tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """A fresh (aligned) copy of matrix ``t`` whose rows are padded with
+    zeros to a multiple of 16 bytes: the layout the kernel's bf16 body
+    reads (rows of K or N rounded up to a multiple of 8 elements)."""
+    global padded_copies
+    per = TMA_ALIGN // t.element_size()
+    rows, cols = t.shape
+    out = torch.zeros((rows, -(-cols // per) * per), dtype=t.dtype, device=t.device)
+    out[:, :cols] = t
+    with _count_guard:
+        padded_copies += 1
+    return out
+
+
 def _check(a: torch.Tensor, b: torch.Tensor, order: str) -> None:
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise ValueError(f"a and b must both be float32 or both bfloat16, got "
@@ -223,6 +253,9 @@ def morton_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                                or tuple(trace.shape) != (3 * nm * nn + 1,))):
         raise ValueError(f"trace: want {3 * nm * nn + 1} int32 zeros on {a.device}")
     tiles = tile_order(nm, nn, order, a.device)
+    if a.dtype == torch.bfloat16:
+        a = a if tma_ready(a) else tma_copy(a)
+        b = b if tma_ready(b) else tma_copy(b)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     fn = _entry()
     with torch.cuda.device(a.device):
@@ -242,8 +275,9 @@ def morton_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
     """a (M, K) @ b (K, N) -> (M, N) in a's dtype, fp32 or bf16 (both the
     same), summed in fp32; output tiles (block_m, block_n) launched in
     ``order``: morton | hilbert | rowmajor.  The kernel on the card (it
-    takes any shape and alignment; `trace`, from `new_trace`, records what
-    each block did); the plain version for CPU tensors."""
+    takes any shape and alignment, bf16 ones through `tma_copy`; `trace`,
+    from `new_trace`, records what each block did); the plain version for
+    CPU tensors."""
     if a.is_cuda:
         return morton_matmul_cuda(a, b, block_m=block_m, block_n=block_n,
                                   block_k=block_k, order=order, trace=trace)

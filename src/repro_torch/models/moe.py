@@ -98,7 +98,10 @@ def dispatch(p, cfg: ModelConfig, xt: torch.Tensor) -> Dispatch:
 
     logits = xt.to(F32) @ p.w_router.to(F32)                     # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gates, ids = torch.topk(probs, k, dim=-1)                    # (T, k)
+    # the first k of a stable descending sort: among equal probabilities the
+    # lower expert id wins, as in lax.top_k (torch.topk makes no promise)
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = gates[:, :k], ids[:, :k]                        # (T, k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)  # renorm
 
     # Switch/GShard load-balancing loss

@@ -102,3 +102,21 @@ def test_flash_decode_per_sequence_lens(lens_kind):
     got = flash_decode(tq, tk, tv, lens if lens_kind == "numpy" else torch.from_numpy(lens),
                        scale=D ** -0.5)
     np.testing.assert_allclose(as_np(got), as_np(want), **tol("float32"))
+
+
+@pytest.mark.parametrize("make,ready", [
+    (lambda x: x, True),                                   # contiguous (2, 8, 6, 64)
+    (lambda x: x[:, :, :3], True),                         # a slice of heads
+    (lambda x: x.view(-1)[8:8 + 7 * 6 * 64].view(1, 7, 6, 64), True),   # 16 bytes off
+    (lambda x: x.view(-1)[4:4 + 7 * 6 * 64].view(1, 7, 6, 64), False),  # 8 bytes off
+    (lambda x: x.transpose(1, 2), True),                   # strides still multiples of 8
+    (lambda x: x.view(2, 8, 6 * 64)[..., 4:4 + 5 * 64].view(2, 8, 5, 64), False)])
+def test_bf16_chunk_eligibility(make, ready):
+    """The bf16 body moves q, k and v in 16-byte chunks: a 16-byte aligned
+    base and strides that are multiples of 8 elements, else the wrapper
+    copies."""
+    from repro_torch.kernels.flash_attention.ops import chunk_ready
+
+    x = torch.zeros((2, 8, 6, 64), dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 == 0
+    assert chunk_ready(make(x)) is ready

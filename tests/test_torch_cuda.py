@@ -3,6 +3,8 @@
 Marked ``gpu``; every test skips without a CUDA card.  Run on a GPU
 machine with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -120,13 +122,18 @@ ATTN_SHAPES = [  # (B, Sq, Skv, H, K, D): tests/test_kernels.py:37, smollm
     (1, 64, 64, 4, 4, 64), (2, 128, 128, 8, 2, 64), (1, 96, 96, 4, 1, 128),
     (1, 32, 128, 4, 2, 64), (2, 64, 64, 4, 4, 256), (2, 200, 200, 9, 3, 64),
     (2, 40, 40, 4, 2, 16), (1, 70, 70, 8, 1, 32),
-    (2, 256, 256, 16, 8, 64)]  # granite-moe-1b-a400m's heads
+    (2, 256, 256, 16, 8, 64),  # granite-moe-1b-a400m's heads
+    (1, 2048, 2048, 9, 3, 64),  # smollm's prefill length and heads (21 queries a block)
+    (2, 128, 128, 8, 1, 256)]  # D 256 with 8 query heads per kv head (gemma-2b)
 FD_SHAPES = [  # (B, S, H, K, D, cache_len): tests/test_kernels.py:262, smollm
     (2, 128, 8, 2, 64, 128), (1, 256, 4, 4, 64, 100), (2, 96, 4, 1, 128, 50),
     (1, 64, 8, 8, 64, 1), (4, 2176, 9, 3, 64, 2100), (2, 512, 8, 1, 256, 300),
     (3, 40, 4, 2, 16, 33), (2, 600, 6, 2, 32, 599),
     (32, 2176, 16, 8, 64, 2100),  # granite's decode at batch 32 (split kv axis)
-    (16, 288, 16, 8, 64, 200)]    # granite's 16-slot batcher (split kv axis)
+    (16, 288, 16, 8, 64, 200),    # granite's 16-slot batcher (split kv axis)
+    (2, 256, 10, 1, 64, 200),     # 10 query heads per kv head (recurrentgemma-2b)
+    (1, 256, 16, 1, 128, 256),    # 16 per kv head (llama3-405b)
+    (2, 2176, 16, 1, 64, 2100)]   # 16 per kv head over a split kv axis
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
@@ -170,6 +177,23 @@ def test_flash_decode_kernel_matches_plain(cuda, shape, dtype):
     got = fd_ops.flash_decode(q, kc, vc, lens, scale=D ** -0.5)
     want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_flash_attention_bf16_takes_unaligned_inputs_through_a_copy(cuda):
+    """The bf16 body moves 16-byte chunks: a q whose heads start 8 bytes
+    off goes to the same kernel as a contiguous copy, counted."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, S, H, K, D = 2, 96, 4, 2, 64
+    base = _randn(gen, (B * S * H * D + 4,), torch.bfloat16, cuda)
+    q = base[4:].view(B, S, H, D)
+    k = _randn(gen, (B, S, K, D), torch.bfloat16, cuda)
+    v = _randn(gen, (B, S, K, D), torch.bfloat16, cuda)
+    assert not fa_ops.chunk_ready(q) and fa_ops.chunk_ready(k)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v)
+    assert fa_ops.launches == 1 and fa_ops.aligned_copies == 1
+    want = flash_attention_ref(q, k, v, causal=True, scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -443,6 +467,35 @@ def test_moe_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
     assert served["cuda"][1] == served["cpu"][1]
 
 
+
+@pytest.mark.parametrize("case", ["zero_token", "equal_columns"])
+def test_moe_router_breaks_ties_by_lower_expert_id_on_the_card(cuda, case):
+    """CUDA's sort is another code path than the CPU's: among equal router
+    probabilities the lower expert id still wins, as in `lax.top_k` (here
+    numpy's stable argsort of the card's own probabilities)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import dispatch
+
+    cfg = get_smoke_config("granite-moe-1b-a400m").scaled(dtype="float32")
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    rng = np.random.default_rng(0)
+    w_router = (rng.normal(size=(d, E)) / np.sqrt(d)).astype(np.float32)
+    xt = rng.normal(size=(16, d)).astype(np.float32)
+    if case == "zero_token":
+        xt[3] = 0
+    else:
+        w_router[:, 1] = w_router[:, 6]
+    p = SimpleNamespace(w_router=torch.from_numpy(w_router).to(cuda))
+    x = torch.from_numpy(xt).to(cuda)
+    disp = dispatch(p, cfg, x)
+    probs = torch.softmax(x @ p.w_router, dim=-1).cpu().numpy()
+    want = np.sort(np.argsort(-probs, axis=-1, kind="stable")[:, :k], axis=-1)
+    np.testing.assert_array_equal(disp.expert_ids.cpu().numpy(), want)
+    if case == "zero_token":
+        assert disp.expert_ids[3].tolist() == list(range(k))
+    else:
+        assert bool((probs[:, 1] == probs[:, 6]).all())
+
 # tests/test_kernels.py:78-80, then a grid of 3 x 3 blocks with non-consecutive
 # repeats, a ragged edge in every dimension and a row stride that is not a
 # multiple of 16 bytes
@@ -487,6 +540,28 @@ def test_morton_matmul_takes_unaligned_operands(cuda):
     got = mm_ops.morton_matmul(a, b, block_m=32, block_n=16, block_k=8, order="hilbert")
     want = morton_matmul_ref(a, b)
     assert float(((got - want).abs() / (want.abs() + 1)).max()) < 1e-4
+
+
+def test_morton_matmul_bf16_takes_unaligned_operands_through_padded_copies(cuda):
+    """TMA needs 16-byte aligned bases and rows: a (70, 45) bf16 a from a
+    base 2 bytes off, and a (45, 29) b, go to the tensor-core body as
+    padded copies, each counted, within the JAX test's bf16 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    base = torch.randn(70 * 45 + 1, generator=gen, device=cuda).bfloat16()
+    a = base[1:].view(70, 45)  # 2-byte aligned, rows of 90 bytes
+    b = torch.randn((45, 29), generator=gen, device=cuda).bfloat16()
+    assert not mm_ops.tma_ready(a) and not mm_ops.tma_ready(b)
+    mm_ops.reset_launches()
+    trace = mm_ops.new_trace(3, 2, cuda)
+    got = mm_ops.morton_matmul(a, b, block_m=32, block_n=16, block_k=8, order="hilbert",
+                               trace=trace)
+    assert mm_ops.launches == 1 and mm_ops.padded_copies == 2
+    mm_ops.check_trace(trace, mm_ops.tile_order(3, 2, "hilbert", cuda))
+    want = morton_matmul_ref(a, b).float()
+    assert float(((got.float() - want).abs() / (want.abs() + 1)).max()) < MM_REL[torch.bfloat16]
+    aligned = torch.randn((64, 32), generator=gen, device=cuda).bfloat16()
+    mm_ops.morton_matmul(aligned, aligned.t().contiguous())
+    assert mm_ops.padded_copies == 2  # aligned operands are read in place
 
 
 def test_morton_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):

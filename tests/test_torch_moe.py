@@ -194,6 +194,41 @@ def test_moe_layer_matches_jax(monkeypatch, capacity_factor):
     assert abs(float(aux) - want_aux) <= 1e-6
 
 
+
+def tied_router_inputs(case):
+    """`layer_inputs(16)` with router ties: token 3 set to zero (all its
+    logits 0), or router columns 1 and 6 made equal."""
+    jcfg, p, xt = layer_inputs(16)
+    if case == "zero_token":
+        xt[3] = 0
+    else:
+        p["w_router"][:, 1] = p["w_router"][:, 6]
+    return jcfg, p, xt
+
+
+@pytest.mark.parametrize("case", ["zero_token", "equal_columns"])
+def test_moe_router_breaks_ties_as_jax(monkeypatch, case):
+    """Among equal router probabilities the lower expert id wins, as in
+    `lax.top_k`; the picks decide which overflow capacity, and so the
+    other tokens' outputs."""
+    jcfg, p, xt = tied_router_inputs(case)
+    cfg = port_cfg(jcfg)
+    want, _, seen = jax_moe_recorded(monkeypatch, jcfg, p, xt)
+    tp = type("P", (), {k: torch.from_numpy(v) for k, v in p.items()})
+    disp = dispatch(tp, cfg, torch.from_numpy(xt))
+    if case == "zero_token":
+        assert seen["ids"][3].tolist() == [0, 1, 2, 3]
+    else:
+        probs = torch.softmax(torch.from_numpy(xt) @ tp.w_router, -1)
+        assert bool((probs[:, 1] == probs[:, 6]).all())
+        # some token's tie sits on the k-th place: only expert 1 is picked
+        picked = [set(r) & {1, 6} for r in seen["ids"].tolist()]
+        assert {1} in picked
+    np.testing.assert_array_equal(disp.expert_ids.numpy(), np.sort(seen["ids"], axis=-1))
+    np.testing.assert_array_equal(disp.grouped.numpy(), seen["grouped"])
+    got, _ = moe(tp, cfg, torch.from_numpy(xt)[None])
+    np.testing.assert_allclose(f32(got[0]), want, **scaled(GEMM_FP32, want))
+
 def test_moe_layer_without_aux_gives_the_same_output():
     """Decode and prefill discard the aux loss (as the JAX package does);
     the output is the dispatch, the expert GEMM and the combine alone."""

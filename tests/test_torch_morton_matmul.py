@@ -183,3 +183,29 @@ def test_wrapper_refuses_what_it_does_not_take():
         ops.morton_matmul(a, b, trace=ops.new_trace(1, 1, "cpu"))
     with pytest.raises(ValueError, match="CUDA device"):
         ops.morton_matmul_cuda(a, b)
+
+
+@pytest.mark.parametrize("shape,offset,ready", [
+    ((64, 32), 0, True),     # rows of 64 bytes from an aligned base
+    ((70, 45), 0, False),    # rows of 90 bytes
+    ((64, 32), 1, False),    # rows of 64 bytes from a base 2 bytes off
+    ((8, 8), 8, True)])      # 16 bytes off: aligned again
+def test_tma_eligibility_of_bf16_operands(shape, offset, ready):
+    """TMA reads a bf16 matrix as it is only from a 16-byte aligned base
+    with rows a multiple of 16 bytes long."""
+    base = torch.zeros(shape[0] * shape[1] + offset + 16, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    t = base[offset:offset + shape[0] * shape[1]].view(shape)
+    assert ops.tma_ready(t) is ready
+
+
+@pytest.mark.parametrize("shape", [(70, 45), (3, 8), (5, 1)])
+def test_tma_copy_pads_rows_with_zeros_and_is_counted(shape):
+    t = torch.from_numpy(_draw(shape, 9)).to(torch.bfloat16)
+    ops.reset_launches()
+    got = ops.tma_copy(t)
+    assert ops.padded_copies == 1 and ops.tma_ready(got)
+    assert got.shape == (shape[0], -(-shape[1] // 8) * 8)
+    assert torch.equal(got[:, :shape[1]], t) and not bool(got[:, shape[1]:].any())
+    ops.reset_launches()
+    assert ops.padded_copies == 0

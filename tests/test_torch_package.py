@@ -137,6 +137,46 @@ def test_build_runs_one_compiler_per_source_and_reports_failures(tmp_path, monke
     assert log.read_text().count("start") == 2
 
 
+
+def test_build_target_hashes_every_included_header(tmp_path, monkeypatch):
+    """Editing a header that a kernel includes (directly or through another
+    header) renames the kernel's library, so it is rebuilt; `_target`
+    needs no nvcc."""
+    from repro_torch.kernels import _build
+
+    kdir = tmp_path / "kernels"
+    (kdir / "demo").mkdir(parents=True)
+    (kdir / "demo" / "kernel.cu").write_text('#include "_common.cuh"\nint x;\n')
+    (kdir / "_common.cuh").write_text('#pragma once\n#include "demo/local.cuh"\n')
+    (kdir / "demo" / "local.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", kdir)
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("_target ran nvcc"))
+    assert _build.includes(_build.source_of("demo")) == [
+        (kdir / "_common.cuh").resolve(), (kdir / "demo" / "local.cuh").resolve()]
+    first = _build._target("demo")
+    assert _build._target("demo") == first
+    (kdir / "demo" / "local.cuh").write_text("// v2\n")
+    second = _build._target("demo")
+    assert second != first
+    (kdir / "_common.cuh").write_text('#pragma once  \n#include "demo/local.cuh"\n')
+    assert _build._target("demo") not in (first, second)
+    (kdir / "_common.cuh").write_text('#include "missing.cuh"\n')
+    with pytest.raises(FileNotFoundError, match="missing.cuh"):
+        _build._target("demo")
+
+
+def test_every_kernel_gets_the_shared_header_directory():
+    """nvcc is told where the shared headers are, and the ones the port's
+    kernels include exist there."""
+    from repro_torch.kernels import _build
+
+    assert _build.INCLUDE_FLAGS == ("-I", str(_build.KERNELS_DIR))
+    for src in _build.KERNELS_DIR.glob("*/kernel.cu"):
+        for header in _build.includes(src):
+            assert header.is_relative_to(_build.KERNELS_DIR)
+    assert (_build.KERNELS_DIR / "_hopper.cuh") in _build.includes(
+        _build.source_of("morton_matmul"))
+
 def test_build_timing_compiles_every_source_twice_into_fresh_dirs(
         tmp_path, monkeypatch, capsys):
     """`python -m repro_torch.kernels._build` times a sequential and a

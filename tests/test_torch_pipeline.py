@@ -170,3 +170,54 @@ def test_metadata_create_cost(side):
         assert rows.visited >= n * (n + 1) // 2
     else:
         assert rows.visited == 0
+
+
+BIG_ID = 3_000_000_000  # past 2^31: a negative int32 on the device
+
+
+def _big_id_projects():
+    kw = dict(n_resolutions=1, base_cuboid=(16, 16, 4))
+    return (JProject("a", JSpec("p", (32, 32, 16), **kw)),
+            AnnotationProject("a", DatasetSpec("p", (32, 32, 16), **kw), device="cpu"))
+
+
+def _big_id_block():
+    block = np.zeros((8, 8, 4), dtype=np.uint32)
+    block[[1, 2, 5, 7], [0, 3, 3, 6], [0, 1, 2, 3]] = BIG_ID
+    return block
+
+
+@pytest.mark.parametrize("labels", ["numpy", "torch_uint32"])
+def test_label_ids_past_2_31_write_and_list(labels):
+    """Ids are uint32 at the boundaries: a label of 3e9 is indexed and
+    listed under 3e9, as in the reference (which holds uint32 labels)."""
+    jproj, tproj = _big_id_projects()
+    block = _big_id_block()
+    jproj.write(0, (0, 0, 0), block)
+    tproj.write(0, (0, 0, 0), block if labels == "numpy" else torch.from_numpy(block))
+    want = jproj.voxel_list(BIG_ID, 0)
+    assert len(want) == 4
+    np.testing.assert_array_equal(tproj.voxel_list(BIG_ID, 0), want)
+    assert tproj.index.cuboids(BIG_ID) == jproj.index.cuboids(BIG_ID)
+    np.testing.assert_array_equal(
+        tproj.read(0, (0, 0, 0), (32, 32, 16)).numpy().view(np.uint32),
+        jproj.read(0, (0, 0, 0), (32, 32, 16)))
+
+
+def test_label_ids_past_2_31_batch_write():
+    from repro.core.annotations import Annotation as JAnn
+    from repro_torch.core.annotations import Annotation as TAnn
+
+    jproj, tproj = _big_id_projects()
+    mask = _big_id_block() != 0
+    lo = (13, 9, 2)  # across cuboid boundaries
+    jids = jproj.batch_write_objects(0, [(JAnn(ann_id=BIG_ID), lo, mask.astype(np.uint32))])
+    tids = tproj.batch_write_objects(0, [(TAnn(ann_id=BIG_ID), lo, torch.from_numpy(mask))])
+    assert jids == tids == [BIG_ID]
+    want = jproj.voxel_list(BIG_ID, 0)
+    assert len(want) == 4
+    np.testing.assert_array_equal(tproj.voxel_list(BIG_ID, 0), want)
+    assert tproj.index.cuboids(BIG_ID) == jproj.index.cuboids(BIG_ID)
+    np.testing.assert_array_equal(
+        tproj.read(0, (0, 0, 0), (32, 32, 16)).numpy().view(np.uint32),
+        jproj.read(0, (0, 0, 0), (32, 32, 16)))
