@@ -95,13 +95,14 @@ Phases (any failure raises and the exit code is non-zero):
    attention (16 query heads over 8 kv heads) and the batcher's decode
    attention at this path's shapes, as in phase 6.
 13. `moe_gemm` against its plain version over the shapes of
-   tests/test_kernels.py and granite's experts (C 640, and the decode
-   step's C 10 and the batcher's C 8), fp32 and bf16,
-   counts in [0, C] with 0, C and one past C, the buffer zero or random
-   past the counts; then timed at the prefill's shape with layer 0's own
-   counts beside the bound, the plain version and a yardstick of three
-   bf16 `torch.bmm` over the whole buffer (no single PyTorch call computes
-   this function).
+   tests/test_kernels.py, a ragged (3, 130, 24, 40) and granite's experts
+   (C 640, and the decode step's C 10 and the batcher's C 8), fp32 and
+   bf16, counts in [0, C] with 0, C and one past C, the buffer zero or
+   random past the counts; then timed at the prefill's shape with layer
+   0's own counts and at a decode step (C 10) beside the bound, the plain
+   version and a yardstick of three bf16 `torch.bmm` over the whole
+   buffer (no single PyTorch call computes this function), with the
+   host's time to enqueue a decode-step call.
 14. The tile-order path of `morton_matmul`, once, with the launch counts set
    to 0 just before it and read just after: the port's public
    `morton_matmul` in bf16 at its default blocks (256 x 256 x 256) on the
@@ -118,8 +119,10 @@ Phases (any failure raises and the exit code is non-zero):
    8192^3 bf16 product timed per order at both block sizes, in turns, beside
    the bound, the plain version and `torch.matmul` in bf16 (a yardstick).
 
-`flash_attention` and `morton_matmul` have two bodies, a tensor-core one
-for bf16 and an FMA one for fp32; each phase prints which body ran.
+`flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
+tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
+whose splits of the kv axis merge inside its launch; each phase prints
+which body ran.
 
 The last three lines are the card's name and power limit, the JSON kernel
 report, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -159,6 +162,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import bench as mg_bench  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as mg_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.morton_matmul import bench as mm_bench  # noqa: E402
@@ -254,16 +258,24 @@ def bf16_peak_flops(name: str) -> float:
     return 756e12 if "PCIe" in name else 989e12  # PCIe, else SXM
 
 
-# which body of a kernel a dtype runs: flash_attention and morton_matmul
-# have a tensor-core body for bf16 and an FMA body for fp32
+# which body of a kernel a dtype runs: flash_attention, morton_matmul and
+# moe_gemm have a tensor-core body for bf16 and an FMA body for fp32;
+# flash_decode has one body for both, a shared-memory pipeline whose
+# splits merge inside the launch
 TC_BODIES = {"flash_attention": "tensor-core bf16 (mma.sync m16n8k16)",
-             "morton_matmul": "tensor-core bf16 (wgmma m64nNk16 + TMA)"}
+             "morton_matmul": "tensor-core bf16 (wgmma m64nNk16 + TMA)",
+             "moe_gemm": "tensor-core bf16 (wgmma m64nNk16 + 3-D TMA)",
+             "flash_decode": "FMA {dtype} from a 3-stage cp.async ring, splits merged "
+                             "in one cluster"}
 
 
 def body(kernel: str, dtype: torch.dtype) -> str:
+    name = str(dtype)[6:]
+    if kernel == "flash_decode":
+        return TC_BODIES[kernel].format(dtype=name)
     if dtype == torch.bfloat16 and kernel in TC_BODIES:
         return TC_BODIES[kernel]
-    return f"FMA {str(dtype)[6:]} (CUDA cores)"
+    return f"FMA {name} (CUDA cores)"
 
 
 # --------------------------------------------------------------- volume ----
@@ -772,9 +784,10 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
     """Layer 0's attention at full width and at the path's own shapes:
     kernel vs plain version on the same card tensors, at the prefill of
     the whole batch and at one decode step over the whole cache with mixed
-    lengths (the split and merge path of flash_decode): in bf16 with an
-    absolute tolerance scaled to the outputs, and again with the same
-    tensors taken to fp32 at the fp32 tolerance."""
+    lengths, at the plan's split count and at 8 splits (the in-launch merge
+    of flash_decode, whether or not the plan splits this shape): in bf16
+    with an absolute tolerance scaled to the outputs, and again with the
+    same tensors taken to fp32 at the fp32 tolerance."""
     p = model.blocks[0]
     n = prompts.shape[0]
     x = rms_norm(model.embed_tokens(prompts), p.ln1, cfg.norm_eps)
@@ -792,9 +805,8 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
     qd = rotary((xd @ p.attn.w_q).reshape(B, 1, cfg.n_heads, cfg.head_dim),
                 (lens - 1).long()[:, None], cfg.rope_theta)
     ck, cv = cache["blocks"]["k"][0], cache["blocks"]["v"][0]
-    splits = fd_ops.n_splits(B, cfg.n_kv_heads, S, dev)
-    if splits < 2:
-        raise RuntimeError("the layer-0 decode check does not reach the split path")
+    splits = fd_ops.plan_for(qd, ck).nsplit
+    most = fd_ops.MAX_SPLITS
 
     checks = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -806,6 +818,10 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
              (q, k, v)),
             ("decode", "flash_decode",
              lambda a, b, c: fd_ops.flash_decode(a, b, c, lens, scale=scale),
+             lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale),
+             (qd, ck, cv)),
+            (f"decode_{most}_splits", "flash_decode",
+             lambda a, b, c: fd_ops.flash_decode_cuda(a, b, c, lens, scale=scale, nsplit=most),
              lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale),
              (qd, ck, cv)))
         for phase, kname, kernel, plain, args in cases:
@@ -828,7 +844,7 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
     log(f"{cfg.name} layer-0 attention at full width: prefill {n} x {prompts.shape[1]} "
         f"({cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads), decode over "
         f"{B} x {S} cached positions, lens {int(lens.min())}-{int(lens.max())}, "
-        f"{splits} splits")
+        f"{splits} splits (the plan) and {most}")
 
 
 def batcher_decode_checks(sc, dev, cfg, report, errs):
@@ -841,10 +857,11 @@ def batcher_decode_checks(sc, dev, cfg, report, errs):
     gen = torch.Generator(device=dev).manual_seed(23)
     lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
     lens[:2] = torch.tensor([1, S], dtype=torch.int32, device=dev)
-    splits, err = fd_ops.n_splits(B, K, S, dev), {}
+    splits, err = {}, {}
     for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         q, kc, vc = (torch.randn(s, generator=gen, device=dev).to(dt)
                      for s in ((B, 1, H, D), (B, S, K, D), (B, S, K, D)))
+        splits[str(dt)[6:]] = fd_ops.plan_for(q, kc).nsplit
         got = fd_ops.flash_decode(q, kc, vc, lens, scale=D ** -0.5)
         want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
         err[str(dt)[6:]] = check_close(f"{cfg.name} batcher flash_decode {dt} "
@@ -852,7 +869,8 @@ def batcher_decode_checks(sc, dev, cfg, report, errs):
     report[sc["key"]]["batcher_decode_check"] = dict(shape=[B, S, H, K, D], splits=splits,
                                                      max_abs_err=err)
     log(f"{cfg.name} batcher decode attention ({B} slots x {S} cached positions, {H} "
-        f"query heads over {K} kv heads, {splits} splits): max |kernel - plain| {err}")
+        f"query heads over {K} kv heads, splits {splits}) [flash_decode: "
+        f"{body('flash_decode', torch.bfloat16)}]: max |kernel - plain| {err}")
 
 
 def check_close(label, got, want, tol, errs):
@@ -912,13 +930,13 @@ def attention_kernel_checks(dev, errs):
             check_close(f"flash_decode {dt} {(B, S, H, K, D)} lens={clen}", got, want, tol,
                         errs["flash_decode"])
             n += 1
-            split_cases += fd_ops.n_splits(B, K, S, dev) > 1
+            split_cases += fd_ops.plan_for(q, kc).nsplit > 1
     if split_cases < 4:
         raise RuntimeError("the flash_decode checks do not reach the split path in "
                            "both dtypes")
     log(f"flash_attention ({body('flash_attention', torch.bfloat16)} and "
-        f"{body('flash_attention', torch.float32)}) / flash_decode: {n} small cases within "
-        f"tolerance of plain "
+        f"{body('flash_attention', torch.float32)}) / flash_decode "
+        f"({body('flash_decode', torch.bfloat16)}): {n} small cases within tolerance of plain "
         f"({split_cases} of them over split kv axes)")
 
 
@@ -975,7 +993,8 @@ def attention_timings(sc, dev, cfg, name, report):
                                else "operations", operations=ops_, bytes=bytes_,
                                shape=[B, Sc, H, K, D], lens=[int(lens.min()), int(lens.max())],
                                gbps=bytes_ / ms / 1e6,
-                               splits=fd_ops.n_splits(B, K, Sc, dev))
+                               splits=fd_ops.plan_for(q, kc).nsplit,
+                               body=body("flash_decode", bf))
     for kname, t in out.items():
         log(f"{kname} {t['shape']} [{body(kname, bf)}]: {t['ms']:.4f} ms (plain "
             f"{t['plain_ms']:.4f} ms, "
@@ -1255,7 +1274,8 @@ def layer0_moe_vs_plain(sc, dev, cfg, model, prompts, report, errs):
         checks[tag] = dict(max_abs_err=err, max_abs_y=float(yp.float().abs().max()),
                            mean_abs_y=float(yp.float().abs().mean()), **tol,
                            out_max_abs_err=err_out, out_tol=tol_out)
-        log(f"layer-0 MoE {tag}, full width ({B * S} tokens, C {C}): max |kernel - plain| "
+        log(f"layer-0 MoE {tag} [moe_gemm: {body('moe_gemm', dt)}], full width ({B * S} "
+            f"tokens, C {C}): max |kernel - plain| "
             f"y {err:.3g} (max |y| {checks[tag]['max_abs_y']:.3g}, within atol "
             f"{tol['atol']:.3g} rtol {tol['rtol']:.3g}), combined output {err_out:.3g}")
         if dt == torch.bfloat16:
@@ -1271,6 +1291,7 @@ def layer0_moe_vs_plain(sc, dev, cfg, model, prompts, report, errs):
 
 MG_SHAPES = [  # (E, C, d, f): tests/test_kernels.py:301-307, then granite's experts
     (4, 64, 32, 16), (8, 96, 64, 32), (2, 50, 32, 64), (32, 40, 64, 32),
+    (3, 130, 24, 40),      # C over two 128-row tiles; d and f ragged against 64-wide boxes
     (32, 640, 1024, 512),
     (32, 10, 1024, 512),   # a decode step at batch 32
     (32, 8, 1024, 512)]    # a batcher tick over 16 slots
@@ -1316,41 +1337,57 @@ def moe_kernel_checks(dev, report, errs):
                 n += 1
     report["moe_kernel_checks"] = dict(cases=n, differ=differ)
     log(f"moe_gemm: differs from plain in {differ}")
-    log(f"moe_gemm: {n} small and granite-width cases (prefill-like, decode and "
-        f"batcher capacities) within tolerance of plain "
+    log(f"moe_gemm ({body('moe_gemm', torch.bfloat16)} and "
+        f"{body('moe_gemm', torch.float32)}): {n} small and granite-width cases "
+        f"(prefill-like, decode and batcher capacities) within tolerance of plain "
         f"(fp32 rtol {MOE_FP32_REL} and {MOE_FP32_REL} of max |y|; bf16 rtol "
         f"{BF16_TOL['rtol']} and {FULL_WIDTH_BF16_ATOL_SHARE} of mean |y|)")
 
 
 def moe_timing(dev, name, report, x, wg, wu, wd, counts):
-    """`moe_gemm` at the prefill's shape with layer 0's own counts: kernel
-    and plain version by CUDA events, beside the bound and a library
-    yardstick (three bf16 bmm over the whole buffer and the silu product:
-    no single PyTorch call computes this function)."""
-    E, C, d = x.shape
-    f = wg.shape[-1]
-    rows = int(counts.clamp(0, C).sum())
-    ms = event_times(dev, lambda i=0: mg_ops.moe_gemm(x, wg, wu, wd, counts))
-    plain = event_times(dev, lambda i=0: moe_gemm_ref(x, wg, wu, wd, counts))
-
-    def three_bmm(i=0):
-        return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
-
-    lib = event_times(dev, three_bmm)
-    ops_ = 2 * 3 * d * f * rows
-    bytes_ = x.element_size() * (rows * d + E * C * d + 3 * E * d * f)
+    """`moe_gemm` at the prefill's shape with layer 0's own counts, and at a
+    decode step's (32 tokens routed top-8 uniformly: C 10, the bench's
+    inputs): kernel and plain version by CUDA events, beside the bound and
+    a library yardstick (three bf16 bmm over the whole buffer and the silu
+    product: no single PyTorch call computes this function); and the
+    host's time to enqueue one decode-step call (the decode path is
+    host-bound)."""
     flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
-    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
-    t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-             bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
-             library="3 x torch.bmm (bf16, whole buffer, no skipping) + silu product",
-             operations=ops_, bytes=bytes_, shape=[E, C, d, f], live_rows=rows,
-             tflops=ops_ / ms / 1e9)
-    report["moe_timing"] = t
-    log(f"moe_gemm {t['shape']} ({rows} live rows): {ms:.4f} ms (plain {plain:.4f} ms; "
-        f"yardstick 3 x bmm {lib:.4f} ms), {t['tflops']:.2f} TFLOP/s; bound {bound:.4f} ms "
-        f"by {t['bound_by']} = {100 * bound / ms:.2f}% of the card's peak")
-    return t
+    out = {}
+    for label, args in (("prefill", (x, wg, wu, wd, counts)),
+                        ("decode_step", mg_bench.inputs(32, dev))):
+        xa, ga, ua, da, ca = args
+        E, C, d = xa.shape
+        f = ga.shape[-1]
+        rows = int(ca.clamp(0, C).sum())
+        ms = event_times(dev, lambda i=0: mg_ops.moe_gemm(*args))
+        plain = event_times(dev, lambda i=0: moe_gemm_ref(*args))
+        lib = event_times(dev, lambda i=0: torch.bmm(
+            F.silu(torch.bmm(xa, ga)) * torch.bmm(xa, ua), da))
+        ops_ = 2 * 3 * d * f * rows
+        bytes_ = xa.element_size() * (rows * d + E * C * d + 3 * E * d * f)
+        bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+        t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                 bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
+                 library="3 x torch.bmm (bf16, whole buffer, no skipping) + silu product",
+                 operations=ops_, bytes=bytes_, shape=[E, C, d, f], live_rows=rows,
+                 tflops=ops_ / ms / 1e9, body=body("moe_gemm", xa.dtype))
+        if label == "decode_step":
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(200):
+                mg_ops.moe_gemm(*args)
+            t["host_us_per_call"] = (time.perf_counter() - t0) / 200 * 1e6
+            sync(dev)
+        out[label] = t
+        log(f"moe_gemm {label} {t['shape']} ({rows} live rows) [{t['body']}]: {ms:.4f} ms "
+            f"(plain {plain:.4f} ms; yardstick 3 x bmm {lib:.4f} ms), {t['tflops']:.2f} "
+            f"TFLOP/s; bound {bound:.4f} ms by {t['bound_by']} = {100 * bound / ms:.2f}% of "
+            f"the card's peak" + (f"; host {t['host_us_per_call']:.1f} us a call"
+                                  if "host_us_per_call" in t else ""))
+        del args, xa, ga, ua, da, ca
+    report["moe_timing"] = out
+    return out["prefill"]
 
 
 MM_SHAPES = [  # (M, N, K): tests/test_kernels.py:78-80

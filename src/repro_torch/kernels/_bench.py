@@ -1,7 +1,7 @@
 """What the kernels' timing tools (`<kernel>/bench.py`) share: the card's
 name and power limit, a build of one source with the compiler's register
 and spill report, a count of instructions in the built library's SASS,
-and a timer by CUDA events."""
+a timer by CUDA events and one of the host's time to enqueue a call."""
 from __future__ import annotations
 
 import pathlib
@@ -9,6 +9,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import time
 from typing import Dict, Iterable
 
 import torch
@@ -76,3 +77,16 @@ def event_ms(fn, reps: int = 25) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Mean host time in us to enqueue one call of ``fn`` (no synchronise
+    between calls), after a warm-up: what a host-bound caller pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6

@@ -16,31 +16,61 @@
 //
 // Bound.  Bytes: each live cache row is read once, sum_b lens[b] * K * D *
 // 2 tensors * element size; the operations (4 * H * D per live position)
-// are ~1 per byte, far below the card's ratio.
+// are ~1 per byte, far below the card's ratio, so the FMAs stay on the
+// CUDA cores.  At smollm-135m's decode (B 32, ~2,100 positions, K 3, D 64,
+// bf16) that is 51.6 MB, 0.0154 ms at 3.35 TB/s; reaching it takes ~25 KB
+// in flight on every SM at a time (the rate times a ~1 us memory latency).
 //
-// Design.  lens[b] is read by each block from device memory (the TPU's
-// scalar prefetch).  B * K blocks alone (96 at smollm-135m's decode batch
-// of 32) would leave most of the 132 SMs idle, so the kv axis is split:
-// block (split, kh, b) takes positions [split * chunk, (split+1) * chunk)
-// and writes its partial (m, l, acc); a second kernel merges the splits
-// (skipped when there is one split).  Inside a block, LP lanes read one
-// cache row as 16-byte vectors (a whole 128-byte row for D = 64 in bf16),
-// so a warp reads 32 / LP rows per step, coalesced; each group of LP lanes
-// keeps its own online softmax over its rows for all G heads (partial
-// dot products reduced by xor shuffles inside the group), and the block's
-// groups are merged through shared memory at the end.  The G query heads
-// are held in registers GM (4 or 8) at a time; a larger G walks the rows
-// once per group of 8, so any G is taken.  Plain fp32 FMAs.  D is 16, 32,
-// 64, 128 or 256.
+// Design.  Block (split, kh, b) takes positions [split * chunk, (split + 1)
+// * chunk) of sequence b, kv head kh; lens[b] is read by each block from
+// device memory (the TPU's scalar prefetch).  The splits of one (kh, b)
+// are one thread-block cluster of nsplit <= 8 blocks (the host's plan,
+// ops.py `split_plan`, picks nsplit for about two blocks an SM: fewer,
+// longer blocks pay the fill of the ring and the merge less often).
+// - Bytes in flight: the block streams its positions through a ring of 3
+//   shared-memory stages, each TP positions of K and of V (16 KB; TP = 64
+//   at D 64 in bf16, fewer positions for wider rows), copied by cp.async
+//   16 bytes a thread with zeros past the split's end.  Two stages are in
+//   flight while the third is scored: 32 KB a block; launch bounds of four
+//   blocks an SM (16 warps, 128 KB in flight) for latency hiding, two when
+//   eight heads share a pass.
+// - Scoring from shared memory: LP lanes read one cache row as 16-byte
+//   vectors (a whole 128-byte row for D = 64 in bf16, so reads are free of
+//   bank conflicts), so a warp covers 32 / LP rows; each group of LP lanes
+//   keeps its own online softmax for the G heads and takes its J = TP /
+//   groups rows of a stage at once: J x G partial dot products reduced by
+//   xor shuffles inside the group, independent of one another, then one
+//   softmax step for the stage (a row at a time made each lane wait on a
+//   chain of shuffles and two expf per row and head: 29% of the byte
+//   bound).  Scores are kept in base 2 (q prescaled by scale x log2 e,
+//   exp2f), which is exp of the same fp32 scores up to rounding.  The G
+//   query heads are held in registers GM (2, 3, 4 or 8) at a time; a
+//   larger G streams the positions once per group of 8, so any G is taken.
+// - One launch: the block's groups are merged through shared memory (over
+//   the ring, which is free by then) into the block's partial (m, l, acc);
+//   after a cluster barrier, the cluster's threads read every split's
+//   partial through distributed shared memory and merge them in split
+//   order, each output by one thread: no second kernel, no fp32 scratch in
+//   device memory, no atomics, and the result does not depend on timing.
+// One template over T (float or bfloat16) and D (16, 32, 64, 128 or 256).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "_hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 3;
+constexpr int kStageBytes = 16384;  // K and V of one stage
+constexpr int kMaxSplits = 8;       // a portable cluster
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -76,7 +106,7 @@ struct Strides {  // in elements; the D axis is contiguous
   int64_t b, s, h;
 };
 
-template <typename T, int D>
+template <typename T, int D, int GM>
 struct Layout {
   static constexpr int VEC = 16 / sizeof(T);                      // per vector
   static constexpr int LP = (D / VEC) < 32 ? (D / VEC) : 32;      // lanes/row
@@ -84,34 +114,77 @@ struct Layout {
   static constexpr int NV = EPL / VEC;                            // vectors
   static constexpr int RPW = 32 / LP;                             // rows/warp
   static constexpr int GROUPS = kWarps * RPW;
+  static constexpr int ROW = D * sizeof(T);                       // bytes
+  // positions a stage: kStageBytes of K and V, at least one step of the
+  // block's groups, at most 128
+  static constexpr int TP_BYTES = kStageBytes / (2 * ROW);
+  static constexpr int TP = TP_BYTES < GROUPS ? GROUPS : (TP_BYTES > 128 ? 128 : TP_BYTES);
+  static constexpr int STAGE = 2 * TP * ROW;  // K rows, then V rows
+  static constexpr int RING = kStages * STAGE;
+  // after the last stage, over the ring: the merge of the block's groups
+  // (m, l, acc of each), then the block's partial (m, l, acc) for the
+  // cluster's merge
+  static constexpr int MERGE = (2 * GROUPS * GM + GROUPS * GM * D) * 4;
+  static constexpr int PART_OFFSET = MERGE;
+  static constexpr int PART_END = MERGE + (2 * GM + GM * D) * 4;
+  static constexpr int SMEM = RING > PART_END ? RING : PART_END;
+  static_assert(TP % GROUPS == 0 && STAGE % (16 * kThreads) == 0, "stage shape");
 };
 
+// at most 128 registers a thread for four blocks an SM; eight heads a pass
+// (G > 4) need more and take two blocks an SM
 template <typename T, int D, int GM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, GM > 4 ? 2 : 4)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int32_t* __restrict__ lens, T* __restrict__ out,
-                        float* __restrict__ part_o, float* __restrict__ part_m,
-                        float* __restrict__ part_l, Strides qs, Strides ks,
-                        Strides vs, Strides os, int S, int K, int G,
-                        int chunk, int nsplit, float scale) {
-  using L = Layout<T, D>;
+                        const T* __restrict__ v, const int32_t* __restrict__ lens,
+                        T* __restrict__ out, Strides qs, Strides ks, Strides vs,
+                        Strides os, int S, int G, int chunk, float scale) {
+  using L = Layout<T, D, GM>;
   constexpr int EPL = L::EPL, VEC = L::VEC;
-  __shared__ float sm_m[L::GROUPS][GM], sm_l[L::GROUPS][GM];
-  __shared__ float sm_o[L::GROUPS][GM][D];
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sm_m = reinterpret_cast<float*>(smem);  // [GROUPS][GM]
+  float* sm_l = sm_m + L::GROUPS * GM;          // [GROUPS][GM]
+  float* sm_o = sm_l + L::GROUPS * GM;          // [GROUPS][GM][D]
+  float* pm = reinterpret_cast<float*>(smem + L::PART_OFFSET);  // [GM]
+  float* pl = pm + GM;                                          // [GM]
+  float* po = pl + GM;                                          // [GM][D]
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, nsplit = gridDim.x, kh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = warp * L::RPW + lane / L::LP, sub = lane % L::LP;
   const int len = min(max(lens[b], 0), S);
   const int lo = split * chunk, hi = min(lo + chunk, len);
+  const int n_stages = hi > lo ? (hi - lo + L::TP - 1) / L::TP : 0;
+  const uint8_t* kb = reinterpret_cast<const uint8_t*>(k + b * ks.b + kh * ks.h);
+  const uint8_t* vb = reinterpret_cast<const uint8_t*>(v + b * vs.b + kh * vs.h);
+  const float scale2 = scale * kLog2e;  // scores in base 2: exp(x) = exp2(x log2 e)
 
-  const int64_t part = ((int64_t)b * K + kh) * nsplit + split;
+  // stage i (positions lo + i * TP ...) into ring slot i % kStages; rows at
+  // or past hi are zeros and read nothing
+  auto load_stage = [&](int i) {
+    uint8_t* dst = smem + (i % kStages) * L::STAGE;
+    constexpr int PER_ROW = L::ROW / 16, HALF = L::TP * PER_ROW;
+#pragma unroll
+    for (int j = 0; j < 2 * HALF / kThreads; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      const int kv = c / HALF, r = c % HALF / PER_ROW, w = c % PER_ROW;
+      const int pos = lo + i * L::TP + r;
+      const bool ok = pos < hi;
+      const uint8_t* src = kv ? vb + (ok ? pos : lo) * vs.s * (int64_t)sizeof(T)
+                              : kb + (ok ? pos : lo) * ks.s * (int64_t)sizeof(T);
+      hopper::cp_async16(dst + c * 16, src + w * 16, ok);
+    }
+  };
 
-  // the G heads in register groups of GM: each group walks the block's
-  // rows again (from L2 after the first), so any G is taken
   for (int g0 = 0; g0 < G; g0 += GM) {
-    const int gn = min(GM, G - g0);  // heads in this group
+    for (int i = 0; i < kStages - 1; ++i) {  // the ring fills while q is read
+      if (i < n_stages) load_stage(i);
+      hopper::cp_async_commit();
+    }
+    // heads g0 .. g0 + GM - 1; those past G (the last group's) run on a zero
+    // q and are not stored
+    const int gn = min(GM, G - g0);
     float qr[GM][EPL], acc[GM][EPL], m[GM], l[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
@@ -121,108 +194,122 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < EPL; ++e) {
         acc[g][e] = 0.f;
         qr[g][e] = g < gn ? to_float(q[b * qs.b + (kh * G + g0 + g) * qs.h +
-                                       sub * EPL + e]) * scale
+                                       sub * EPL + e]) * scale2
                           : 0.f;
       }
     }
 
-    // warp-uniform trip count (the shuffles need every lane); a lane whose
-    // row is past `hi` reads nothing and leaves its state as it is
-    for (int base = lo + warp * L::RPW; base < hi; base += L::GROUPS) {
-      const int pos = base + lane / L::LP;
-      const bool live = pos < hi;
-      float kr[EPL], vr[EPL];
-      if (live) {
-        const uint4* kp = reinterpret_cast<const uint4*>(
-            k + b * ks.b + pos * ks.s + kh * ks.h + sub * EPL);
-        const uint4* vp = reinterpret_cast<const uint4*>(
-            v + b * vs.b + pos * vs.s + kh * vs.h + sub * EPL);
+    for (int i = 0; i < n_stages; ++i) {
+      hopper::cp_async_wait<kStages - 2>();  // stage i has landed (this thread's part)
+      __syncthreads();  // ... every thread's part; slot (i - 1) % kStages is free
+      if (i + kStages - 1 < n_stages) load_stage(i + kStages - 1);
+      hopper::cp_async_commit();
+      const uint8_t* st = smem + (i % kStages) * L::STAGE;
+      // the group's J rows of the stage (r = grp + j * GROUPS) at once: J x
+      // GM dot products, reduced over the row's LP lanes by xor shuffles
+      // (the same trip count on every lane), then one online-softmax step
+      // for the stage; a row past hi was filled with zeros and is masked
+      constexpr int J = L::TP / L::GROUPS;
+      float s[J][GM];
 #pragma unroll
-        for (int n = 0; n < L::NV; ++n) {
-          unpack(__ldg(kp + n), kr + n * VEC, T());
-          unpack(__ldg(vp + n), vr + n * VEC, T());
+      for (int j = 0; j < J; ++j) {
+        const uint4* kp =
+            reinterpret_cast<const uint4*>(st + (grp + j * L::GROUPS) * L::ROW) + sub * L::NV;
+        float kr[EPL];
+#pragma unroll
+        for (int n = 0; n < L::NV; ++n) unpack(kp[n], kr + n * VEC, T());
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          s[j][g] = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) s[j][g] = fmaf(qr[g][e], kr[e], s[j][g]);
         }
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kr[e] = vr[e] = 0.f;
       }
+#pragma unroll
+      for (int o = L::LP / 2; o > 0; o /= 2)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int g = 0; g < GM; ++g) s[j][g] += __shfl_xor_sync(0xffffffffu, s[j][g], o);
+      const int p0 = lo + i * L::TP + grp;
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g >= gn) break;
-        float s = 0.f;
+        float m_new = m[g];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) s = fmaf(qr[g][e], kr[e], s);
+        for (int j = 0; j < J; ++j)
+          if (p0 + j * L::GROUPS < hi) m_new = fmaxf(m_new, s[j][g]);
+        const float corr = exp2f(m[g] - m_new);
+        m[g] = m_new;
+        l[g] *= corr;
 #pragma unroll
-        for (int o = L::LP / 2; o > 0; o /= 2)
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (live) {
-          const float m_new = fmaxf(m[g], s);
-          const float corr = expf(m[g] - m_new);
-          const float p = expf(s - m_new);
-          const float pr = to_float(from_float<T>(p));
-          l[g] = l[g] * corr + p;
-          m[g] = m_new;
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pr, vr[e], acc[g][e] * corr);
+        for (int j = 0; j < J; ++j) {
+          const float p = p0 + j * L::GROUPS < hi ? exp2f(s[j][g] - m_new) : 0.f;
+          l[g] += p;
+          s[j][g] = to_float(from_float<T>(p));  // p in the cache dtype, for PV
         }
       }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint4* vp = reinterpret_cast<const uint4*>(
+                              st + (L::TP + grp + j * L::GROUPS) * L::ROW) + sub * L::NV;
+        float vr[EPL];
+#pragma unroll
+        for (int n = 0; n < L::NV; ++n) unpack(vp[n], vr + n * VEC, T());
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(s[j][g], vr[e], acc[g][e]);
+      }
     }
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // every stage is read: the ring takes the merge
 
-    // merge the block's groups
-    __syncthreads();  // the previous head group's merge is done with sm_*
+    // merge the block's groups into the block's partial
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (sub == 0) {
-        sm_m[grp][g] = m[g];
-        sm_l[grp][g] = l[g];
+        sm_m[grp * GM + g] = m[g];
+        sm_l[grp * GM + g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_o[grp][g][sub * EPL + e] = acc[g][e];
+      for (int e = 0; e < EPL; ++e) sm_o[(grp * GM + g) * D + sub * EPL + e] = acc[g][e];
     }
     __syncthreads();
     for (int i = threadIdx.x; i < gn * D; i += kThreads) {
-      const int g = i / D, d = i - (i / D) * D, h = g0 + g;
+      const int g = i / D, d = i - g * D;
       float M = kNeg;
-      for (int r = 0; r < L::GROUPS; ++r) M = fmaxf(M, sm_m[r][g]);
+      for (int r = 0; r < L::GROUPS; ++r) M = fmaxf(M, sm_m[r * GM + g]);
       float Ls = 0.f, A = 0.f;
       for (int r = 0; r < L::GROUPS; ++r) {
-        const float w = expf(sm_m[r][g] - M);
-        Ls = fmaf(sm_l[r][g], w, Ls);
-        A = fmaf(sm_o[r][g][d], w, A);
+        const float w = exp2f(sm_m[r * GM + g] - M);
+        Ls = fmaf(sm_l[r * GM + g], w, Ls);
+        A = fmaf(sm_o[(r * GM + g) * D + d], w, A);
       }
-      if (nsplit == 1) {
-        out[b * os.b + (kh * G + h) * os.h + d] = from_float<T>(A / fmaxf(Ls, 1e-30f));
-      } else {
-        part_o[(part * G + h) * D + d] = A;
-        if (d == 0) {
-          part_m[part * G + h] = M;
-          part_l[part * G + h] = Ls;
-        }
+      po[i] = A;
+      if (d == 0) {
+        pm[g] = M;
+        pl[g] = Ls;
       }
     }
-  }
-}
 
-// Merge the splits of one (kh, b): out = sum_s w_s acc_s / sum_s w_s l_s.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_combine(const float* __restrict__ part_o,
-                         const float* __restrict__ part_m,
-                         const float* __restrict__ part_l, T* __restrict__ out,
-                         Strides os, int K, int G, int D, int nsplit) {
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int64_t first = ((int64_t)b * K + kh) * nsplit;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D, d = i - (i / D) * D;
-    float M = kNeg;
-    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, part_m[(first + s) * G + g]);
-    float Ls = 0.f, A = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float w = expf(part_m[(first + s) * G + g] - M);
-      Ls = fmaf(part_l[(first + s) * G + g], w, Ls);
-      A = fmaf(part_o[(first + s) * G * D + i], w, A);
+    // merge the cluster's splits, in split order: out = sum_s w_s acc_s /
+    // sum_s w_s l_s; each output by one thread of the cluster
+    cluster.sync();  // every split's partial is written
+    for (int i = split * kThreads + threadIdx.x; i < gn * D; i += nsplit * kThreads) {
+      const int g = i / D, d = i - g * D;
+      float M = kNeg;
+      for (int s = 0; s < nsplit; ++s) M = fmaxf(M, cluster.map_shared_rank(pm, s)[g]);
+      float Ls = 0.f, A = 0.f;
+      for (int s = 0; s < nsplit; ++s) {
+        const float w = exp2f(cluster.map_shared_rank(pm, s)[g] - M);
+        Ls = fmaf(cluster.map_shared_rank(pl, s)[g], w, Ls);
+        A = fmaf(cluster.map_shared_rank(po, s)[i], w, A);
+      }
+      out[b * os.b + (kh * G + g0 + g) * os.h + d] = from_float<T>(A / fmaxf(Ls, 1e-30f));
     }
-    out[b * os.b + (kh * G + g) * os.h + d] = from_float<T>(A / fmaxf(Ls, 1e-30f));
+    cluster.sync();  // no block refills its ring or exits while its partial is read
   }
 }
 
@@ -230,7 +317,6 @@ struct Args {
   const void *q, *k, *v;
   const int32_t* lens;
   void* out;
-  float *part_o, *part_m, *part_l;
   Strides qs, ks, vs, os;
   int B, S, K, G, nsplit;
   float scale;
@@ -239,24 +325,35 @@ struct Args {
 
 template <typename T, int D, int GM>
 cudaError_t launch(const Args& a) {
+  using L = Layout<T, D, GM>;
+  auto kernel = flash_decode_kernel<T, D, GM>;
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (allowed != cudaSuccess) return allowed;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.nsplit, a.K, a.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   const int chunk = (a.S + a.nsplit - 1) / a.nsplit;
-  flash_decode_kernel<T, D, GM><<<dim3(a.nsplit, a.K, a.B), kThreads, 0,
-                                  a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.out), a.part_o,
-      a.part_m, a.part_l, a.qs, a.ks, a.vs, a.os, a.S, a.K, a.G, chunk,
-      a.nsplit, a.scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.nsplit == 1) return err;
-  flash_decode_combine<T><<<dim3(a.K, a.B), kThreads, 0, a.stream>>>(
-      a.part_o, a.part_m, a.part_l, static_cast<T*>(a.out), a.os, a.K, a.G,
-      D, a.nsplit);
-  return cudaGetLastError();
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.q),
+                            static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lens,
+                            static_cast<T*>(a.out), a.qs, a.ks, a.vs, a.os, a.S, a.G, chunk,
+                            a.scale);
 }
 
 template <typename T, int D>
 cudaError_t dispatch_g(const Args& a) {
-  if (a.G <= 4) return launch<T, D, 4>(a);
+  if (a.G <= 2) return launch<T, D, 2>(a);
+  if (a.G == 3) return launch<T, D, 3>(a);
+  if (a.G == 4) return launch<T, D, 4>(a);
   return launch<T, D, 8>(a);  // groups of 8 heads, the last one partial
 }
 
@@ -278,15 +375,35 @@ cudaError_t dispatch_d(int D, const Args& a) {
   }
 }
 
+// the stage plan of the instance dispatch_g picks for G
+template <typename T, int D, int GM>
+void stage_of(int64_t* out) {
+  using L = Layout<T, D, GM>;
+  out[0] = L::TP;
+  out[1] = kStages;
+  out[2] = L::SMEM;
+}
+
+template <typename T, int D>
+void stage_of_g(int64_t G, int64_t* out) {
+  if (G <= 2) return stage_of<T, D, 2>(out);
+  if (G == 3) return stage_of<T, D, 3>(out);
+  if (G == 4) return stage_of<T, D, 4>(out);
+  stage_of<T, D, 8>(out);
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes).  q (B, 1, K * G, D); k and v caches
 // (B, S, K, D); lens (B,) int32 on the device; out (B, 1, K * G, D); all
-// with a contiguous D axis, and the caches' rows 16-byte aligned.  With
-// nsplit > 1, part_o (B * K * nsplit * G * D), part_m and part_l
-// (B * K * nsplit * G) are fp32 scratch.  dtype 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launches (0 on success);
-// cudaErrorInvalidValue (1) for a shape the kernel has no instance for.
+// with a contiguous D axis, and the caches' rows 16-byte aligned.  nsplit
+// (1 to 8) splits of the kv axis, one cluster, merged inside the launch.
+// part_o, part_m and part_l are not read (the wrapper passes null); they
+// keep the signature of sources that merge through scratch in a second
+// kernel, so that the bench times either through one binding.  dtype 0 =
+// float32, 1 = bfloat16.  Returns the cudaError_t of the launch (0 on
+// success); cudaErrorInvalidValue (1) for a shape the kernel has no
+// instance for.
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, const void* lens, void* out,
     void* part_o, void* part_m, void* part_l, int64_t B, int64_t S,
@@ -294,16 +411,15 @@ extern "C" int flash_decode_launch(
     int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
     int64_t osb, int64_t osh, int64_t nsplit, float scale, int64_t dtype,
     void* stream) {
-  if (nsplit < 1 || G < 1) return cudaErrorInvalidValue;
+  (void)part_o, (void)part_m, (void)part_l;
+  if (nsplit < 1 || nsplit > kMaxSplits || G < 1 || B > 65535 || K > 65535)
+    return cudaErrorInvalidValue;
   if (B <= 0 || K <= 0) return cudaSuccess;
   Args a{q,
          k,
          v,
          static_cast<const int32_t*>(lens),
          out,
-         static_cast<float*>(part_o),
-         static_cast<float*>(part_m),
-         static_cast<float*>(part_l),
          Strides{qsb, 0, qsh},
          Strides{ksb, kss, ksh},
          Strides{vsb, vss, vsh},
@@ -318,4 +434,30 @@ extern "C" int flash_decode_launch(
   if (dtype == 0) return dispatch_d<float>((int)D, a);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>((int)D, a);
   return cudaErrorInvalidValue;
+}
+
+// The stage plan of the instance for (D, G, dtype): out[0] positions a
+// stage, out[1] stages in the ring, out[2] the dynamic shared memory of a
+// block in bytes.  Returns cudaErrorInvalidValue when there is no instance.
+extern "C" int flash_decode_stages(int64_t D, int64_t G, int64_t dtype, int64_t* out) {
+  if ((dtype != 0 && dtype != 1) || G < 1) return cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      dtype ? stage_of_g<__nv_bfloat16, 16>(G, out) : stage_of_g<float, 16>(G, out);
+      return cudaSuccess;
+    case 32:
+      dtype ? stage_of_g<__nv_bfloat16, 32>(G, out) : stage_of_g<float, 32>(G, out);
+      return cudaSuccess;
+    case 64:
+      dtype ? stage_of_g<__nv_bfloat16, 64>(G, out) : stage_of_g<float, 64>(G, out);
+      return cudaSuccess;
+    case 128:
+      dtype ? stage_of_g<__nv_bfloat16, 128>(G, out) : stage_of_g<float, 128>(G, out);
+      return cudaSuccess;
+    case 256:
+      dtype ? stage_of_g<__nv_bfloat16, 256>(G, out) : stage_of_g<float, 256>(G, out);
+      return cudaSuccess;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

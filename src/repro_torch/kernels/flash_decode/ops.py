@@ -3,13 +3,19 @@
 `flash_decode` launches the hand-written CUDA kernel (``kernel.cu``) for
 tensors on the card and uses the plain PyTorch version (``ref.py``) only
 for tensors on the CPU.  The cache is read in place.  `launches` counts
-kernel launches (one per call, whether or not the splits are merged by a
-second kernel), so a run can show that its path went through the kernel.
+kernel launches (one per call: the splits of the kv axis are merged inside
+the launch), so a run can show that its path went through the kernel.
+`split_plan` is the host's plan of a launch: how many splits, how long,
+and the kernel's shared-memory ring for the head dim and dtype
+(``kernel.cu``'s `flash_decode_stages` reports the same ring).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,6 +24,7 @@ from .ref import as_lens, flash_decode_ref
 
 NAME = "flash_decode"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GRID = 65535  # kv heads and batch are the grid's y and z
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke)
 _count_guard = threading.Lock()
@@ -39,27 +46,103 @@ _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# q, k, v, lens, out, part_o, part_m, part_l; B, S, K, G, D, 10 strides,
+# nsplit; scale; dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 8 + [_I64] * 16 + [ctypes.c_float, _I64, ctypes.c_void_p]
+
+
 def _entry():
     fn = _build.library(NAME).flash_decode_launch
     if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [_I64] * 16
-                       + [ctypes.c_float, _I64, ctypes.c_void_p])
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
 
-def n_splits(B: int, K: int, S: int, device: torch.device) -> int:
-    """Splits of the kv axis: enough blocks for ~4 per SM, each split at
-    least 256 positions long."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-4 * sms // (B * K))
-    return max(1, min(want, -(-S // 256)))
+def launch_args(q, k_cache, v_cache, lens, out, nsplit: int, scale: float, parts=(None,) * 3):
+    """The entry point's arguments but the stream.  ``parts`` (part_o,
+    part_m, part_l pointers) is read only by earlier sources, which merged
+    the splits in a second kernel (their benches pass scratch here)."""
+    B, _, H, D = q.shape
+    _, S, K, _ = k_cache.shape
+    return (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), *parts, B, S, K, H // K, D, q.stride(0), q.stride(2),
+            *(k_cache.stride(i) for i in range(3)), *(v_cache.stride(i) for i in range(3)),
+            out.stride(0), out.stride(2), nsplit, scale, _DTYPES[q.dtype])
+
+
+# the kernel's ring (kernel.cu `Layout`): 3 stages of 16 KB of K and V,
+# 128 threads a block, LP lanes a cache row
+STAGES = 3
+STAGE_BYTES = 16384
+THREADS = 128
+MAX_SPLITS = 8          # the splits of one (kv head, sequence) are one cluster
+MIN_SPLIT = 256         # positions of the cache a split, at least
+BLOCKS_PER_SM = 2       # the split plan's aim (the split sweep of flash_decode/bench.py)
+
+
+def stage_plan(D: int, elem: int, G: int) -> Tuple[int, int, int]:
+    """(positions a stage, stages, dynamic shared memory of a block in
+    bytes) of the kernel's instance for head dim D, element size ``elem``
+    and G query heads per kv head."""
+    vec = 16 // elem
+    lp = min(D // vec, 32)
+    groups = 4 * (32 // lp)
+    row = D * elem
+    tp = min(128, max(groups, STAGE_BYTES // (2 * row)))
+    gm = 2 if G <= 2 else G if G <= 4 else 8  # query heads a pass
+    ring = STAGES * 2 * tp * row
+    merge_and_partial = (2 * groups * gm + groups * gm * D + 2 * gm + gm * D) * 4
+    return tp, STAGES, max(ring, merge_and_partial)
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    nsplit: int  # splits of the kv axis, one block each, one cluster a (kv head, sequence)
+    chunk: int   # positions a split
+    tp: int      # positions a stage of the ring
+    stages: int
+    smem: int    # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(B: int, K: int, S: int, G: int, D: int, elem: int, sms: int) -> SplitPlan:
+    """The split count whose blocks (B K nsplit) come nearest to
+    `BLOCKS_PER_SM` an SM, at most `MAX_SPLITS` and at most one per
+    `MIN_SPLIT` positions of the cache."""
+    tp, stages, smem = stage_plan(D, elem, G)
+    want = int(BLOCKS_PER_SM * sms / max(B * K, 1) + 0.5)
+    nsplit = max(1, min(MAX_SPLITS, want, -(-S // MIN_SPLIT)))
+    return SplitPlan(nsplit, -(-S // nsplit), tp, stages, smem)
+
+
+def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> SplitPlan:
+    """`split_plan` for a call with these tensors on their card."""
+    B, _, H, D = q.shape
+    _, S, K, _ = k_cache.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return split_plan(B, K, S, H // K, D, q.element_size(), sms)
+
+
+def kernel_stages(D: int, G: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """What the built kernel reports for (D, G, dtype): (positions a stage,
+    stages, shared memory of a block), to hold `stage_plan` to."""
+    fn = _build.library(NAME).flash_decode_stages
+    fn.argtypes = [_I64, _I64, _I64, ctypes.POINTER(_I64)]
+    fn.restype = ctypes.c_int
+    out = (_I64 * 3)()
+    err = fn(D, G, _DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"flash_decode_stages failed (cudaError {err})")
+    return tuple(out)
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, lens: torch.Tensor, *,
-                      scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel; lens is a (B,) int32 tensor on the card."""
+                      scale: float, nsplit: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel; lens is a (B,) int32 tensor on the card.
+    ``nsplit`` (1 to `MAX_SPLITS`) overrides the plan's split count, for
+    checks of the in-launch merge at any cluster size."""
     dev = q.device
     if not (q.is_cuda and k_cache.device == dev and v_cache.device == dev
             and lens.device == dev):
@@ -89,24 +172,19 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError("cache rows must be contiguous and 16-byte aligned")
     if q.stride(3) != 1:
         raise ValueError("the head_dim axis of q must be contiguous")
+    if B > MAX_GRID or K > MAX_GRID:
+        raise ValueError(f"batch {B} or kv heads {K} above {MAX_GRID}")
+    if nsplit is None:
+        nsplit = plan_for(q, k_cache).nsplit
+    elif not 1 <= nsplit <= MAX_SPLITS:
+        raise ValueError(f"nsplit {nsplit}: want 1 to {MAX_SPLITS}")
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    nsplit = n_splits(B, K, S, dev)
-    if nsplit > 1:
-        part_o = torch.empty(B * K * nsplit * G * D, dtype=torch.float32, device=dev)
-        part_ml = torch.empty(2, B * K * nsplit * G, dtype=torch.float32, device=dev)
-        parts = (part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr())
-    else:
-        parts = (None, None, None)
     fn = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), *parts, B, S, K, G, D,
-                 q.stride(0), q.stride(2), *(k_cache.stride(i) for i in range(3)),
-                 *(v_cache.stride(i) for i in range(3)), out.stride(0),
-                 out.stride(2), nsplit, scale, _DTYPES[q.dtype], stream)
+        err = fn(*launch_args(q, k_cache, v_cache, lens, out, nsplit, scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed (cudaError {err})")
     _count_launch()

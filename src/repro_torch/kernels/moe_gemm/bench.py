@@ -3,7 +3,9 @@
     python -m repro_torch.kernels.moe_gemm.bench [--against OTHER.cu]
 
 (with ``src`` on ``PYTHONPATH``, on a machine with a CUDA card and nvcc).
-Prints the compiler's register and spill report for ``kernel.cu``, then
+Prints the compiler's register and spill report for ``kernel.cu`` and how
+many ``HGMMA`` (wgmma), ``HMMA`` and ``FFMA`` instructions its SASS holds
+(the bf16 body runs on wgmma, the fp32 body on FFMA), then
 the kernel's time by CUDA events (median of 25) at granite-moe-1b-a400m's
 expert shapes in bf16: the prefill's capacity buffer (32 prompts of 2,048
 tokens: E 32, C 20,480, d 1,024, f 512) and a decode step's (32 tokens: C
@@ -13,8 +15,11 @@ operations 2 * 3 * d * f * sum(min(count, C)) at the bf16 tensor rate,
 or bytes (live x rows, all y rows, the weights once) at the memory rate.
 With ``--against``, another source with the same C entry point (an
 earlier ``kernel.cu``) is built with the same flags and timed in turns
-with this one (other, this, this, other), and the largest difference
-between the two outputs is printed.
+with this one (other, this, this, other), each also by the host's time to
+enqueue a decode-step call through the same thin binding (the weights'
+tensor maps are cached, so this is what a decode step pays), and the
+largest difference between the two outputs is printed.  The wrapper
+`ops.moe_gemm` is timed on the host too.
 """
 from __future__ import annotations
 
@@ -91,19 +96,22 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     print(_bench.card())
-    print("kernel.cu:", _bench.compile_with_report(_build.source_of("moe_gemm"),
-                                                   _build.BUILD_DIR / "bench" / "this.so"),
+    lib = _build.BUILD_DIR / "bench" / "this.so"
+    print("kernel.cu:", _bench.compile_with_report(_build.source_of("moe_gemm"), lib),
           flush=True)
+    print(f"kernel.cu SASS: {_bench.sass_counts(lib, ('HGMMA', 'HMMA', 'FFMA'))}", flush=True)
     other = None
     if args.against:
-        lib = _build.BUILD_DIR / "bench" / "other.so"
-        print(f"{args.against}:", _bench.compile_with_report(args.against, lib), flush=True)
-        other = _bind(lib)
+        other_lib = _build.BUILD_DIR / "bench" / "other.so"
+        print(f"{args.against}:", _bench.compile_with_report(args.against, other_lib),
+              flush=True)
+        other = _bind(other_lib)
+    this = _bind(lib)
     for label, tokens in (("prefill", 32 * 2048), ("decode", 32)):
         a = inputs(tokens, dev)
         E, C, d = a[0].shape
         bound, by = bound_ms(a[0], a[-1], a[1].shape[-1])
-        runs = [("kernel.cu", lambda: ops.moe_gemm(*a))]
+        runs = [("kernel.cu", lambda: this(*a))]
         if other is not None:
             y0, y1 = runs[0][1](), other(*a)
             print(f"{label}: max |this - other| {float((y0 - y1).float().abs().max()):.3g} "
@@ -111,13 +119,19 @@ def main(argv=None) -> int:
             mine = runs[0]
             runs = [(str(args.against), lambda: other(*a)), mine, mine,
                     (str(args.against), lambda: other(*a))]
+        decode = label == "decode"
         for name, fn in runs:
             ms = _bench.event_ms(fn)
+            host = f"; host {_bench.host_us(fn):.1f} us a call" if decode else ""
             print(f"{label} {name}: {ms:.4f} ms at E {E}, C {C}, d {d}, f {a[1].shape[-1]}, "
                   f"{int(a[-1].clamp(0, C).sum())} live rows; bound {bound:.4f} ms by {by} "
-                  f"({100 * bound / ms:.2f}%)", flush=True)
+                  f"({100 * bound / ms:.2f}%){host}", flush=True)
+        if decode:
+            print(f"{label} ops.moe_gemm: host {_bench.host_us(lambda: ops.moe_gemm(*a)):.1f} "
+                  f"us a call", flush=True)
         del a
         torch.cuda.empty_cache()
+    print(_bench.card())
     return 0
 
 

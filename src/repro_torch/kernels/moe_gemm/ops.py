@@ -6,12 +6,17 @@ for tensors on the CPU.  ``counts`` stays on the device: the kernel reads
 it, so a call makes no host sync.  The wrapper allocates the output and
 the kernel's scratch h (E, C, f).  `launches` counts calls of the entry
 point (one per `moe_gemm` call: both phases), so a run can show that its
-path went through the kernel.
+path went through the kernel.  `grid_plan` is the host's view of the
+blocks each phase launches (bf16 runs the tensor-core body, fp32 the FMA
+body; ``kernel.cu``'s `moe_gemm_tiles` reports the same tiles).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -19,8 +24,42 @@ from .. import _build
 from .ref import moe_gemm_ref
 
 NAME = "moe_gemm"
-BLOCK_ROWS = 64   # the kernel's row tile
 MAX_GRID = 65535  # experts and row tiles are the grid's z and y
+# (rows, phase-1 columns of f, phase-2 columns of d) a block, by body
+FMA_TILES = (64, 64, 128)
+TC_TILES = (128, 128, 256)  # phase 2 takes 128 columns when d <= 128
+
+
+@dataclass(frozen=True)
+class Phase:
+    """One launch: blocks of ``rows`` x ``cols`` over an (E, C, n) output,
+    the grid (column tiles, row tiles, experts) in CUDA's x, y, z order."""
+    name: str
+    rows: int
+    cols: int
+    grid: Tuple[int, int, int]
+
+
+@dataclass(frozen=True)
+class Plan:
+    body: str  # "wgmma" (bf16, tensor cores) or "fma" (fp32, CUDA cores)
+    gate_up: Phase  # h (E, C, f)
+    down: Phase     # y (E, C, d)
+
+
+@functools.lru_cache(maxsize=256)
+def grid_plan(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> Plan:
+    """The blocks of the kernel's two phases for these shapes and dtype."""
+    if dtype == torch.bfloat16:
+        body, (rows, c1, c2) = "wgmma", TC_TILES
+        c2 = c2 if d > 128 else 128
+    elif dtype == torch.float32:
+        body, (rows, c1, c2) = "fma", FMA_TILES
+    else:
+        raise ValueError(f"no moe_gemm body for {dtype}")
+    rt = -(-C // rows)
+    return Plan(body, Phase("gate_up", rows, c1, (-(-f // c1), rt, E)),
+                Phase("down", rows, c2, (-(-d // c2), rt, E)))
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke)
 _count_guard = threading.Lock()
@@ -52,6 +91,19 @@ def _entry():
     return fn
 
 
+def kernel_tiles(dtype: torch.dtype, d: int) -> Tuple[str, int, int, int, int]:
+    """What the built kernel reports for this dtype and d: (body, phase-1
+    rows, columns, phase-2 rows, columns), to hold `grid_plan` to."""
+    fn = _build.library(NAME).moe_gemm_tiles
+    fn.argtypes = [_I64, _I64, ctypes.POINTER(_I64)]
+    fn.restype = ctypes.c_int
+    out = (_I64 * 5)()
+    err = fn(_DTYPES[dtype], d, out)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm_tiles failed (cudaError {err})")
+    return ("fma", "wgmma")[out[0]], *out[1:]
+
+
 def _check(x, w_gate, w_up, w_down, counts) -> None:
     dev = x.device
     ts = (x, w_gate, w_up, w_down)
@@ -75,7 +127,8 @@ def _check(x, w_gate, w_up, w_down, counts) -> None:
     for name, w in (("d", d), ("f", f)):
         if w < 8 or w % 8:
             raise ValueError(f"{name} {w}: want a multiple of 8")
-    if C < 1 or E > MAX_GRID or -(-C // BLOCK_ROWS) > MAX_GRID:
+    plan = grid_plan(E, max(C, 1), d, f, x.dtype)
+    if C < 1 or E > MAX_GRID or plan.down.grid[1] > MAX_GRID:
         raise ValueError(f"E {E} or C {C}: want 1 to {MAX_GRID} experts and row tiles")
     if not all(t.is_contiguous() for t in ts + (counts,)):
         raise ValueError("x, the weights and counts must be contiguous")

@@ -176,7 +176,45 @@ def test_flash_decode_kernel_matches_plain(cuda, shape, dtype):
     lens[0] = 1
     got = fd_ops.flash_decode(q, kc, vc, lens, scale=D ** -0.5)
     want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
+    assert fd_ops.launches == before + 2
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [3, 10])
+def test_flash_decode_merges_any_split_count_inside_the_launch(cuda, dtype, G):
+    """Every cluster size the kernel takes (1 to 8 splits of the kv axis,
+    merged through distributed shared memory in split order), one launch
+    each, per-sequence lengths with a 1 and lengths ending inside a split
+    and inside a stage."""
+    B, S, K, D = 3, 1000, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (B, 1, K * G, D), dtype, cuda)
+    kc = _randn(gen, (B, S, K, D), dtype, cuda)
+    vc = _randn(gen, (B, S, K, D), dtype, cuda)
+    lens = torch.tensor([1, 517, S], dtype=torch.int32, device=cuda)
+    want = flash_decode_ref(q, kc, vc, lens, scale=D ** -0.5)
+    outs = []
+    for nsplit in range(1, fd_ops.MAX_SPLITS + 1):
+        before = fd_ops.launches
+        out = fd_ops.flash_decode_cuda(q, kc, vc, lens, scale=D ** -0.5, nsplit=nsplit)
+        assert fd_ops.launches == before + 1
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+        outs.append(out)
+    with pytest.raises(ValueError, match="nsplit 9"):  # past a portable cluster
+        fd_ops.flash_decode_cuda(q, kc, vc, lens, scale=D ** -0.5, nsplit=9)
+    # the wrapper launches its plan's split count, and the merge's order is fixed
+    plan = fd_ops.plan_for(q, kc)
+    assert torch.equal(outs[plan.nsplit - 1], fd_ops.flash_decode(q, kc, vc, lens,
+                                                                  scale=D ** -0.5))
+
+
+@pytest.mark.parametrize("D", fd_ops.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_stage_plan_is_the_kernels(cuda, D, dtype):
+    elem = torch.finfo(dtype).bits // 8
+    for G in (1, 2, 3, 4, 5, 16):
+        assert fd_ops.kernel_stages(D, G, dtype) == fd_ops.stage_plan(D, elem, G)
 
 
 def test_flash_attention_bf16_takes_unaligned_inputs_through_a_copy(cuda):
@@ -416,6 +454,14 @@ def test_moe_gemm_kernel_matches_plain(cuda, shape, dtype, junk):
     torch.testing.assert_close(got, want, **moe_tol(want))
     dead = torch.arange(shape[1], device=cuda)[None, :] >= args[-1][:, None]
     assert not bool(got[dead].any())
+
+
+@pytest.mark.parametrize("d", [24, 128, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_grid_plan_is_the_kernels(cuda, d, dtype):
+    plan = mg_ops.grid_plan(4, 300, d, 512, dtype)
+    assert mg_ops.kernel_tiles(dtype, d) == (plan.body, plan.gate_up.rows, plan.gate_up.cols,
+                                             plan.down.rows, plan.down.cols)
 
 
 def test_moe_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
