@@ -72,9 +72,12 @@ Phases (any failure raises and the exit code is non-zero):
    |y| printed.
 10. `ssd_scan` against its plain version over the shapes of
    tests/test_kernels.py, a chunk that is not a power of two, a ragged last
-   chunk and mamba2-370m's heads, fp32 and bf16, the JAX tests' draws and
-   the published ranges; then timed at the prefill's shape beside the
-   bound and the plain version (no single PyTorch call computes it).
+   chunk and mamba2-370m's heads, fp32 and bf16 (bf16 also against
+   `ssd_scan_split_ref`, the tensor-core body's roundings emulated), the
+   JAX tests' draws and the published ranges, all within SSD_REL; then
+   timed at the prefill's shape beside the bound and the plain version (no
+   single PyTorch call computes it), with the count of `HMMA` instructions
+   in the built library's SASS (it fails if there are none).
 11. The MoE serving path, once, at granite-moe-1b-a400m's full width in
    bf16 (seeded weights), with the launch counts set to 0 just before it
    and read just after: 32 prompts of 2,048 tokens (one global dispatch of
@@ -132,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -155,7 +159,7 @@ from repro_torch.core.annotations import AnnotationProject  # noqa: E402
 from repro_torch.core.cuboid import (CuboidGrid, DatasetSpec,  # noqa: E402
                                      downsample_block)
 from repro_torch.core.store import DeviceCuboidStore  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _bench, _build  # noqa: E402
 from repro_torch.kernels.cutout_gather import ops as gather_ops  # noqa: E402
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -169,7 +173,7 @@ from repro_torch.kernels.morton_matmul import bench as mm_bench  # noqa: E402
 from repro_torch.kernels.morton_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_split_ref  # noqa: E402,E501
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import attention, qkv  # noqa: E402
@@ -258,13 +262,15 @@ def bf16_peak_flops(name: str) -> float:
     return 756e12 if "PCIe" in name else 989e12  # PCIe, else SXM
 
 
-# which body of a kernel a dtype runs: flash_attention, morton_matmul and
-# moe_gemm have a tensor-core body for bf16 and an FMA body for fp32;
+# which body of a kernel a dtype runs: flash_attention, morton_matmul,
+# moe_gemm and ssd_scan have a tensor-core body for bf16 and an FMA body
+# for fp32;
 # flash_decode has one body for both, a shared-memory pipeline whose
 # splits merge inside the launch
 TC_BODIES = {"flash_attention": "tensor-core bf16 (mma.sync m16n8k16)",
              "morton_matmul": "tensor-core bf16 (wgmma m64nNk16 + TMA)",
              "moe_gemm": "tensor-core bf16 (wgmma m64nNk16 + 3-D TMA)",
+             "ssd_scan": "tensor-core bf16 (mma.sync m16n8k16, split hi + lo operands)",
              "flash_decode": "FMA {dtype} from a 3-stage cp.async ring, splits merged "
                              "in one cluster"}
 
@@ -1054,14 +1060,20 @@ def ssd_kernel_checks(dev, errs):
             for published in (False, True):
                 args = ssd_draw(gen, shape, dt, dev, published)
                 got = ssd_ops.ssd_scan(*args, chunk=shape[-1])
-                want = ssd_scan_ref(*args, chunk=shape[-1])
-                for name, g, w in zip(("y", "state"), got, want):
-                    check_close(f"ssd_scan {name} {dt} {shape} "
-                                f"{'published' if published else 'jax'} draws",
-                                g, w, ssd_tol(w), errs)
+                wants = [("plain", ssd_scan_ref(*args, chunk=shape[-1]))]
+                if dt == torch.bfloat16:  # and the bf16 body's roundings, emulated
+                    wants.append(("split emulation",
+                                  ssd_scan_split_ref(*args, chunk=shape[-1])))
+                for label, want in wants:
+                    for name, g, w in zip(("y", "state"), got, want):
+                        check_close(f"ssd_scan {name} {dt} {shape} "
+                                    f"{'published' if published else 'jax'} draws vs "
+                                    f"{label}", g, w, ssd_tol(w),
+                                    errs if label == "plain" else [])
                 n += 1
-    log(f"ssd_scan: {n} small cases within rtol {SSD_REL} and {SSD_REL} of max |out| "
-        f"of plain")
+    log(f"ssd_scan ({body('ssd_scan', torch.bfloat16)} and "
+        f"{body('ssd_scan', torch.float32)}): {n} small cases within rtol {SSD_REL} and "
+        f"{SSD_REL} of max |out| of plain (bf16 also of the split emulation)")
 
 
 def layer0_ssm_vs_plain(sc, dev, cfg, model, prompts, report, errs):
@@ -1148,14 +1160,20 @@ def ssd_timing(sc, dev, cfg, name, report):
               + 4 * H + 4 * B * H * P * N)
     flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
     bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    sass = _bench.sass_counts(_build._target("ssd_scan"), ("HMMA", "FFMA"))
     t = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
              bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
              operations=ops_, bytes=bytes_, shape=[B, S, H, P, N, Q],
-             tflops=ops_ / ms / 1e9)
+             tflops=ops_ / ms / 1e9, body=body("ssd_scan", x.dtype), sass=sass,
+             plan=dataclasses.asdict(ssd_ops.tc_plan(B, H, P, N)))
     report["ssd_timing"] = t
-    log(f"ssd_scan {t['shape']}: {ms:.4f} ms (plain {plain:.4f} ms, no library call), "
-        f"{t['tflops']:.2f} TFLOP/s; bound {bound:.4f} ms by {t['bound_by']} = "
-        f"{100 * bound / ms:.2f}% of the card's peak")
+    log(f"ssd_scan {t['shape']} [{t['body']}]: {ms:.4f} ms (plain {plain:.4f} ms, no "
+        f"library call), {t['tflops']:.2f} TFLOP/s; bound {bound:.4f} ms by "
+        f"{t['bound_by']} = {100 * bound / ms:.2f}% of the card's peak; SASS {sass}; "
+        f"plan {t['plan']}")
+    if sass["HMMA"] == 0:
+        raise RuntimeError("ssd_scan's library holds no HMMA: the bf16 body is not on "
+                           "the tensor cores")
     return t
 
 

@@ -1,16 +1,18 @@
 """Time `ssd_scan` on the card at the ssm serving prefill's shape.
 
-    python -m repro_torch.kernels.ssd_scan.bench [--against OTHER.cu]
+    python -m repro_torch.kernels.ssd_scan.bench [--against OTHER.cu ...]
 
 (with ``src`` on ``PYTHONPATH``, on a machine with a CUDA card and nvcc).
-Prints the compiler's register and spill report for ``kernel.cu``, then
-the kernel's time by CUDA events (median of 25) at mamba2-370m's prefill
-shape: B 32, S 2,048, H 32, P 64, N 128, Q 256, with x, B and C sliced
-out of one bf16 projection and dt and A in Mamba-2's published ranges.
-With ``--against``, another source with the same C entry point (an
-earlier ``kernel.cu``) is built with the same flags and timed in turns
-with this one (other, this, this, other), and the largest difference
-between the two outputs is printed.
+Prints the compiler's register and spill report for ``kernel.cu`` and the
+count of tensor-core (``HMMA``) and fp32 FMA instructions in its SASS,
+then the kernel's time by CUDA events (median of 25) at mamba2-370m's
+prefill shape: B 32, S 2,048, H 32, P 64, N 128, Q 256, with x, B and C
+sliced out of one bf16 projection and dt and A in Mamba-2's published
+ranges.  Each ``--against`` names another source with the same C entry
+point (an earlier ``kernel.cu``, or a variant); each is built with the
+same flags, the largest difference between its outputs and this one's
+is printed (bf16 at the prefill shape, and fp32 at B 2, S 1,000, H 4),
+and all are timed in turns (others, this, this, others reversed).
 """
 from __future__ import annotations
 
@@ -50,17 +52,19 @@ def _bind(lib: pathlib.Path):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", type=pathlib.Path,
-                    help="another ssd_scan kernel source to time in turns with this one")
+    ap.add_argument("--against", type=pathlib.Path, action="append", default=[],
+                    help="another ssd_scan kernel source to time in turns with this one "
+                         "(may be given more than once)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device; nothing measured", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     print(_bench.card())
-    print("kernel.cu:", _bench.compile_with_report(_build.source_of("ssd_scan"),
-                                                   _build.BUILD_DIR / "bench" / "this.so"),
+    lib = _build.BUILD_DIR / "bench" / "this.so"
+    print("kernel.cu:", _bench.compile_with_report(_build.source_of("ssd_scan"), lib),
           flush=True)
+    print(f"kernel.cu SASS: {_bench.sass_counts(lib, ('HMMA', 'FFMA'))}", flush=True)
     cfg = get_config("mamba2-370m")
     B, S = 32, 2048
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -72,18 +76,24 @@ def main(argv=None) -> int:
     A = -(1 + 15 * torch.rand((H,), generator=gen, device=dev))
     dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand((B, S, H), generator=gen,
                                                                   device=dev))
-    runs = [("kernel.cu", lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q))]
-    if args.against:
-        lib = _build.BUILD_DIR / "bench" / "other.so"
-        print(f"{args.against}:", _bench.compile_with_report(args.against, lib), flush=True)
-        other = _bind(lib)
-        (y0, s0), (y1, s1) = runs[0][1](), other(x, dt, A, Bm, Cm, Q)
-        print(f"max |this - other|: y {float((y0 - y1).abs().max()):.3g} (max |y| "
-              f"{float(y0.abs().max()):.3g}), state {float((s0 - s1).abs().max()):.3g}")
-        mine = runs[0]
-        runs = [(str(args.against), lambda: other(x, dt, A, Bm, Cm, Q)), mine, mine,
-                (str(args.against), lambda: other(x, dt, A, Bm, Cm, Q))]
-    for name, fn in runs:
+    small = (x[:2, :1000, :4].float(), dt[:2, :1000, :4], A[:4], Bm[:2, :1000].float(),
+             Cm[:2, :1000].float())  # the fp32 body
+    this = _bind(lib)
+    mine = ("kernel.cu", lambda: this(x, dt, A, Bm, Cm, Q))
+    others = []
+    for i, src in enumerate(args.against):
+        other_lib = _build.BUILD_DIR / "bench" / f"other{i}.so"
+        print(f"{src}:", _bench.compile_with_report(src, other_lib), flush=True)
+        print(f"{src} SASS: {_bench.sass_counts(other_lib, ('HMMA', 'FFMA'))}", flush=True)
+        other = _bind(other_lib)
+        (y0, s0), (y1, s1) = mine[1](), other(x, dt, A, Bm, Cm, Q)
+        (f0, g0), (f1, g1) = this(*small, 256), other(*small, 256)
+        print(f"max |this - {src}|: bf16 y {float((y0 - y1).abs().max()):.3g} (max |y| "
+              f"{float(y0.abs().max()):.3g}), state {float((s0 - s1).abs().max()):.3g} (max "
+              f"|state| {float(s0.abs().max()):.3g}); fp32 y {float((f0 - f1).abs().max()):.3g}"
+              f", state {float((g0 - g1).abs().max()):.3g}", flush=True)
+        others.append((str(src), lambda o=other: o(x, dt, A, Bm, Cm, Q)))
+    for name, fn in others + [mine, mine] + others[::-1]:
         print(f"{name}: {_bench.event_ms(fn):.4f} ms at B {B}, S {S}, H {H}, P {P}, N {N}, "
               f"Q {Q}", flush=True)
     return 0

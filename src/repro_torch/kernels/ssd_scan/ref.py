@@ -7,6 +7,11 @@ state's share ``(C exp(cum)) . S``, and the state update ``exp(cum_last) S
 + B^T . (x dt seg)``.  Everything is fp32; S is padded up to a multiple of
 the chunk with zero rows (dt = 0 leaves the state unchanged), which the
 kernel masks instead.
+
+`ssd_scan_split_ref` emulates the roundings of ``kernel.cu``'s bf16 body
+(tensor-core products of bf16 operands, fp32 sums): the operands it forms
+in fp32 are each split into hi + lo bf16 and multiplied twice.  Tests hold
+it to ``ssd_scan_ref``; nothing on the serving path calls it.
 """
 from __future__ import annotations
 
@@ -68,3 +73,56 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ce = Cc[:, :, :, None, :] * torch.exp(cum)[..., None]     # (B, nc, Q, H, N)
     y = y + torch.einsum("bcihn,bchpn->bcihp", ce, incoming)
     return y.reshape(Bsz, nc * Q, H, P)[:, :S], s
+
+
+def split_bf16(v: torch.Tensor, lo_terms: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``v`` as hi = bf16(v) and lo = bf16(v - hi), both back in fp32
+    (lo is 0 without ``lo_terms``: one rounding)."""
+    hi = v.to(torch.bfloat16).to(F32)
+    lo = (v - hi).to(torch.bfloat16).to(F32) if lo_terms else torch.zeros_like(v)
+    return hi, lo
+
+
+def ssd_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+                       lo_terms: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 body's arithmetic: x, B, C taken as bf16 values (exact
+    operands), every other operand of a product split by `split_bf16`:
+    - y_i = exp(cum_i) (C_i . S_hi + C_i . S_lo) + sum_j (G'_hi + G'_lo)_ij
+      x_j, with G' = (C . B^T) o L o dt_j formed in fp32 for j <= i;
+    - S <- exp(total) S + (x o w)_hi^T . B + (x o w)_lo^T . B, with
+      w_j = dt_j exp(total - cum_j).
+    Sums are fp32, chunk by chunk.  ``lo_terms=False`` rounds each such
+    operand to bf16 once.  Same contract as `ssd_scan_ref`."""
+    Bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    bf = torch.bfloat16
+    xf, Bf, Cf = (t.to(bf).to(F32) for t in (x, B, C))
+    dtf, Af = dt.to(F32), A.to(F32)
+    s = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+    ys = []
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        xc, dtc = xf[:, c0:c0 + q], dtf[:, c0:c0 + q]              # (B, q, H, P), (B, q, H)
+        Bc, Cc = Bf[:, c0:c0 + q], Cf[:, c0:c0 + q]                # (B, q, N)
+        cum = torch.cumsum(dtc * Af, dim=1)                         # (B, q, H)
+        causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        L = torch.where(causal[None, :, :, None],
+                        torch.exp(cum[:, :, None, :] - cum[:, None, :, :]), 0.0)
+        scores = torch.einsum("bin,bjn->bij", Cc, Bc)               # (B, q, q)
+        g = scores[..., None] * L * dtc[:, None, :, :]              # (B, q, q, H)
+        gh, gl = split_bf16(g, lo_terms)
+        y = (torch.einsum("bijh,bjhp->bihp", gh, xc)
+             + torch.einsum("bijh,bjhp->bihp", gl, xc))
+        sh, sl = split_bf16(s, lo_terms)
+        carried = (torch.einsum("bin,bhpn->bihp", Cc, sh)
+                   + torch.einsum("bin,bhpn->bihp", Cc, sl))
+        ys.append(y + torch.exp(cum)[..., None] * carried)
+        total = cum[:, -1]                                          # (B, H)
+        w = dtc * torch.exp(total[:, None] - cum)                   # (B, q, H)
+        uh, ul = split_bf16(xc * w[..., None], lo_terms)
+        s = (s * torch.exp(total)[..., None, None]
+             + torch.einsum("bjhp,bjn->bhpn", uh, Bc)
+             + torch.einsum("bjhp,bjn->bhpn", ul, Bc))
+    return torch.cat(ys, dim=1), s

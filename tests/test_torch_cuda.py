@@ -24,7 +24,7 @@ from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.morton_matmul import ops as mm_ops
 from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_split_ref
 from repro_torch.vision import synapse_detector as sd
 
 pytestmark = pytest.mark.gpu
@@ -328,6 +328,57 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, published):
     assert y.dtype == s.dtype == torch.float32
     torch.testing.assert_close(y, want_y, **ssd_tol(want_y))
     torch.testing.assert_close(s, want_s, **ssd_tol(want_s))
+
+
+SSD_TC_SHAPES = [  # (B, S, H, P, N, chunk) at mamba2-370m's widths, bf16 body
+    (2, 600, 32, 64, 128, 256),   # H 32, a ragged last chunk of 88
+    (1, 777, 33, 64, 128, 256),   # H not a multiple of a head group of 2 or 4
+    (1, 300, 3, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", SSD_TC_SHAPES)
+@pytest.mark.parametrize("published", [False, True], ids=["jax_draws", "published"])
+def test_ssd_scan_bf16_body_matches_plain_and_its_emulation(cuda, shape, published):
+    """The tensor-core body against the fp32 plain version, and against
+    `ssd_scan_split_ref` (the same roundings), both at the unchanged
+    fp32-level tolerance."""
+    assert ssd_ops.body(torch.bfloat16) == "mma"
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = ssd_inputs(gen, shape, torch.bfloat16, cuda, published)
+    before = ssd_ops.launches
+    y, s = ssd_ops.ssd_scan(*args, chunk=shape[-1])
+    assert ssd_ops.launches == before + 1
+    for want_y, want_s in (ssd_scan_ref(*args, chunk=shape[-1]),
+                           ssd_scan_split_ref(*args, chunk=shape[-1])):
+        torch.testing.assert_close(y, want_y, **ssd_tol(want_y))
+        torch.testing.assert_close(s, want_s, **ssd_tol(want_s))
+
+
+def test_ssd_scan_bf16_body_takes_unaligned_slices(cuda):
+    """x, B and C at an odd element offset of one projection: the bf16
+    body's loads take the plain path instead of cp.async."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, S, H, P, N = 2, 300, 4, 64, 128
+    xbc = _randn(gen, (B, S, 1 + H * P + 2 * N), torch.bfloat16, cuda)[..., 1:]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.rand((B, S, H), generator=gen, device=cuda) * 0.1
+    A = -(1 + 15 * torch.rand((H,), generator=gen, device=cuda))
+    y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    want_y, want_s = ssd_scan_ref(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(),
+                                  chunk=256)
+    torch.testing.assert_close(y, want_y, **ssd_tol(want_y))
+    torch.testing.assert_close(s, want_s, **ssd_tol(want_s))
+
+
+@pytest.mark.parametrize("pn", [(64, 128), (8, 16), (24, 40), (128, 64), (128, 128)])
+def test_ssd_scan_tc_plan_is_the_kernels(cuda, pn):
+    P, N = pn
+    plan = ssd_ops.tc_plan(2, 32, P, N)
+    heads, smem, asked, occupancy, warps = ssd_ops.kernel_tc_plan(P, N)
+    assert (heads, smem, asked, warps) == (plan.heads, plan.smem, plan.blocks_per_sm,
+                                           plan.warps)
+    assert occupancy >= asked
 
 
 def test_ssd_scan_reads_strided_slices(cuda):
