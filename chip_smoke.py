@@ -72,12 +72,13 @@ Phases (any failure raises and the exit code is non-zero):
    |y| printed.
 10. `ssd_scan` against its plain version over the shapes of
    tests/test_kernels.py, a chunk that is not a power of two, a ragged last
-   chunk and mamba2-370m's heads, fp32 and bf16 (bf16 also against
-   `ssd_scan_split_ref`, the tensor-core body's roundings emulated), the
-   JAX tests' draws and the published ranges, all within SSD_REL; then
-   timed at the prefill's shape beside the bound and the plain version (no
-   single PyTorch call computes it), with the count of `HMMA` instructions
-   in the built library's SASS (it fails if there are none).
+   chunk, mamba2-370m's heads and every instance of the bf16 body, fp32
+   and bf16 (bf16 also against `ssd_scan_split_ref`, the tensor-core
+   body's roundings emulated), the JAX tests' draws and the published
+   ranges, all within SSD_REL; then timed at the prefill's shape beside the
+   bound and the plain version (no single PyTorch call computes it), with
+   the count of `HMMA` instructions in the built library's SASS (it fails
+   if there are none) and the launch plan the built kernel reports.
 11. The MoE serving path, once, at granite-moe-1b-a400m's full width in
    bf16 (seeded weights), with the launch counts set to 0 just before it
    and read just after: 32 prompts of 2,048 tokens (one global dispatch of
@@ -135,7 +136,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import pathlib
 import statistics
@@ -1026,7 +1026,11 @@ SSD_SHAPES = [  # (B, S, H, P, N, chunk): tests/test_kernels.py:171-177, then
     (2, 100, 3, 8, 16, 256),     # Q = S = 100, not a power of two; P = 8
     (2, 300, 3, 16, 16, 48),     # Q = 48, a ragged last chunk of 12
     (2, 77, 3, 24, 40, 24),      # P, N multiples of 8 only
-    (2, 1000, 4, 64, 128, 256)]  # mamba2-370m's heads: Q 256, N 128, P 64
+    (2, 1000, 4, 64, 128, 256),  # mamba2-370m's heads: Q 256, N 128, P 64
+    # one case for each instance of the bf16 body (P, N each up to 64 or
+    # 128, exactly so or not) that the shapes above leave out
+    (1, 300, 2, 128, 64, 256), (1, 300, 2, 96, 48, 256),
+    (1, 300, 2, 96, 128, 256), (1, 300, 2, 48, 96, 256)]
 
 
 def ssd_tol(want):
@@ -1165,7 +1169,8 @@ def ssd_timing(sc, dev, cfg, name, report):
              bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
              operations=ops_, bytes=bytes_, shape=[B, S, H, P, N, Q],
              tflops=ops_ / ms / 1e9, body=body("ssd_scan", x.dtype), sass=sass,
-             plan=dataclasses.asdict(ssd_ops.tc_plan(B, H, P, N)))
+             plan=dict(zip(("smem", "blocks_per_sm", "occupancy", "warps"),
+                           ssd_ops.kernel_tc_plan(P, N))))
     report["ssd_timing"] = t
     log(f"ssd_scan {t['shape']} [{t['body']}]: {ms:.4f} ms (plain {plain:.4f} ms, no "
         f"library call), {t['tflops']:.2f} TFLOP/s; bound {bound:.4f} ms by "

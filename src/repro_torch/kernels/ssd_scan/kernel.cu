@@ -78,8 +78,9 @@
 // 2.92e11 tensor FLOP at the prefill (the split's extra products
 // included), 1.41 ms on an H100 SXM at 700 W (PERF.md §6): shared-memory
 // reads of the operands each warp re-reads, and waits, not the tensor
-// rate, set the pace.  C . B^T is formed per head; blocks of 2 heads sharing it were
-// slower (one block an SM), and 4 do not fit a block's shared memory.
+// rate, set the pace.  C . B^T is formed per head: blocks of 2 heads
+// sharing it were slower (one block an SM), and 4 do not fit a block's
+// shared memory (PERF.md §6).
 //
 // Shapes taken: Q from 1 to 256; P and N multiples of 8 up to 128; x, B
 // and C all fp32 or all bf16; dt and A fp32.  The tensor-core body loads
@@ -98,11 +99,6 @@ constexpr int kT = 64;         // rows per tile
 constexpr int kMaxQ = 256;     // rows per chunk
 constexpr int kMaxPN = 128;    // largest P and N
 constexpr int GL = kT + 4;     // padded row of G
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 struct Strides3 {  // in elements; the last axis is contiguous
   int64_t b, s, h;
@@ -126,9 +122,8 @@ __device__ __forceinline__ float comp(const float4& v, int k) {
 
 // rows [first, first + kT) of a (S, width) matrix into dst[kT][ld], rows
 // at or past `rows` (relative) as zeros, each scaled by scale[r] if given
-template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t row_stride, int64_t first,
                                           int rows, int width,
                                           const float* scale) {
@@ -136,17 +131,16 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   for (int r = ty; r < kT; r += 16) {
     const bool live = r < rows;
     const float f = live && scale ? scale[r] : 1.f;
-    const T* row = src + (first + r) * row_stride;
+    const float* row = src + (first + r) * row_stride;
     for (int c = tx; c < width; c += 16)
-      dst[r * ld + c] = live ? to_float(row[c]) * f : 0.f;
+      dst[r * ld + c] = live ? row[c] * f : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, float* __restrict__ y,
+    ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, float* __restrict__ y,
                     float* __restrict__ state, Strides3 xs, Strides3 ds,
                     Strides3 bs, Strides3 cs, int S, int H, int P, int N,
                     int Q) {
@@ -165,9 +159,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int lane = threadIdx.x % 32;
   const float Ah = A[h];
-  const T* xb = x + b * xs.b + h * xs.h;
-  const T* Bb = Bm + b * bs.b;
-  const T* Cb = Cm + b * cs.b;
+  const float* xb = x + b * xs.b + h * xs.h;
+  const float* Bb = Bm + b * bs.b;
+  const float* Cb = Cm + b * cs.b;
   const float* db = dt + b * ds.b + h * ds.h;
   float* yb = y + ((int64_t)b * S * H + h) * P;
   const int64_t y_row = (int64_t)H * P;
@@ -384,21 +378,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const float* dt, const float* A,
-                   const void* Bm, const void* Cm, float* y, float* state,
+cudaError_t launch(const float* x, const float* dt, const float* A,
+                   const float* Bm, const float* Cm, float* y, float* state,
                    Strides3 xs, Strides3 ds, Strides3 bs, Strides3 cs, int B,
                    int S, int H, int P, int N, int Q, cudaStream_t stream) {
   const size_t bytes = smem_floats(P, N) * sizeof(float);
   // set on every launch: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(smem_floats(kMaxPN, kMaxPN) * sizeof(float)));
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
-  ssd_scan_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), y, state, xs, ds, bs, cs, S, H, P, N, Q);
+  ssd_scan_kernel<<<grid, kThreads, bytes, stream>>>(x, dt, A, Bm, Cm, y, state, xs, ds,
+                                                     bs, cs, S, H, P, N, Q);
   return cudaGetLastError();
 }
 
@@ -409,7 +401,6 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int kRows = 128;  // output rows a tile: 16 a warp
 constexpr int kKeys = 32;   // key rows a stage of the cp.async double buffer
-constexpr int kHeads = 1;   // heads a block; C . B^T is formed once for them
 
 // Shared memory for runtime P and N (byte offsets).  Rows of C, B and the
 // state copies hold N16 + 8 bf16 and rows of x P16 + 8 (N16, P16: N and P
@@ -420,7 +411,7 @@ struct Plan {
   size_t cs, bs, xs, sh, sl, fl, bytes;
 };
 
-__host__ __device__ inline Plan plan(int P, int N, int G) {
+__host__ __device__ inline Plan plan(int P, int N) {
   Plan s;
   s.n16 = (N + 15) & ~15;
   s.p16 = (P + 15) & ~15;
@@ -429,10 +420,10 @@ __host__ __device__ inline Plan plan(int P, int N, int G) {
   size_t o = 0;
   s.cs = o, o += (size_t)kRows * s.nl * 2;          // C, one output tile
   s.bs = o, o += (size_t)2 * kKeys * s.nl * 2;      // B, two stages
-  s.xs = o, o += (size_t)G * 2 * kKeys * s.xl * 2;  // x, two stages a head
-  s.sh = o, o += (size_t)G * s.p16 * s.nl * 2;      // the state, bf16 hi
-  s.sl = o, o += (size_t)G * s.p16 * s.nl * 2;      // and lo, (P, N) a head
-  s.fl = o, o += (size_t)G * 3 * kMaxQ * 4;         // cum, dt, w a head
+  s.xs = o, o += (size_t)2 * kKeys * s.xl * 2;      // x, two stages
+  s.sh = o, o += (size_t)s.p16 * s.nl * 2;          // the state (P, N), bf16 hi
+  s.sl = o, o += (size_t)s.p16 * s.nl * 2;          // and lo
+  s.fl = o, o += (size_t)3 * kMaxQ * 4;             // cum, dt, w
   s.bytes = o;
   return s;
 }
@@ -443,9 +434,9 @@ constexpr int width_of(int w) { return w <= 64 ? 64 : 128; }
 // blocks an SM the launch bounds ask for: two of 8 warps (16 warps) where
 // the registers (128 a thread: y's 16 x P and the state's share) and
 // shared memory allow
-template <int PM, int NM, int G>
+template <int PM>
 struct MinBlocks {
-  static constexpr int value = G == 1 && PM == 64 ? 2 : 1;
+  static constexpr int value = PM == 64 ? 2 : 1;
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -485,18 +476,18 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
   lo = hopper::pack_bf16(a - hf.x, b - hf.y);
 }
 
-// Grid (ceil(H / G), B); 8 warps.  Block (g0, b) scans heads [G g0, G g0 +
-// G) of sequence b.  Per chunk: the state (registers) is copied to shared
-// memory as bf16 hi + lo and scaled by exp(total) in place; then the
-// chunk's rows in output tiles of 128, each warp owning 16 rows.  For a
-// tile, the key rows stream in stages of 32 (B, and x of each head) by
-// cp.async, the next stage in flight while this one is multiplied:
+// Grid (H, B); 8 warps.  Block (h, b) scans head h of sequence b.  Per
+// chunk: the state (registers) is copied to shared memory as bf16 hi + lo
+// and scaled by exp(total) in place; then the chunk's rows in output tiles
+// of 128, each warp owning 16 rows.  For a tile, the key rows stream in
+// stages of 32 (B and x) by cp.async, the next stage in flight while this
+// one is multiplied:
 //   y   = exp(cum_i) (C . S_hi^T + C . S_lo^T)           at the first stage
 //       + sum over stages of G'_hi . x + G'_lo . x,  G' = (C . B^T) o L o dt
 // and, on the chunk's last tile (whose stages cover every key row), the
 // state update S += (x o w)_hi^T . B + (x o w)_lo^T . B.
-template <int PM, int NM, int G, bool EXACT>
-__global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
+template <int PM, int NM, bool EXACT>
+__global__ void __launch_bounds__(kThreads, MinBlocks<PM>::value)
     ssd_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const bf16* __restrict__ Bm,
                 const bf16* __restrict__ Cm, float* __restrict__ y,
@@ -504,7 +495,7 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
                 Strides3 cs, int S, int H, int P, int N, int Q, int aligned) {
   constexpr int MG = PM / 16;            // 16-row groups of the state's P axis
   constexpr int NTW = NM / 8 / (8 / MG);  // state n-tiles a warp
-  const Plan pl = plan(P, N, G);
+  const Plan pl = plan(P, N);
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   bf16* Cs = reinterpret_cast<bf16*>(base + pl.cs);
@@ -512,48 +503,44 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
   bf16* Xs = reinterpret_cast<bf16*>(base + pl.xs);
   bf16* Sh = reinterpret_cast<bf16*>(base + pl.sh);
   bf16* Sl = reinterpret_cast<bf16*>(base + pl.sl);
-  float* cum = reinterpret_cast<float*>(base + pl.fl);  // [G][kMaxQ]
-  float* dts = cum + G * kMaxQ;                         // [G][kMaxQ]
-  float* wts = dts + G * kMaxQ;  // [G][kMaxQ] dt_j exp(total - cum_j), 0 past q
+  float* cum = reinterpret_cast<float*>(base + pl.fl);  // [kMaxQ]
+  float* dts = cum + kMaxQ;                             // [kMaxQ]
+  float* wts = dts + kMaxQ;  // [kMaxQ] dt_j exp(total - cum_j), 0 past q
   const int nl = pl.nl, xl = pl.xl, n16 = pl.n16;
 
-  const int h0 = blockIdx.x * G, b = blockIdx.y;
-  const int hn = min(G, H - h0);  // live heads of this block
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float Ah = A[h];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qr = lane / 4, qc = lane % 4;  // fragment row and column pair
   const bool al = aligned != 0;
+  const bf16* xb = x + b * xs.b + (int64_t)h * xs.h;
   const bf16* Bb = Bm + b * bs.b;
   const bf16* Cb = Cm + b * cs.b;
+  const float* db = dt + b * ds.b + (int64_t)h * ds.h;
 
   // this warp's share of the state: P rows [pm 16, pm 16 + 16), n-tiles
   // [nt0, nt0 + NTW) of 8 columns; fragment (row qr (+8), columns 2 qc, +1)
   const int pm = warp % MG, nt0 = (warp / MG) * NTW;
-  float st[G][NTW][4];
+  float st[NTW][4];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int t = 0; t < NTW; ++t) st[g][t][0] = st[g][t][1] = st[g][t][2] = st[g][t][3] = 0.f;
+  for (int t = 0; t < NTW; ++t) st[t][0] = st[t][1] = st[t][2] = st[t][3] = 0.f;
 
   for (int c0 = 0; c0 < S; c0 += Q) {
     const int q = min(Q, S - c0);
     __syncthreads();  // the previous chunk is done with cum, dts, wts, Sh, Sl
-    for (int i = threadIdx.x; i < G * kMaxQ; i += kThreads) {
-      const int g = i / kMaxQ, j = i - g * kMaxQ;
-      float d = 0.f;
-      if (j < q && g < hn)
-        d = dt[b * ds.b + (int64_t)(h0 + g) * ds.h + (int64_t)(c0 + j) * ds.s];
-      dts[i] = d;
-      cum[i] = g < hn ? d * A[h0 + g] : 0.f;
+    for (int j = threadIdx.x; j < kMaxQ; j += kThreads) {
+      const float d = j < q ? db[(int64_t)(c0 + j) * ds.s] : 0.f;
+      dts[j] = d;
+      cum[j] = d * Ah;
     }
     __syncthreads();
-    if (warp < G) {  // inclusive cumsum of a over the chunk, a warp a head
-      float* cg = cum + warp * kMaxQ;
+    if (warp == 0) {  // inclusive cumsum of a over the chunk
       const int per = (q + 31) / 32;
       const int lo = min(lane * per, q), hi = min(lo + per, q);
       float run = 0.f;
       for (int k = lo; k < hi; ++k) {
-        run += cg[k];
-        cg[k] = run;
+        run += cum[k];
+        cum[k] = run;
       }
       float incl = run;
 #pragma unroll
@@ -562,36 +549,32 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
         if (lane >= o) incl += v;
       }
       const float off = incl - run;
-      for (int k = lo; k < hi; ++k) cg[k] += off;
+      for (int k = lo; k < hi; ++k) cum[k] += off;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < G * kMaxQ; i += kThreads) {
-      const int g = i / kMaxQ, j = i - g * kMaxQ;
-      wts[i] = j < q ? dts[i] * expf(cum[g * kMaxQ + q - 1] - cum[i]) : 0.f;
-    }
+    const float total = cum[q - 1];
+    for (int j = threadIdx.x; j < kMaxQ; j += kThreads)
+      wts[j] = j < q ? dts[j] * expf(total - cum[j]) : 0.f;
     if (c0 > 0 && pm * 16 < pl.p16) {
       // the state carried into this chunk, as bf16 hi + lo for C . S^T,
       // then scaled by exp(total) for this chunk's update
+      const float decay = expf(total);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float decay = expf(cum[g * kMaxQ + q - 1]);
+      for (int t = 0; t < NTW; ++t) {
+        const int n = (nt0 + t) * 8 + 2 * qc;
+        if (n < n16) {
 #pragma unroll
-        for (int t = 0; t < NTW; ++t) {
-          const int n = (nt0 + t) * 8 + 2 * qc;
-          if (n < n16) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int p = pm * 16 + qr + 8 * r;
-              uint32_t hi, lo;
-              split2(st[g][t][2 * r], st[g][t][2 * r + 1], hi, lo);
-              const size_t o = (size_t)g * pl.p16 * nl + (size_t)p * nl + n;
-              *reinterpret_cast<uint32_t*>(Sh + o) = hi;
-              *reinterpret_cast<uint32_t*>(Sl + o) = lo;
-            }
+          for (int r = 0; r < 2; ++r) {
+            const int p = pm * 16 + qr + 8 * r;
+            uint32_t hi, lo;
+            split2(st[t][2 * r], st[t][2 * r + 1], hi, lo);
+            const size_t o = (size_t)p * nl + n;
+            *reinterpret_cast<uint32_t*>(Sh + o) = hi;
+            *reinterpret_cast<uint32_t*>(Sl + o) = lo;
           }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[g][t][e] *= decay;
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[t][e] *= decay;
       }
     }
 
@@ -600,21 +583,16 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
       const int nk = (min(i0 + kRows, q) + kKeys - 1) / kKeys;
       const int r0 = i0 + warp * 16;  // this warp's first row (in the chunk)
       const int ia = r0 + qr, ib = ia + 8;
-      float acc[G][PM / 8][4];
+      float acc[PM / 8][4];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int t = 0; t < PM / 8; ++t)
-          acc[g][t][0] = acc[g][t][1] = acc[g][t][2] = acc[g][t][3] = 0.f;
+      for (int t = 0; t < PM / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
       auto load_stage = [&](int jt) {
         const int j0 = jt * kKeys, buf = jt & 1;
         load_tile(Bs + buf * kKeys * nl, nl, Bb + (int64_t)(c0 + j0) * bs.s, bs.s, kKeys,
                   q - j0, N, n16, al);
-        for (int g = 0; g < hn; ++g)
-          load_tile(Xs + (g * 2 + buf) * kKeys * xl, xl,
-                    x + b * xs.b + (int64_t)(h0 + g) * xs.h + (int64_t)(c0 + j0) * xs.s,
-                    xs.s, kKeys, q - j0, P, pl.p16, al);
+        load_tile(Xs + buf * kKeys * xl, xl, xb + (int64_t)(c0 + j0) * xs.s, xs.s, kKeys,
+                  q - j0, P, pl.p16, al);
       };
       load_tile(Cs, nl, Cb + (int64_t)(c0 + i0) * cs.s, cs.s, kRows, q - i0, N, n16, al);
       hopper::cp_async_commit();
@@ -632,33 +610,26 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
             if (!EXACT && kk * 16 >= n16) break;
             uint32_t a[4];
             hopper::ldmatrix_x4(a, crow + kk * 16);
+            const size_t so = kk * 16 + ((lane / 8) % 2) * 8 +
+                              (size_t)((lane / 16) * 8 + lane % 8) * nl;
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              if (g >= hn) break;
-              const size_t so = (size_t)g * pl.p16 * nl + kk * 16 + ((lane / 8) % 2) * 8 +
-                                (size_t)((lane / 16) * 8 + lane % 8) * nl;
-#pragma unroll
-              for (int t = 0; t < PM / 8; t += 2) {
-                if (!EXACT && t * 8 >= P) break;
-                uint32_t bh[4], bl[4];
-                hopper::ldmatrix_x4(bh, Sh + so + (size_t)t * 8 * nl);
-                hopper::ldmatrix_x4(bl, Sl + so + (size_t)t * 8 * nl);
-                hopper::mma_bf16_16816(acc[g][t], a, bh);
-                hopper::mma_bf16_16816(acc[g][t + 1], a, bh + 2);
-                hopper::mma_bf16_16816(acc[g][t], a, bl);
-                hopper::mma_bf16_16816(acc[g][t + 1], a, bl + 2);
-              }
+            for (int t = 0; t < PM / 8; t += 2) {
+              if (!EXACT && t * 8 >= P) break;
+              uint32_t bh[4], bl[4];
+              hopper::ldmatrix_x4(bh, Sh + so + (size_t)t * 8 * nl);
+              hopper::ldmatrix_x4(bl, Sl + so + (size_t)t * 8 * nl);
+              hopper::mma_bf16_16816(acc[t], a, bh);
+              hopper::mma_bf16_16816(acc[t + 1], a, bh + 2);
+              hopper::mma_bf16_16816(acc[t], a, bl);
+              hopper::mma_bf16_16816(acc[t + 1], a, bl + 2);
             }
           }
+          const float ea = ia < q ? expf(cum[ia]) : 0.f;
+          const float eb = ib < q ? expf(cum[ib]) : 0.f;
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float ea = ia < q ? expf(cum[g * kMaxQ + ia]) : 0.f;
-            const float eb = ib < q ? expf(cum[g * kMaxQ + ib]) : 0.f;
-#pragma unroll
-            for (int t = 0; t < PM / 8; ++t) {
-              acc[g][t][0] *= ea, acc[g][t][1] *= ea;
-              acc[g][t][2] *= eb, acc[g][t][3] *= eb;
-            }
+          for (int t = 0; t < PM / 8; ++t) {
+            acc[t][0] *= ea, acc[t][1] *= ea;
+            acc[t][2] *= eb, acc[t][3] *= eb;
           }
         }
       }
@@ -690,90 +661,80 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
               hopper::mma_bf16_16816(s[t + 1], a, bk + 2);
             }
           }
+          const float ca = cum[min(ia, q - 1)], cb = cum[min(ib, q - 1)];
+          // G' = s exp(cum_i - cum_j) dt_j for j <= i, split hi + lo (the
+          // exponent is <= 0 there; rows past q have s = 0); the mask is
+          // needed only where the stage reaches past this warp's first
+          // row.  The fragments of key tiles 2 k and 2 k + 1 are those of
+          // k-step k.
+          const bool diag = j0 + kKeys - 1 > r0;
+          uint32_t gh[2][4], gl[2][4];
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            if (g >= hn) break;
-            const float* cg = cum + g * kMaxQ;
-            const float* dg = dts + g * kMaxQ;
-            const float ca = cg[min(ia, q - 1)], cb = cg[min(ib, q - 1)];
-            // G' = s exp(cum_i - cum_j) dt_j for j <= i, split hi + lo (the
-            // exponent is <= 0 there; rows past q have s = 0); the mask is
-            // needed only where the stage reaches past this warp's first
-            // row.  The fragments of key tiles 2 k and 2 k + 1 are those of
-            // k-step k.
-            const bool diag = j0 + kKeys - 1 > r0;
-            uint32_t gh[2][4], gl[2][4];
+          for (int t = 0; t < 4; ++t) {
+            const int j = j0 + t * 8 + 2 * qc;
+            const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+            const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+            float v[4] = {s[t][0] * exp2f((ca - cj.x) * kLog2e) * dj.x,
+                          s[t][1] * exp2f((ca - cj.y) * kLog2e) * dj.y,
+                          s[t][2] * exp2f((cb - cj.x) * kLog2e) * dj.x,
+                          s[t][3] * exp2f((cb - cj.y) * kLog2e) * dj.y};
+            if (diag) {
 #pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              const int j = j0 + t * 8 + 2 * qc;
-              const float2 cj = *reinterpret_cast<const float2*>(cg + j);
-              const float2 dj = *reinterpret_cast<const float2*>(dg + j);
-              float v[4] = {s[t][0] * exp2f((ca - cj.x) * kLog2e) * dj.x,
-                            s[t][1] * exp2f((ca - cj.y) * kLog2e) * dj.y,
-                            s[t][2] * exp2f((cb - cj.x) * kLog2e) * dj.x,
-                            s[t][3] * exp2f((cb - cj.y) * kLog2e) * dj.y};
-              if (diag) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  if (j + (e & 1) > (e < 2 ? ia : ib)) v[e] = 0.f;
-              }
-              split2(v[0], v[1], gh[t / 2][(t % 2) * 2], gl[t / 2][(t % 2) * 2]);
-              split2(v[2], v[3], gh[t / 2][(t % 2) * 2 + 1], gl[t / 2][(t % 2) * 2 + 1]);
+              for (int e = 0; e < 4; ++e)
+                if (j + (e & 1) > (e < 2 ? ia : ib)) v[e] = 0.f;
             }
-            const bf16* Xt = Xs + (g * 2 + buf) * kKeys * xl;
+            split2(v[0], v[1], gh[t / 2][(t % 2) * 2], gl[t / 2][(t % 2) * 2]);
+            split2(v[2], v[3], gh[t / 2][(t % 2) * 2 + 1], gl[t / 2][(t % 2) * 2 + 1]);
+          }
+          const bf16* Xt = Xs + buf * kKeys * xl;
 #pragma unroll
-            for (int kt = 0; kt < 2; ++kt) {
-              if (j0 + kt * 16 > r0 + 15) break;
+          for (int kt = 0; kt < 2; ++kt) {
+            if (j0 + kt * 16 > r0 + 15) break;
 #pragma unroll
-              for (int t = 0; t < PM / 8; t += 2) {
-                if (!EXACT && t * 8 >= P) break;
-                uint32_t bv[4];
-                hopper::ldmatrix_x4_trans(
-                    bv, Xt + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * xl + t * 8 +
-                            (lane / 16) * 8);
-                hopper::mma_bf16_16816(acc[g][t], gh[kt], bv);
-                hopper::mma_bf16_16816(acc[g][t + 1], gh[kt], bv + 2);
-                hopper::mma_bf16_16816(acc[g][t], gl[kt], bv);
-                hopper::mma_bf16_16816(acc[g][t + 1], gl[kt], bv + 2);
-              }
+            for (int t = 0; t < PM / 8; t += 2) {
+              if (!EXACT && t * 8 >= P) break;
+              uint32_t bv[4];
+              hopper::ldmatrix_x4_trans(
+                  bv, Xt + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * xl + t * 8 +
+                          (lane / 16) * 8);
+              hopper::mma_bf16_16816(acc[t], gh[kt], bv);
+              hopper::mma_bf16_16816(acc[t + 1], gh[kt], bv + 2);
+              hopper::mma_bf16_16816(acc[t], gl[kt], bv);
+              hopper::mma_bf16_16816(acc[t + 1], gl[kt], bv + 2);
             }
           }
         }
 
         if (last && pm * 16 < P) {
           // the state update: S += (x o w)_hi^T . B + (x o w)_lo^T . B
+          const bf16* Xt = Xs + buf * kKeys * xl;
+          const float* wg = wts + j0;
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            if (g >= hn) break;
-            const bf16* Xt = Xs + (g * 2 + buf) * kKeys * xl;
-            const float* wg = wts + g * kMaxQ + j0;
+          for (int kt = 0; kt < 2; ++kt) {
+            // x^T's A fragment by ldmatrix.trans: rows k = key, columns m = p
+            uint32_t xa[4], ah[4], alo[4];
+            hopper::ldmatrix_x4_trans(
+                xa, Xt + (kt * 16 + (lane / 16) * 8 + lane % 8) * xl + pm * 16 +
+                        ((lane / 8) % 2) * 8);
+            const int k = kt * 16 + 2 * qc;
+            const float w0 = wg[k], w1 = wg[k + 1], w8 = wg[k + 8], w9 = wg[k + 9];
 #pragma unroll
-            for (int kt = 0; kt < 2; ++kt) {
-              // x^T's A fragment by ldmatrix.trans: rows k = key, columns m = p
-              uint32_t xa[4], ah[4], alo[4];
+            for (int r = 0; r < 4; ++r) {
+              const float2 f =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[r]));
+              split2(f.x * (r < 2 ? w0 : w8), f.y * (r < 2 ? w1 : w9), ah[r], alo[r]);
+            }
+#pragma unroll
+            for (int t = 0; t < NTW; t += 2) {
+              if (!EXACT && (nt0 + t) * 8 >= N) break;
+              uint32_t bb[4];
               hopper::ldmatrix_x4_trans(
-                  xa, Xt + (kt * 16 + (lane / 16) * 8 + lane % 8) * xl + pm * 16 +
-                          ((lane / 8) % 2) * 8);
-              const int k = kt * 16 + 2 * qc;
-              const float w0 = wg[k], w1 = wg[k + 1], w8 = wg[k + 8], w9 = wg[k + 9];
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                const float2 f =
-                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[r]));
-                split2(f.x * (r < 2 ? w0 : w8), f.y * (r < 2 ? w1 : w9), ah[r], alo[r]);
-              }
-#pragma unroll
-              for (int t = 0; t < NTW; t += 2) {
-                if (!EXACT && (nt0 + t) * 8 >= N) break;
-                uint32_t bb[4];
-                hopper::ldmatrix_x4_trans(
-                    bb, Bt + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * nl +
-                            (nt0 + t) * 8 + (lane / 16) * 8);
-                hopper::mma_bf16_16816(st[g][t], ah, bb);
-                hopper::mma_bf16_16816(st[g][t + 1], ah, bb + 2);
-                hopper::mma_bf16_16816(st[g][t], alo, bb);
-                hopper::mma_bf16_16816(st[g][t + 1], alo, bb + 2);
-              }
+                  bb, Bt + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * nl +
+                          (nt0 + t) * 8 + (lane / 16) * 8);
+              hopper::mma_bf16_16816(st[t], ah, bb);
+              hopper::mma_bf16_16816(st[t + 1], ah, bb + 2);
+              hopper::mma_bf16_16816(st[t], alo, bb);
+              hopper::mma_bf16_16816(st[t + 1], alo, bb + 2);
             }
           }
         }
@@ -781,41 +742,33 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<PM, NM, G>::value)
       }
 
       // y rows ia and ib of this warp, columns 8 t + 2 qc, +1
+      float* yb = y + ((int64_t)b * S * H + h) * P;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g >= hn) break;
-        float* yb = y + ((int64_t)b * S * H + h0 + g) * P;
+      for (int r = 0; r < 2; ++r) {
+        const int i = r == 0 ? ia : ib;
+        if (i >= q) continue;
+        float* yr = yb + (int64_t)(c0 + i) * H * P + 2 * qc;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = r == 0 ? ia : ib;
-          if (i >= q) continue;
-          float* yr = yb + (int64_t)(c0 + i) * H * P + 2 * qc;
-#pragma unroll
-          for (int t = 0; t < PM / 8; ++t)
-            if (EXACT || t * 8 < P)
-              *reinterpret_cast<float2*>(yr + t * 8) =
-                  make_float2(acc[g][t][2 * r], acc[g][t][2 * r + 1]);
-        }
+        for (int t = 0; t < PM / 8; ++t)
+          if (EXACT || t * 8 < P)
+            *reinterpret_cast<float2*>(yr + t * 8) =
+                make_float2(acc[t][2 * r], acc[t][2 * r + 1]);
       }
     }
   }
   hopper::cp_async_wait<0>();
 
   // the final state, (B, H, P, N) fp32, from the fragments
+  float* sb = state + ((int64_t)b * H + h) * P * N;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= hn) break;
-    float* sb = state + ((int64_t)b * H + h0 + g) * P * N;
+  for (int t = 0; t < NTW; ++t) {
+    const int n = (nt0 + t) * 8 + 2 * qc;
 #pragma unroll
-    for (int t = 0; t < NTW; ++t) {
-      const int n = (nt0 + t) * 8 + 2 * qc;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int p = pm * 16 + qr + 8 * r;
-        if (p < P && n < N)
-          *reinterpret_cast<float2*>(sb + (int64_t)p * N + n) =
-              make_float2(st[g][t][2 * r], st[g][t][2 * r + 1]);
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int p = pm * 16 + qr + 8 * r;
+      if (p < P && n < N)
+        *reinterpret_cast<float2*>(sb + (int64_t)p * N + n) =
+            make_float2(st[t][2 * r], st[t][2 * r + 1]);
     }
   }
 }
@@ -825,30 +778,29 @@ cudaError_t launch_tc(const bf16* x, const float* dt, const float* A, const bf16
                       const bf16* Cm, float* y, float* state, Strides3 xs, Strides3 ds,
                       Strides3 bs, Strides3 cs, int B, int S, int H, int P, int N, int Q,
                       int aligned, cudaStream_t stream) {
-  auto kernel = ssd_scan_tc<PM, NM, kHeads, EXACT>;
+  auto kernel = ssd_scan_tc<PM, NM, EXACT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)plan(PM, NM, kHeads).bytes);
+                                         (int)plan(PM, NM).bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((H + kHeads - 1) / kHeads, B);
-  kernel<<<grid, kThreads, plan(P, N, kHeads).bytes, stream>>>(
+  const dim3 grid(H, B);
+  kernel<<<grid, kThreads, plan(P, N).bytes, stream>>>(
       x, dt, A, Bm, Cm, y, state, xs, ds, bs, cs, S, H, P, N, Q, aligned);
   return cudaGetLastError();
 }
 
 template <int PM, int NM>
 int occupancy(int P, int N, int64_t* out) {
-  auto kernel = ssd_scan_tc<PM, NM, kHeads, false>;
-  const size_t bytes = plan(P, N, kHeads).bytes;
+  auto kernel = ssd_scan_tc<PM, NM, false>;
+  const size_t bytes = plan(P, N).bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)plan(PM, NM, kHeads).bytes);
+                                         (int)plan(PM, NM).bytes);
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
-  out[0] = kHeads;
-  out[1] = (int64_t)bytes;
-  out[2] = MinBlocks<PM, NM, kHeads>::value;
-  out[3] = blocks;
-  out[4] = kThreads / 32;
+  out[0] = (int64_t)bytes;
+  out[1] = MinBlocks<PM>::value;
+  out[2] = blocks;
+  out[3] = kThreads / 32;
   return err;
 }
 
@@ -898,8 +850,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(state);
   if (dtype == 0)
-    return launch<float>(x, dtf, Af, Bm, Cm, yf, sf, xs, ds, bs, cs, (int)B,
-                         (int)S, (int)H, (int)P, (int)N, (int)Q, s);
+    return launch(static_cast<const float*>(x), dtf, Af, static_cast<const float*>(Bm),
+                  static_cast<const float*>(Cm), yf, sf, xs, ds, bs, cs, (int)B, (int)S,
+                  (int)H, (int)P, (int)N, (int)Q, s);
   if (dtype == 1) {
     using tc::bf16;
     const bf16* xb = static_cast<const bf16*>(x);
@@ -918,11 +871,11 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   return cudaErrorInvalidValue;
 }
 
-// What the bf16 body launches for P and N, for the host's plan to be held
-// to: out[0] heads a block, out[1] dynamic shared-memory bytes a block,
-// out[2] blocks an SM its launch bounds ask for, out[3] blocks an SM that
-// CUDA's occupancy calculator gives, out[4] warps a block.  Returns a
-// cudaError_t.
+// What the bf16 body launches for P and N (one block a head and sequence),
+// for the host's plan to be held to: out[0] dynamic shared-memory bytes a
+// block, out[1] blocks an SM its launch bounds ask for, out[2] blocks an
+// SM that CUDA's occupancy calculator gives, out[3] warps a block.
+// Returns a cudaError_t.
 extern "C" int ssd_scan_tc_plan(int64_t P, int64_t N, int64_t* out) {
   if (P < 8 || P > kMaxPN || P % 8 || N < 8 || N > kMaxPN || N % 8)
     return cudaErrorInvalidValue;

@@ -27,7 +27,6 @@ MAX_WIDTH = 128   # largest head dim P and state size N; both multiples of 8
 MAX_GRID = 65535  # heads and batch are the grid's x and y
 
 # the bf16 body (kernel.cu, namespace tc)
-HEAD_GROUP = 1   # heads a block (kHeads): C . B^T is formed once for them
 TC_ROWS = 128    # output rows a tile, 16 a warp of 8
 TC_KEYS = 32     # key rows a stage of the cp.async double buffer
 
@@ -44,25 +43,24 @@ def body(dtype: torch.dtype) -> str:
 
 @dataclass(frozen=True)
 class TcPlan:
-    heads: int          # heads a block
-    grid: Tuple[int, int]  # (head groups, batch): CUDA's x, y
+    grid: Tuple[int, int]  # (heads, batch): CUDA's x, y; one head a block
     smem: int           # dynamic shared-memory bytes a block
     blocks_per_sm: int  # blocks an SM the launch bounds ask for
     warps: int          # warps a block, each 16 of a tile's 128 rows
 
 
-def tc_plan(B: int, H: int, P: int, N: int, heads: int = HEAD_GROUP) -> TcPlan:
-    """The bf16 body's launch for these shapes: one block per (group of
-    ``heads`` heads, sequence); its shared memory holds a C tile, two
-    stages of B and of each head's x, each head's state as bf16 hi and lo,
-    and cum, dt and w of a chunk a head (``kernel.cu`` `tc::plan`)."""
+def tc_plan(B: int, H: int, P: int, N: int) -> TcPlan:
+    """The bf16 body's launch for these shapes: one block per (head,
+    sequence); its shared memory holds a C tile, two stages of B and of x,
+    the state as bf16 hi and lo, and cum, dt and w of a chunk (``kernel.cu``
+    `tc::plan`)."""
     n16, p16 = -(-N // 16) * 16, -(-P // 16) * 16
     nl, xl = n16 + 8, p16 + 8  # padded rows, bf16
-    smem = (2 * TC_ROWS * nl + 2 * 2 * TC_KEYS * nl + heads * 2 * 2 * TC_KEYS * xl
-            + 2 * 2 * heads * p16 * nl + 4 * 3 * heads * MAX_CHUNK)
+    smem = (2 * TC_ROWS * nl + 2 * 2 * TC_KEYS * nl + 2 * 2 * TC_KEYS * xl
+            + 2 * 2 * p16 * nl + 4 * 3 * MAX_CHUNK)
     # two blocks an SM where y's and the state's registers fit 128 a thread
-    blocks = 2 if heads == 1 and P <= 64 else 1
-    return TcPlan(heads, (-(-H // heads), B), smem, blocks, TC_ROWS // 16)
+    blocks = 2 if P <= 64 else 1
+    return TcPlan((H, B), smem, blocks, TC_ROWS // 16)
 
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke)
@@ -96,14 +94,14 @@ def _entry():
     return fn
 
 
-def kernel_tc_plan(P: int, N: int) -> Tuple[int, int, int, int, int]:
-    """What the built kernel reports for its bf16 body at P and N: (heads
-    a block, shared-memory bytes a block, blocks an SM by its launch
-    bounds, blocks an SM by CUDA's occupancy calculator, warps a block)."""
+def kernel_tc_plan(P: int, N: int) -> Tuple[int, int, int, int]:
+    """What the built kernel reports for its bf16 body at P and N:
+    (shared-memory bytes a block, blocks an SM by its launch bounds, blocks
+    an SM by CUDA's occupancy calculator, warps a block)."""
     fn = _build.library(NAME).ssd_scan_tc_plan
     fn.argtypes = [_I64, _I64, ctypes.POINTER(_I64)]
     fn.restype = ctypes.c_int
-    out = (_I64 * 5)()
+    out = (_I64 * 4)()
     err = fn(P, N, out)
     if err != 0:
         raise RuntimeError(f"ssd_scan_tc_plan failed (cudaError {err})")

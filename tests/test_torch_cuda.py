@@ -330,10 +330,14 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, published):
     torch.testing.assert_close(s, want_s, **ssd_tol(want_s))
 
 
-SSD_TC_SHAPES = [  # (B, S, H, P, N, chunk) at mamba2-370m's widths, bf16 body
-    (2, 600, 32, 64, 128, 256),   # H 32, a ragged last chunk of 88
-    (1, 777, 33, 64, 128, 256),   # H not a multiple of a head group of 2 or 4
-    (1, 300, 3, 64, 128, 256)]
+SSD_TC_SHAPES = [  # (B, S, H, P, N, chunk): the bf16 body
+    (2, 600, 32, 64, 128, 256),   # mamba2-370m's H 32, a ragged last chunk of 88
+    (1, 777, 33, 64, 128, 256),   # an odd H; chunks of 256 then 9 rows
+    (1, 300, 3, 64, 128, 256),
+    # the instances (P, N each up to 64 or 128, exactly so or not) that the
+    # shapes above and SSD_SHAPES leave out
+    (1, 300, 2, 128, 64, 256), (1, 300, 2, 96, 48, 256),
+    (1, 300, 2, 96, 128, 256), (1, 300, 2, 48, 96, 256)]
 
 
 @pytest.mark.parametrize("shape", SSD_TC_SHAPES)
@@ -375,9 +379,8 @@ def test_ssd_scan_bf16_body_takes_unaligned_slices(cuda):
 def test_ssd_scan_tc_plan_is_the_kernels(cuda, pn):
     P, N = pn
     plan = ssd_ops.tc_plan(2, 32, P, N)
-    heads, smem, asked, occupancy, warps = ssd_ops.kernel_tc_plan(P, N)
-    assert (heads, smem, asked, warps) == (plan.heads, plan.smem, plan.blocks_per_sm,
-                                           plan.warps)
+    smem, asked, occupancy, warps = ssd_ops.kernel_tc_plan(P, N)
+    assert (smem, asked, warps) == (plan.smem, plan.blocks_per_sm, plan.warps)
     assert occupancy >= asked
 
 

@@ -3,8 +3,8 @@
 `flash_decode`'s split plan (how many splits of the kv axis, one cluster
 of blocks per (kv head, sequence), and the kernel's shared-memory ring)
 `moe_gemm`'s grid plan (the blocks of its two phases, and which body
-a dtype runs), and `ssd_scan`'s bf16 plan (heads a block, shared memory,
-blocks an SM, and which body a dtype runs).  The kernels run these plans on the card
+a dtype runs), and `ssd_scan`'s bf16 plan (one head a block, shared
+memory, blocks an SM, and which body a dtype runs).  The kernels run these plans on the card
 (`tests/test_torch_cuda.py` holds the plans to what the built kernels
 report); here they are checked for what the kernels rely on.
 """
@@ -142,7 +142,7 @@ def test_ssd_scan_tc_plan_fits_a_block(P):
     the blocks its launch bounds ask for fit an SM together."""
     for N in WIDTHS:
         plan = ssd_ops.tc_plan(32, 32, P, N)
-        assert plan.heads == ssd_ops.HEAD_GROUP
+        assert plan.grid == (32, 32)
         assert plan.smem <= SMEM_PER_BLOCK
         assert plan.blocks_per_sm * (plan.smem + SMEM_RESERVED) <= SMEM_PER_SM
         assert plan.smem % 16 == 0  # the kernel carves 16-byte aligned regions
@@ -152,30 +152,7 @@ def test_ssd_scan_tc_plan_of_the_prefill():
     """mamba2-370m's prefill (B 32, H 32, P 64, N 128): one head a block,
     1,024 blocks of 8 warps, two an SM (16 warps) in 99,328 bytes each."""
     plan = ssd_ops.tc_plan(32, 32, 64, 128)
-    assert plan == ssd_ops.TcPlan(1, (32, 32), 99_328, 2, 8)
-
-
-@pytest.mark.parametrize("heads", [1, 2, 4])
-@pytest.mark.parametrize("H", [1, 3, 32, 33])
-def test_ssd_scan_head_groups_cover_each_head_once(heads, H):
-    """Block x takes heads [heads x, heads x + min(heads, H - heads x)), as
-    the kernel's ``hn`` does."""
-    plan = ssd_ops.tc_plan(2, H, 64, 128, heads)
-    seen = torch.zeros(H, dtype=torch.int64)
-    for gx in range(plan.grid[0]):
-        h0 = gx * heads
-        assert h0 < H
-        seen[h0:h0 + min(heads, H - h0)] += 1
-    assert bool((seen == 1).all())
-
-
-def test_ssd_scan_head_group_of_4_does_not_fit_at_mamba2_widths():
-    """Why 1 and 2 heads a block were the variants: at P 64, N 128 each
-    head's state copies (hi and lo) take 34,816 bytes, so 4 heads a block
-    need more shared memory than a block has; 2 fit at every width."""
-    assert ssd_ops.tc_plan(32, 32, 64, 128, 4).smem > SMEM_PER_BLOCK
-    assert all(ssd_ops.tc_plan(1, 32, P, N, 2).smem <= SMEM_PER_BLOCK
-               for P in WIDTHS for N in WIDTHS)
+    assert plan == ssd_ops.TcPlan((32, 32), 99_328, 2, 8)
 
 
 def test_ssd_scan_body_by_dtype():

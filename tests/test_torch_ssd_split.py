@@ -27,6 +27,9 @@ SHAPES = [  # (B, S, H, P, N, chunk): mamba2-370m's P, N and Q at small B, H, S
     (1, 256, 2, 64, 128, 256),   # one whole chunk
     (1, 300, 2, 64, 128, 256),   # a ragged last chunk of 44
     (2, 600, 2, 64, 128, 256)]   # two chunks carried, then 88 rows
+WIDTHS = [  # (B, S, H, P, N, chunk): the other widths the bf16 body is built for
+    (1, 300, 2, 128, 64, 256), (1, 300, 2, 96, 48, 256),
+    (1, 300, 2, 96, 128, 256), (1, 300, 2, 48, 96, 256)]
 DRAWS = ["jax", "published"]
 
 
@@ -58,7 +61,7 @@ def assert_within(got, want):
         torch.testing.assert_close(g, w, **ssd_tol(w))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + WIDTHS)
 @pytest.mark.parametrize("draws", DRAWS)
 def test_split_matches_the_plain_scan(shape, draws):
     args = inputs(shape, draws, seed=0)
@@ -67,7 +70,7 @@ def test_split_matches_the_plain_scan(shape, draws):
     assert_within(got, ssd_scan_ref(*args, chunk=shape[-1]))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + WIDTHS)
 @pytest.mark.parametrize("draws", DRAWS)
 def test_split_matches_the_jax_quadratic_oracle(shape, draws):
     args = inputs(shape, draws, seed=1)
