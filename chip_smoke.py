@@ -123,6 +123,42 @@ Phases (any failure raises and the exit code is non-zero):
    8192^3 bf16 product timed per order at both block sizes, in turns, beside
    the bound, the plain version and `torch.matmul` in bf16 (a yardstick).
 
+15. The rest of the dense family, once each at full width in bf16 (seeded
+   weights, drawn on the card and timed), with the launch counts set to 0
+   just before and read just after: gemma-2b (8 query heads over 1 kv
+   head, D 256, GeGLU) and minitron-8b (32 over 8, D 128, an untied
+   256,000-word head), 32 prompts of 2,048 through `make_prefill_step`
+   (cache 2,176) and 32 greedy steps.  `flash_attention` must have launched
+   once a layer and `flash_decode` once a layer and step.  TTFT, decode
+   tokens/s and peak memory, and profiles of decode steps and the prefill
+   as in phase 5; layer 0's attention through the kernels
+   against the plain versions (sliced over the batch) at the prefill and a
+   decode step, bf16 and fp32, as in phase 6.  Then 2-layer fp32 models of
+   gemma-2b, minitron-8b and llama3-405b (rope_theta 500,000) at the smoke
+   widths serve the same greedy tokens on the card and on the CPU.
+16. Dense training at smollm-135m's full width in bf16, through
+   `launch.train`'s calls (`build_state`, `synthetic_corpus`, the Morton
+   `DataPipeline`, `make_train_step`): first the gradient check (phase 17),
+   then, with the launch counts set to 0, 20 steps of 16 x 2,048 tokens in
+   2 microbatches at lr 3e-3 (warm-up 5, cosine).  The loss must fall from
+   the first step to the last; `flash_attention` must have launched exactly
+   30 layers x 2 microbatches x 20 steps times (the forward; the backward
+   recomputes through the plain version) and `cutout_gather` at least once
+   a step (the pipeline's rows).  Median step time after 2 warm steps,
+   tokens/s, peak memory, the device's idle share over 2 profiled steps,
+   one step split by CUDA events into forward, backward (and its attention
+   recompute) and optimizer, and model FLOP/s as a share of the bf16 peak
+   (`train_flops`); then one step each with bf16 and int8 gradient
+   compression.
+17. Training checks: on the first batch's first 2 sequences every
+   parameter's gradient through the kernel route against the same weights
+   with attention through the plain version (`plain_attention`), in bf16
+   and with the weights taken to fp32, at the tolerances of
+   `training_grad_check`; w_q, w_k and w_v nonzero.  A 2-layer fp32 smollm
+   at the smoke widths trains 5 steps on the card and on the CPU from the
+   same weights and batches: losses and grad norms within rtol 1e-4, the
+   parameters within 2 x the sum of the steps' lr.
+
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
 whose splits of the kv axis merge inside its launch; each phase prints
@@ -174,8 +210,15 @@ from repro_torch.kernels.morton_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_split_ref  # noqa: E402,E501
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.data import DataPipeline, PipelineConfig  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import build_model, count_params  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.lm import lm_specs  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
+from repro_torch.train import loss_and_grads, loss_fn, make_train_step  # noqa: E402
 from repro_torch.models.attention import attention, qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
 from repro_torch.models.ssm import ssm_inputs, ssm_output  # noqa: E402
@@ -188,17 +231,18 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
-        ops=gather_ops, paths=("detection",)),
+        ops=gather_ops, paths=("detection", "training")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
-        ops=fa_ops, paths=("serving", "moe_serving")),
+        ops=fa_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
+                           "training")),
     "flash_decode": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
         replaces="src/repro/kernels/flash_decode/kernel.py:66",
-        ops=fd_ops, paths=("serving", "moe_serving")),
+        ops=fd_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving")),
     "ssd_scan": dict(
         route="cuda",
         source="src/repro_torch/kernels/ssd_scan/kernel.cu",
@@ -238,6 +282,19 @@ MOE_FULL = dict(arch="granite-moe-1b-a400m", key="moe_serving", smoke=False, bat
                 prompt=2048, steps=128, slots=16, requests=24, plen=(64, 256),
                 max_new=32)
 MOE_TINY = SERVE_TINY | dict(arch="granite-moe-1b-a400m", key="moe_serving")
+# the rest of the dense family at full width (bf16): prefill and greedy
+# decode, no batcher
+DENSE_FULL = [dict(arch=a, key=k, smoke=False, batch=32, prompt=2048, steps=32)
+              for a, k in (("gemma-2b", "gemma_serving"), ("minitron-8b", "minitron_serving"))]
+DENSE_TINY = [d | dict(smoke=True, batch=2, prompt=16, steps=4) for d in DENSE_FULL]
+# dense training at smollm-135m's full width (bf16): sequences of 2,048, a
+# global batch of 16 in 2 microbatches, the JAX driver's learning rate
+# (3e-3, warm-up 5, cosine to 0 at the last step) on its synthetic corpus;
+# the gradient check takes the first batch's first ``check_seqs`` sequences
+# (the plain route keeps every layer's fp32 scores for its backward)
+TRAIN_FULL = dict(arch="smollm-135m", key="training", smoke=False, seq_len=2048, batch=16,
+                  microbatches=2, steps=20, warm=2, lr=3e-3, check_seqs=2)
+TRAIN_TINY = TRAIN_FULL | dict(smoke=True, seq_len=32, batch=4, steps=8, warm=1)
 # the tile-order study's products (M, N, K), and a tiny rehearsal of them
 MM_FULL = mm_bench.SHAPES
 MM_TINY = [(96, 80, 64), (60, 100, 40)]
@@ -645,8 +702,8 @@ def make_requests(sc, vocab):
 
 
 def serving_path(sc, dev, cfg, model, report):
-    """Batched prefill + greedy decode, then continuous batching, through
-    the serving entry points.  One run each."""
+    """Batched prefill + greedy decode, then continuous batching (where the
+    path has slots), through the serving entry points.  One run each."""
     B, P, steps = sc["batch"], sc["prompt"], sc["steps"]
     gen = torch.Generator(device=dev).manual_seed(13)
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev,
@@ -667,28 +724,34 @@ def serving_path(sc, dev, cfg, model, report):
         return torch.cat(out, 1)
 
     generated, t_decode = timed(dev, decode)
-    eng = ContinuousBatcher(model, cfg, n_slots=sc["slots"],
-                            cache_len=sc["plen"][1] + sc["max_new"], device=dev)
-    for req in make_requests(sc, cfg.vocab):
-        eng.submit(req)
-    done, t_cb = timed(dev, eng.run)
-    n_gen = sum(len(v) for v in done.values())
-    if generated.shape != (B, steps) or len(done) != sc["requests"] or any(
-            len(v) != sc["max_new"] for v in done.values()):
+    if generated.shape != (B, steps):
         raise RuntimeError("the serving path returned the wrong number of tokens")
     if not (0 <= int(generated.min()) and int(generated.max()) < cfg.vocab):
         raise RuntimeError("the serving path generated ids outside the vocabulary")
-    report[sc["key"]] = dict(
+    report[sc["key"]] = out = dict(
         arch=cfg.name, batch=B, prompt=P, decode_steps=steps, time_to_first_token_s=t_prefill,
         prefill_tokens_per_s=B * P / t_prefill, decode_s=t_decode,
-        decode_tokens_per_s=B * steps / t_decode, batcher_s=t_cb,
-        batcher_generated_tokens=n_gen, batcher_tokens_per_s=n_gen / t_cb,
-        batcher_occupancy=eng.occupancy, batcher_ticks=eng.ticks)
-    log(f"{cfg.name} serving (one run each): prefill {B} x {P} tokens {t_prefill:.4f} s "
-        f"(time to first token; {B * P / t_prefill:.6g} tokens/s), {steps} decode "
-        f"steps {t_decode:.4f} s ({B * steps / t_decode:.6g} tokens/s); batcher "
-        f"{sc['requests']} requests over {sc['slots']} slots {t_cb:.4f} s, "
-        f"{n_gen / t_cb:.6g} generated tokens/s, occupancy {eng.occupancy:.4f}")
+        decode_tokens_per_s=B * steps / t_decode)
+    line = (f"{cfg.name} serving (one run each): prefill {B} x {P} tokens {t_prefill:.4f} s "
+            f"(time to first token; {B * P / t_prefill:.6g} tokens/s), {steps} decode "
+            f"steps {t_decode:.4f} s ({B * steps / t_decode:.6g} tokens/s)")
+    if "slots" in sc:
+        eng = ContinuousBatcher(model, cfg, n_slots=sc["slots"],
+                                cache_len=sc["plen"][1] + sc["max_new"], device=dev)
+        for req in make_requests(sc, cfg.vocab):
+            eng.submit(req)
+        done, t_cb = timed(dev, eng.run)
+        n_gen = sum(len(v) for v in done.values())
+        if len(done) != sc["requests"] or any(len(v) != sc["max_new"]
+                                              for v in done.values()):
+            raise RuntimeError("the batcher returned the wrong number of tokens")
+        out.update(batcher_s=t_cb, batcher_generated_tokens=n_gen,
+                   batcher_tokens_per_s=n_gen / t_cb, batcher_occupancy=eng.occupancy,
+                   batcher_ticks=eng.ticks)
+        line += (f"; batcher {sc['requests']} requests over {sc['slots']} slots "
+                 f"{t_cb:.4f} s, {n_gen / t_cb:.6g} generated tokens/s, occupancy "
+                 f"{eng.occupancy:.4f}")
+    log(line)
     return prompts, generated, cache
 
 
@@ -1512,6 +1575,363 @@ def morton_timing(dev, name, report):
     return t
 
 
+# --------------------------------------------------- the dense family ----
+
+def dense_family_path(sc, dev, report):
+    """gemma-2b or minitron-8b at full width: weights drawn on the card
+    (timed), a warm-up, then the counted run: 32 prompts of 2,048 through
+    `make_prefill_step` (cache 2,176) and 32 greedy steps.  Returns what
+    the checks need; the caller reads the launch counts."""
+    t0 = time.perf_counter()
+    cfg, model = serving_model(sc, dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    serving_path(sc | dict(batch=2, prompt=64, steps=2), dev, cfg, model, {})  # warm-up
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    prompts, generated, cache = serving_path(sc, dev, cfg, model, report)
+    report[sc["key"]].update(init_s=t_init, params=count_params(model.specs()))
+    log(f"{cfg.name}: {count_params(model.specs())} parameters drawn on the device in "
+        f"{t_init:.3f} s")
+    return cfg, model, prompts, generated, cache
+
+
+def check_dense_launches(sc, cfg, counts):
+    """One `flash_attention` launch a layer for the prefill, one
+    `flash_decode` a layer and step."""
+    want = dict(flash_attention=cfg.n_layers, flash_decode=cfg.n_layers * sc["steps"])
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"{cfg.name}: launches {counts}, want {want}")
+
+
+# -------------------------------------------------------------- training ----
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's full-sequence attention through the plain version (the
+    reference route of the gradient checks), differentiated by autograd."""
+    kernel_route = attn_mod.flash_attention
+
+    def plain(q, k, v, *, causal=True, scale=None, window=None):
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   scale=q.shape[-1] ** -0.5 if scale is None else scale,
+                                   window=window)
+
+    attn_mod.flash_attention = plain
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention = kernel_route
+
+
+def training_state(tc, dev):
+    """The driver's state and data: `launch.train.build_state` and its
+    synthetic corpus in the Morton token store on the device."""
+    cfg = get_smoke_config(tc["arch"]) if tc["smoke"] else get_config(tc["arch"])
+    (model, opt), t_init = timed(dev, lambda: train_mod.build_state(cfg, seed=0, device=dev))
+    store, t_corpus = timed(dev, lambda: train_mod.synthetic_corpus(
+        cfg, doc_len=tc["seq_len"] + 1 + 64, device=dev))
+    pipe = DataPipeline(store, PipelineConfig(seq_len=tc["seq_len"],
+                                              global_batch=tc["batch"]))
+    log(f"{cfg.name} training state: {count_params(model.specs())} parameters in "
+        f"{t_init:.3f} s, corpus of {store.n_docs} x {store.doc_len} tokens in "
+        f"{t_corpus:.3f} s")
+    return cfg, model, opt, pipe
+
+
+def opt_config(tc, **kw):
+    return AdamWConfig(lr_peak=tc["lr"], warmup_steps=5, total_steps=tc["steps"], **kw)
+
+
+# The gradient check's tolerances.  fp32: phase 6's (atol and rtol 2e-5,
+# element by element).  bf16: the CPU tests' bf16 gradient tolerance, 2e-2
+# of the leaf's max |g| (tests/test_torch_train.py), and 2e-2 in norm; and
+# the kernel route no farther from the fp32 gradients than 1.25 x the
+# plain route's distance.  Phase 6's bf16 tolerance taken element by
+# element (rtol 2e-2 and 5% of the leaf's mean |g|) does not hold for
+# gradients after 30 bf16 layers: on the H100 0.38-0.44% of the elements of
+# w_q, w_k and embed fall outside it, with the kernel route 7e-3 from the
+# plain one in norm and each route ~1e-2 from the fp32 gradients; the
+# share outside it is reported.
+GRAD_FP32_TOL = FP32_TOL
+GRAD_BF16_SHARE = 2e-2
+GRAD_BF16_VS_FP32 = 1.25
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def training_grad_check(tc, dev, cfg, model, pipe, report):
+    """Every parameter's gradient through the kernel route against the same
+    weights with attention through the plain version, on the first batch's
+    first ``check_seqs`` sequences: in the model's bf16 and with the weights
+    taken to fp32, at the tolerances above; finite, and w_q, w_k and w_v
+    nonzero through the kernel route."""
+    batch = {k: v[:tc["check_seqs"]] for k, v in pipe.get_batch(0).items()}
+    cfg32 = cfg.scaled(dtype="float32")
+    model32 = build_model(cfg32, tree_map(lambda t: t.detach().float(), model.param_tree()),
+                          device=dev)
+    grads, losses = {}, {}
+    for tag, m, c in (("bf16", model, cfg), ("fp32", model32, cfg32)):
+        m.requires_grad_(True)
+        for route in ("kernel", "plain"):
+            with plain_attention() if route == "plain" else contextlib.nullcontext():
+                loss, _, g = loss_and_grads(m, batch, c)
+            grads[route, tag] = [x.float() for x in tree_leaves(g)]
+            losses[f"{route}_{tag}"] = float(loss)
+            del g
+        for name in ("w_q", "w_k", "w_v"):
+            g = grads["kernel", tag][_paths(model.param_tree()).index(f"blocks/attn/{name}")]
+            if not bool((g != 0).any()):
+                raise RuntimeError(f"gradient of {name} ({tag}) is zero through the kernel "
+                                   f"route")
+    del model32
+    rows = {}
+    for i, path in enumerate(_paths(model.param_tree())):
+        kb, pb = grads["kernel", "bf16"][i], grads["plain", "bf16"][i]
+        kf, pf = grads["kernel", "fp32"][i], grads["plain", "fp32"][i]
+        if not (bool(torch.isfinite(kb).all()) and bool(torch.isfinite(kf).all())):
+            raise RuntimeError(f"gradient {path}: non-finite through the kernel route")
+        phase6 = 2e-2 * pb.abs() + FULL_WIDTH_BF16_ATOL_SHARE * pb.abs().mean()
+        r = dict(bf16_max_abs_err=float((kb - pb).abs().max()),
+                 bf16_max_abs=float(pb.abs().max()), bf16_rel_norm=_rel(kb, pb),
+                 bf16_kernel_vs_fp32=_rel(kb, pf), bf16_plain_vs_fp32=_rel(pb, pf),
+                 bf16_phase6_outside=float(((kb - pb).abs() > phase6).float().mean()),
+                 fp32_max_abs_err=float((kf - pf).abs().max()),
+                 fp32_max_abs=float(pf.abs().max()), fp32_rel_norm=_rel(kf, pf))
+        rows[path] = r
+        try:
+            torch.testing.assert_close(kf, pf, **GRAD_FP32_TOL)
+        except AssertionError as e:
+            raise RuntimeError(f"gradient {path} (fp32): kernel route != plain route\n{e}"
+                               ) from None
+        if not (r["bf16_max_abs_err"] <= GRAD_BF16_SHARE * r["bf16_max_abs"]
+                and r["bf16_rel_norm"] <= GRAD_BF16_SHARE
+                and r["bf16_kernel_vs_fp32"] <= GRAD_BF16_VS_FP32 * r["bf16_plain_vs_fp32"]):
+            raise RuntimeError(f"gradient {path} (bf16): kernel route != plain route: {r}")
+    report["training_grad_check"] = dict(seqs=tc["check_seqs"], losses=losses, leaves=rows)
+    worst = max(rows.values(), key=lambda r: r["bf16_rel_norm"])
+    log(f"{cfg.name} gradients ({tc['check_seqs']} x {tc['seq_len']} tokens), kernel route "
+        f"vs plain route, {len(rows)} leaves: fp32 within atol and rtol "
+        f"{GRAD_FP32_TOL['rtol']} (largest |diff| / |g| in norm "
+        f"{max(r['fp32_rel_norm'] for r in rows.values()):.3g}); bf16 within "
+        f"{GRAD_BF16_SHARE} of max |g| and in norm (largest {worst['bf16_rel_norm']:.3g}), "
+        f"no farther from the fp32 gradients than {GRAD_BF16_VS_FP32} x the plain route; "
+        f"w_q, w_k, w_v nonzero; losses {losses}")
+    for path, r in rows.items():
+        log(f"  {path}: bf16 |diff| / |g| {r['bf16_rel_norm']:.3g} (max {r['bf16_max_abs_err']:.3g} "
+            f"of max |g| {r['bf16_max_abs']:.3g}; vs fp32: kernel {r['bf16_kernel_vs_fp32']:.3g}, "
+            f"plain {r['bf16_plain_vs_fp32']:.3g}; outside phase 6's bf16 tolerance "
+            f"{r['bf16_phase6_outside']:.2e}); fp32 max |diff| {r['fp32_max_abs_err']:.3g} of "
+            f"max |g| {r['fp32_max_abs']:.3g}")
+
+
+def _paths(tree, prefix=""):
+    return [p for k in sorted(tree) for p in (
+        _paths(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict) else [prefix + k])]
+
+
+def training_path(tc, dev, cfg, model, opt, pipe, report):
+    """The counted run: ``steps`` train steps through `make_train_step`, each
+    batch from the pipeline (its rows through `cutout`).  The loss must fall
+    from the first step to the last."""
+    step_fn = make_train_step(model, cfg, opt_config(tc), n_microbatches=tc["microbatches"])
+    losses, norms, times = [], [], []
+    for s in range(tc["steps"]):
+        t0 = time.perf_counter()
+        opt, m = step_fn(opt, pipe.get_batch(s))
+        losses.append(float(m["loss"]))  # waits for the step
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training: the loss did not fall: {losses}")
+    tokens = tc["batch"] * tc["seq_len"]
+    step_s = statistics.median(times[tc["warm"]:])
+    report[tc["key"]] = dict(arch=cfg.name, seq_len=tc["seq_len"], batch=tc["batch"],
+                             microbatches=tc["microbatches"], steps=tc["steps"], lr=tc["lr"],
+                             losses=losses, grad_norms=norms, step_s=times,
+                             median_step_s=step_s, tokens_per_s=tokens / step_s)
+    log(f"{cfg.name} training ({tc['steps']} steps of {tc['batch']} x {tc['seq_len']} "
+        f"tokens in {tc['microbatches']} microbatches, lr {tc['lr']}): loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}; median step {step_s:.4f} s after {tc['warm']} warm steps, "
+        f"{tokens / step_s:.6g} tokens/s")
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    return opt
+
+
+def train_flops(cfg, seq_len, seqs):
+    """Model FLOPs of one training step: 6 x parameters x tokens (the tied
+    embedding counted once, as the head's product), plus the causal
+    attention's products, 12 x layers x B x H x D x S(S+1)/2 (QK^T and PV,
+    forward and twice in the backward; the backward's recompute of the
+    forward is not counted)."""
+    dense = 6 * count_params(lm_specs(cfg)) * seq_len * seqs
+    attn = 12 * cfg.n_layers * seqs * cfg.n_heads * cfg.head_dim * seq_len * (seq_len + 1) // 2
+    return dense, attn
+
+
+def training_profile(tc, dev, cfg, model, opt, pipe, report, first=100):
+    """Two train steps under the profiler (after two warm ones): the
+    device's idle share of the steps' wall time."""
+    step_fn = make_train_step(model, cfg, opt_config(tc), n_microbatches=tc["microbatches"])
+    steps = iter(range(first, first + 4))
+
+    def two_steps():
+        st = opt
+        for _ in range(2):
+            st, m = step_fn(st, pipe.get_batch(next(steps)))
+        return float(m["loss"])
+
+    _, prof = profile_window(dev, two_steps)
+    report[tc["key"]]["profile"] = prof
+    log_profile(f"{cfg.name}: 2 train steps", prof)
+
+
+def training_split(tc, dev, cfg, model, opt, pipe, name, report):
+    """One train step split into forward, backward (with the attention
+    backward's recompute through the plain version, timed inside
+    `FlashAttention.backward`) and optimizer, by CUDA events; its model
+    FLOPs over the median step as a share of the card's bf16 peak."""
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    recompute = []
+    kernel_backward = fa_ops.FlashAttention.backward
+
+    def timed_backward(ctx, dout):
+        a = ev()
+        out = kernel_backward(ctx, dout)
+        recompute.append((a, ev()))
+        return out
+
+    n = tc["microbatches"]
+    batch = pipe.get_batch(200)
+    micro = {k: v.reshape(n, -1, *v.shape[1:]) for k, v in batch.items()}
+    params, slots = model.param_tree(), model.param_slots()
+    leaves = [p for s_ in tree_leaves(slots) for p in s_]
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
+    views = [v for s_, p, a in zip(tree_leaves(slots), tree_leaves(params), tree_leaves(acc))
+             for v in (a.unbind(0) if len(s_) > 1 or s_[0].shape != p.shape else [a])]
+    fwd, bwd = [], []
+    torch.cuda.synchronize(dev)
+    fa_ops.FlashAttention.backward = staticmethod(timed_backward)
+    try:
+        for i in range(n):
+            a = ev()
+            loss, _ = loss_fn(model, {k: v[i] for k, v in micro.items()}, cfg)
+            b = ev()
+            gs = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for view, g in zip(views, gs):
+                    view.add_(g.float())
+            c = ev()
+            fwd.append((a, b))
+            bwd.append((b, c))
+            del loss, gs
+    finally:
+        fa_ops.FlashAttention.backward = staticmethod(kernel_backward)
+    a = ev()
+    adamw_update(opt_config(tc), tree_map(lambda g: g / n, acc), opt, params)
+    opt_ev = (a, ev())
+    torch.cuda.synchronize(dev)
+
+    def ms(pairs):
+        return sum(x.elapsed_time(y) for x, y in pairs)
+
+    split = dict(forward_ms=ms(fwd), backward_ms=ms(bwd), recompute_ms=ms(recompute),
+                 recompute_calls=len(recompute), optimizer_ms=ms([opt_ev]))
+    dense, attn = train_flops(cfg, tc["seq_len"], tc["batch"])
+    step_s = report[tc["key"]]["median_step_s"]
+    peak = bf16_peak_flops(name)
+    split.update(model_flops=dense + attn, dense_flops=dense, attention_flops=attn,
+                 model_tflops=(dense + attn) / step_s / 1e12,
+                 bf16_peak_share=(dense + attn) / step_s / peak)
+    report[tc["key"]]["split"] = split
+    log(f"{cfg.name} train step split (one step, CUDA events): forward "
+        f"{split['forward_ms']:.1f} ms, backward {split['backward_ms']:.1f} ms (of it the "
+        f"attention recompute {split['recompute_ms']:.1f} ms over {len(recompute)} calls), "
+        f"optimizer {split['optimizer_ms']:.1f} ms")
+    log(f"{cfg.name} model FLOPs a step {dense + attn:.4g} (6 x "
+        f"{count_params(lm_specs(cfg))} parameters x {tc['batch'] * tc['seq_len']} tokens = "
+        f"{dense:.4g}, causal attention {attn:.4g}): {split['model_tflops']:.2f} TFLOP/s "
+        f"over the median step = {100 * split['bf16_peak_share']:.2f}% of the "
+        f"{peak / 1e12:.0f} TFLOP/s bf16 peak")
+
+
+def training_compressed_steps(tc, dev, cfg, model, opt, pipe, report):
+    """One step each with bf16 and int8 gradient compression."""
+    out = {}
+    for i, method in enumerate(("bf16", "int8")):
+        step_fn = make_train_step(model, cfg, opt_config(tc, grad_compression=method),
+                                  n_microbatches=tc["microbatches"])
+        (opt, m), t = timed(dev, lambda: step_fn(opt, pipe.get_batch(300 + i)))
+        out[method] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), step_s=t)
+        if not np.isfinite(out[method]["loss"]):
+            raise RuntimeError(f"training with {method} compression: loss not finite")
+    report[tc["key"]]["compressed_steps"] = out
+    log(f"{cfg.name} one step each with gradient compression: " + "; ".join(
+        f"{k} loss {v['loss']:.4f}, grad norm {v['grad_norm']:.4f}, {v['step_s']:.4f} s"
+        for k, v in out.items()))
+
+
+SMALL_TRAIN = dict(arch="smollm-135m", smoke=True, seq_len=32, batch=4, microbatches=2,
+                   steps=5, lr=3e-3)
+SMALL_TRAIN_RTOL = 1e-4  # losses and grad norms, fp32 card (kernel) vs CPU (plain)
+
+
+def training_small_vs_cpu(dev, report):
+    """A 2-layer fp32 smollm at the smoke widths trains 5 steps from the
+    same weights and batches on the card and on the CPU: losses and grad
+    norms within rtol 1e-4, the parameters within 2 x the sum of the steps'
+    lr (AdamW moves an element whose gradient is ~0 by about +-lr a step,
+    whichever way its rounding falls)."""
+    tc = SMALL_TRAIN
+    cfg = get_smoke_config(tc["arch"]).scaled(dtype="float32")
+    cpu, _ = train_mod.build_state(cfg, seed=1, device="cpu")
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), dev)
+    runs = {}
+    for model in (card, cpu):
+        d = model.device
+        pipe = DataPipeline(train_mod.synthetic_corpus(cfg, doc_len=tc["seq_len"] + 65,
+                                                       device=d),
+                            PipelineConfig(seq_len=tc["seq_len"], global_batch=tc["batch"]))
+        opt = adamw_init(model.param_tree())
+        step_fn = make_train_step(model, cfg, opt_config(tc),
+                                  n_microbatches=tc["microbatches"])
+        runs[d.type] = rows = []
+        for s in range(tc["steps"]):
+            batch = pipe.get_batch(s)
+            opt, m = step_fn(opt, batch)
+            rows.append((batch["tokens"].cpu(), float(m["loss"]), float(m["grad_norm"]),
+                         float(m["lr"])))
+    lrs = 0.0
+    for (tk, lk, nk, _), (tp, lp, np_, lr) in zip(runs[dev.type], runs["cpu"]):
+        if not torch.equal(tk, tp):
+            raise RuntimeError("training small model: card and CPU batches differ")
+        for what, a, b in (("loss", lk, lp), ("grad norm", nk, np_)):
+            if abs(a - b) > SMALL_TRAIN_RTOL * abs(b):
+                raise RuntimeError(f"training small model: {what} {a} on the card, "
+                                   f"{b} on the CPU")
+        lrs += lr
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(lm_params_to_numpy(card)), tree_leaves(lm_params_to_numpy(cpu)))]
+    if max(diffs) > 2 * lrs:
+        raise RuntimeError(f"training small model: parameters {max(diffs)} apart, "
+                           f"tolerance {2 * lrs}")
+    report["training_small_vs_cpu"] = dict(
+        losses=[r[1] for r in runs["cpu"]], card_losses=[r[1] for r in runs[dev.type]],
+        grad_norms=[r[2] for r in runs["cpu"]], max_param_diff=max(diffs),
+        param_tol=2 * lrs)
+    log(f"training small model (fp32, {tc['steps']} steps, card vs CPU): losses "
+        f"{[round(r[1], 6) for r in runs[dev.type]]} vs {[round(r[1], 6) for r in runs['cpu']]} "
+        f"within rtol {SMALL_TRAIN_RTOL}, grad norms too; parameters at most "
+        f"{max(diffs):.3g} apart (tolerance 2 x sum of lr = {2 * lrs:.3g})")
+
+
 def rehearse():
     """Both paths at a tiny size on the CPU: control flow only, no kernels,
     no timing claims and no result line."""
@@ -1523,7 +1943,13 @@ def rehearse():
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
     morton_path(MM_TINY, dev, report)
-    log(json.dumps({"rehearsal": report}))
+    for sc in DENSE_TINY:
+        dense_family_path(sc, dev, report)
+    cfg, model, opt, pipe = training_state(TRAIN_TINY, dev)
+    training_grad_check(TRAIN_TINY, dev, cfg, model, pipe, report)
+    training_path(TRAIN_TINY, dev, cfg, model, opt, pipe, report)
+    training_small_vs_cpu(dev, report)
+    log(json.dumps({"rehearsal": report}, default=str))
     return 0
 
 
@@ -1666,6 +2092,49 @@ def main(argv=None) -> int:
     report["morton_matmul"]["phase_s"] = time.perf_counter() - t0
     log(f"morton_matmul phase {report['morton_matmul']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
+
+    # the rest of the dense family at full width
+    for sc in DENSE_FULL:
+        cfg, model, prompts, generated, cache = dense_family_path(sc, dev, report)
+        by_path[sc["key"]] = counts = read_launches(sc["key"])
+        check_dense_launches(sc, cfg, counts)
+        report[sc["key"]]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        log(f"launches on the {sc['key']} path: {counts}; max memory allocated "
+            f"{report[sc['key']]['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+        serving_profile(sc, dev, cfg, model, prompts, cache, generated, report)
+        layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
+        del model, prompts, generated, cache
+        torch.cuda.empty_cache()
+    for arch in ("gemma-2b", "minitron-8b", "llama3-405b"):
+        serving_small_vs_cpu(dev, report, arch)
+
+    # dense training at full width
+    t0 = time.perf_counter()
+    cfg, model, opt, pipe = training_state(TRAIN_FULL, dev)
+    training_grad_check(TRAIN_FULL, dev, cfg, model, pipe, report)
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = training_path(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
+    by_path["training"] = counts = read_launches("training")
+    want = cfg.n_layers * TRAIN_FULL["microbatches"] * TRAIN_FULL["steps"]
+    if counts["flash_attention"] != want or counts["cutout_gather"] < TRAIN_FULL["steps"]:
+        raise RuntimeError(f"training launches {counts}: want flash_attention {want} "
+                           f"(layers x microbatches x steps) and cutout_gather >= "
+                           f"{TRAIN_FULL['steps']}")
+    report["training"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the training path: {counts} (flash_attention = {cfg.n_layers} layers "
+        f"x {TRAIN_FULL['microbatches']} microbatches x {TRAIN_FULL['steps']} steps, "
+        f"forward only); max memory allocated "
+        f"{report['training']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    training_profile(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
+    training_split(TRAIN_FULL, dev, cfg, model, opt, pipe, name, report)
+    training_compressed_steps(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
+    del model, opt, pipe
+    torch.cuda.empty_cache()
+    training_small_vs_cpu(dev, report)
+    report["training"]["phase_s"] = time.perf_counter() - t0
+    log(f"training phase {report['training']['phase_s']:.1f} s")
 
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],

@@ -10,10 +10,13 @@ An LM's parameters are a tree of arrays in the JAX package's structure
 into the port's `LM`; bfloat16 leaves are taken bit for bit through a
 16-bit integer view, so neither side needs ``ml_dtypes``.
 `lm_params_to_numpy` is the inverse and hands bfloat16 leaves back as their
-uint16 bit patterns.
+uint16 bit patterns.  `opt_state_from_numpy` and `opt_state_to_numpy` do the
+same for an AdamW state (``mu``, ``nu``, ``master``, ``step``), so a JAX
+state and a port state compute the same step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -26,7 +29,7 @@ from .core.store import DeviceCuboidStore
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
 from .models.lm import LM, lm_specs
-from .models.params import DTYPES, ParamSpec
+from .models.params import DTYPES, ParamSpec, tree_map
 
 
 def store_from_numpy(spec: DatasetSpec, levels: Dict[int, np.ndarray],
@@ -66,36 +69,68 @@ def _leaf_from_numpy(arr, spec: ParamSpec, path: str) -> torch.Tensor:
     return torch.from_numpy(arr).to(want)
 
 
+def _tree_from_numpy(spec_tree, arr_tree, dev: torch.device, path: str = ""):
+    """Tensors on ``dev`` for a numpy tree of the spec tree's structure."""
+    if isinstance(spec_tree, ParamSpec):
+        return _leaf_from_numpy(arr_tree, spec_tree, path).to(dev)
+    if set(spec_tree) != set(arr_tree):
+        raise ValueError(f"{path or 'params'}: keys {sorted(arr_tree)}, "
+                         f"want {sorted(spec_tree)}")
+    return {k: _tree_from_numpy(spec_tree[k], arr_tree[k], dev, f"{path}/{k}")
+            for k in spec_tree}
+
+
 def lm_params_from_numpy(cfg: ModelConfig, tree, device: DeviceLike = "cuda") -> LM:
     """The port's `LM` holding the JAX package's parameters ``tree`` (numpy
     arrays, e.g. ``jax.tree.map(np.asarray, params)``)."""
-    specs = lm_specs(cfg)
-
-    def walk(spec_tree, arr_tree, path):
-        if isinstance(spec_tree, ParamSpec):
-            return _leaf_from_numpy(arr_tree, spec_tree, path)
-        if set(spec_tree) != set(arr_tree):
-            raise ValueError(f"{path or 'params'}: keys {sorted(arr_tree)}, "
-                             f"want {sorted(spec_tree)}")
-        return {k: walk(spec_tree[k], arr_tree[k], f"{path}/{k}") for k in spec_tree}
-
     dev = resolve_device(device)
-    params = _map_tree(lambda t: t.to(dev), walk(specs, tree, ""))
-    return LM(cfg, params, device=dev)
+    return LM(cfg, _tree_from_numpy(lm_specs(cfg), tree, dev), device=dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)  # trees hold live weights and state
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def lm_params_to_numpy(model: LM):
     """The model's parameters as numpy arrays in the JAX package's
     structure; bfloat16 leaves as their uint16 bit patterns."""
-    def leaf(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
-
-    return _map_tree(leaf, model.param_tree())
+    return tree_map(_leaf_to_numpy, model.param_tree())
 
 
-def _map_tree(fn, tree):
-    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def opt_state_from_numpy(cfg: ModelConfig, state, device: DeviceLike = "cuda") -> Dict:
+    """An AdamW state (`optim.adamw_init`'s structure) from the JAX
+    package's (numpy arrays): ``mu`` and ``nu`` keep their dtype (bfloat16
+    as ml_dtypes' or as uint16 bits, else float32), ``master`` is fp32,
+    ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+    specs = lm_specs(cfg)
+
+    def moments(tree):
+        dtypes = tree_map(lambda a: "bfloat16" if np.asarray(a).dtype.name in (
+            "bfloat16", "uint16", "int16") else "float32", tree)
+        return _tree_from_numpy(_with_dtypes(specs, dtypes), tree, dev)
+
+    return {"mu": moments(state["mu"]), "nu": moments(state["nu"]),
+            "master": _tree_from_numpy(_with_dtypes(specs, "float32"), state["master"],
+                                       dev),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=dev)}
+
+
+def opt_state_to_numpy(state: Dict) -> Dict:
+    """The inverse of `opt_state_from_numpy`; bfloat16 leaves as uint16 bits."""
+    out = {k: tree_map(_leaf_to_numpy, state[k]) for k in ("mu", "nu", "master")}
+    out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
+    return out
+
+
+def _with_dtypes(specs, dtypes):
+    """``specs`` with each leaf's dtype from ``dtypes`` (a tree, or one
+    dtype for all)."""
+    if isinstance(specs, ParamSpec):
+        return dataclasses.replace(specs, dtype=dtypes)
+    return {k: _with_dtypes(v, dtypes if isinstance(dtypes, str) else dtypes[k])
+            for k, v in specs.items()}

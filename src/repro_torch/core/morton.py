@@ -6,12 +6,13 @@ with unequal per-dimension bit widths for anisotropic grids (exhausted
 dimensions drop out of the interleave, so the index stays dense in
 ``[0, prod(2^bits))``).  Pure numpy on the host — the plan is computed
 before any device work, and only the resulting cell list moves to the card.
-The 2-d Hilbert decode serves `kernels/morton_matmul`'s tile orders.
+The 2-d Hilbert decode serves `kernels/morton_matmul`'s tile orders, and
+`partition_curve` cuts a curve into the hosts' segments (`data.pipeline`).
 """
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -91,3 +92,18 @@ def hilbert_decode_2d(t, order: int):
         y = y_r + ry * side
         tt >>= 2
     return x, y
+
+
+def partition_curve(n_cells: int, n_parts: int) -> List[Tuple[int, int]]:
+    """Partition [0, n_cells) of the curve into n_parts contiguous segments
+    (paper §4.1): the first ``n_cells % n_parts`` take one extra cell."""
+    if n_parts <= 0:
+        raise ValueError("n_parts must be positive")
+    base, rem = divmod(n_cells, n_parts)
+    parts = []
+    start = 0
+    for i in range(n_parts):
+        size = base + (1 if i < rem else 0)
+        parts.append((start, start + size))
+        start += size
+    return parts

@@ -108,18 +108,33 @@ def cutout_gather_cuda(packed: torch.Tensor, plan: torch.Tensor, gshape,
 
 
 def cutout_gather(packed: torch.Tensor, grid: CuboidGrid, lo, hi) -> torch.Tensor:
-    """Dense cutout [lo, hi) from a cuboid-major tensor on its own device."""
+    """Dense cutout [lo, hi) from a cuboid-major tensor on its own device.
+
+    A grid of rank below 3 (the training pipeline's 2-D token store) goes
+    to the kernel as a 3-D one with leading unit axes: the packed view, the
+    box grid, the offset and the output shape gain them, the plan's cells
+    stay (an axis of extent 1 takes no Morton bits), and the output drops
+    them again.
+    """
     lo = tuple(int(x) for x in lo)
     hi = tuple(int(x) for x in hi)
     if tuple(packed.shape) != (grid.n_cells,) + tuple(grid.cuboid_shape):
         raise ValueError(f"packed shape {tuple(packed.shape)} does not match "
                          f"the grid ({grid.n_cells}, {grid.cuboid_shape})")
+    if grid.rank > 3:
+        raise ValueError(f"cutout_gather takes grids of rank 1-3, got {grid.rank}")
     gshape, cells, alo = build_plan(grid, lo, hi)
     plan = torch.from_numpy(cells).to(packed.device)
     offset = [l - a for l, a in zip(lo, alo)]
     out_shape = [h - l for l, h in zip(lo, hi)]
+    pad = 3 - grid.rank
+    view = packed.view((packed.shape[0],) + (1,) * pad + tuple(packed.shape[1:]))
+    args = (view, plan, (1,) * pad + tuple(gshape), [0] * pad + offset,
+            [1] * pad + out_shape)
     if packed.is_cuda:
-        return cutout_gather_cuda(packed, plan, gshape, offset, out_shape)
-    if packed.device.type != "cpu":
+        out = cutout_gather_cuda(*args)
+    elif packed.device.type == "cpu":
+        out = cutout_gather_ref(*args)
+    else:
         raise ValueError(f"no cutout_gather for device {packed.device}")
-    return cutout_gather_ref(packed, plan, gshape, offset, out_shape)
+    return out.view(out_shape)

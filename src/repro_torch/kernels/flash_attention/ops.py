@@ -7,6 +7,12 @@ can show that its path went through the kernel.  In bf16 the kernel runs
 on the tensor cores and moves q, k and v in 16-byte chunks: a tensor whose
 base or strides do not allow that goes to the same kernel as an explicit
 contiguous copy (`chunk_ready`), counted in `aligned_copies`.
+
+On the card the kernel runs inside `FlashAttention`, an autograd Function:
+its forward is the kernel, and its backward recomputes attention through
+the plain version and differentiates that.  The JAX package has no
+backward kernel either (its gradient is XLA's autodiff of jnp code), so
+the gradient is that of the function the kernel computes, with its casts.
 """
 from __future__ import annotations
 
@@ -129,18 +135,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is ``forward`` (the CUDA kernel; the tests
+    pass the plain version to reach the wiring on the CPU) and whose
+    backward is autograd's through `flash_attention_ref`, recomputed from
+    the saved q, k and v.  The recompute holds the plain version's
+    (B, K, G, Sq, Skv) fp32 scores and probabilities for one layer at a
+    time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, window: Optional[int],
+                forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = dict(causal=causal, scale=scale, window=window)
+        return forward(q, k, v, causal=causal, scale=scale, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_ref(*qkv, **ctx.attn)
+            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, K, D) with H = K * G -> (B, Sq, H, D).
 
     Queries sit at the end of the keys (query i at position Skv - Sq + i).
-    The kernel on the card; the plain version for CPU tensors.
+    The kernel on the card (differentiable through `FlashAttention`); the
+    plain version, differentiable as it is, for CPU tensors.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                    window=window)
+        return FlashAttention.apply(q, k, v, causal, scale, window,
+                                    flash_attention_cuda)
     if q.device.type != "cpu":
         raise ValueError(f"no flash_attention for device {q.device}")
     return flash_attention_ref(q, k, v, causal=causal, scale=scale,

@@ -5,8 +5,14 @@ untied head where the config asks for one, and one `ParamTree` per layer
 in ``blocks`` (the JAX package stacks the layers on a leading axis and
 scans them; here they are a Python loop).  Weights keep the JAX layout
 (``x @ W`` with W of shape (d_in, d_out)), so the JAX package's parameters
-load unchanged (`carry.lm_params_from_numpy`).  Parameters do not require
-gradients: this slice serves.
+load unchanged (`carry.lm_params_from_numpy`).  Each layer's parameters are
+views of the stacked tensors, which `param_tree` hands out: an in-place
+update of the tree (the optimizer's) is an update of the model.
+
+Parameters do not require gradients until the caller asks for them with
+``model.requires_grad_(True)`` (`train.make_train_step` does).  Autograd's
+leaves are then the per-layer parameters, in their own dtype;
+`param_slots` lists them in the tree's structure.
 
 The dense and MoE families' cache is the JAX tree ``{"blocks": {"k": (L,
 B, S, K, hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
@@ -91,12 +97,6 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _stack(trees):
-    first = trees[0]
-    return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
-            else torch.stack([t[k] for t in trees]) for k in first}
-
-
 def _as_index(index):
     """A decode position as an int where it is one on the host, else a
     tensor (kept on its device: no sync)."""
@@ -135,6 +135,7 @@ class LM(nn.Module):
             params = init_params(self.specs(), generator, device=self.device)
         top = {k: v for k, v in params.items() if k != "blocks"}
         self.top = ParamTree(top)
+        self._stacked = params["blocks"]  # the layers' parameters are views of it
         self.blocks = nn.ModuleList(ParamTree(_layer(params["blocks"], i))
                                     for i in range(cfg.n_layers))
 
@@ -143,9 +144,24 @@ class LM(nn.Module):
         return lm_specs(self.cfg)
 
     def param_tree(self) -> Dict:
-        """The parameters in the JAX package's structure (blocks stacked)."""
+        """The parameters in the JAX package's structure (blocks stacked),
+        not copied: the stacked tensors hold the layers' parameters."""
         out = self.top.tree()
-        out["blocks"] = _stack([b.tree() for b in self.blocks])
+        out["blocks"] = self._stacked
+        return out
+
+    def param_slots(self) -> Dict:
+        """The parameter tree with each leaf as the list of parameters that
+        hold it: the one top-level parameter, or the layers' slices of a
+        stacked leaf, in layer order (autograd's leaves)."""
+        out = {k: [p] for k, p in self.top.tree().items()}
+        trees = [b.tree() for b in self.blocks]
+
+        def slots(ts):
+            return {k: slots([t[k] for t in ts]) if isinstance(ts[0][k], dict)
+                    else [t[k] for t in ts] for k in ts[0]}
+
+        out["blocks"] = slots(trees)
         return out
 
     # -------------------------------------------------------- forward ----

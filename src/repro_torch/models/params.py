@@ -45,6 +45,21 @@ def map_specs(fn: Callable[[ParamSpec], object], specs):
     return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, keys in sorted order (`jax.tree.leaves`)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure, keys in
+    sorted order (`jax.tree.map`)."""
+    if not isinstance(tree, dict):
+        return fn(tree, *rest)
+    return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+
+
 def init_params(specs, generator: Optional[torch.Generator], *,
                 device: DeviceLike = "cuda"):
     """Tensors for ``specs``: normal x scale (drawn in fp32 from

@@ -80,6 +80,37 @@ def test_gather_reads_past_byte_2_31(cuda):
     assert torch.equal(got, want) and bool(want.all())
 
 
+@pytest.mark.parametrize("case", [
+    dict(vol=(64, 200), cs=(16, 64), dtype="uint32",
+         boxes=[((3, 0), (4, 200)), ((16, 0), (32, 200)), ((5, 17), (40, 133))]),
+    dict(vol=(300,), cs=(64,), dtype="float32", boxes=[((0,), (300,)), ((7,), (250,))])])
+def test_cutout_of_rank_below_3_on_the_card_matches_plain(cuda, case):
+    """A 2-D uint32 store (the training pipeline's tokens: whole rows and a
+    ragged box) and a 1-D one, cut out through the kernel: the plain
+    gather's bytes and the stored values.  The kernel takes rank-3 grids;
+    the wrapper pads the grid with leading unit axes."""
+    spec = DatasetSpec("t", case["vol"], dtype=case["dtype"], base_cuboid=case["cs"],
+                       scaled_dims=())
+    rng = np.random.default_rng(4)
+    data = (rng.integers(0, 2 ** 32, size=case["vol"], dtype=np.uint64).astype(np.uint32)
+            if case["dtype"] == "uint32" else
+            rng.normal(size=case["vol"]).astype(np.float32))
+    store = DeviceCuboidStore(spec, device=cuda)
+    tcut.ingest(store, 0, data)
+    grid, packed = spec.grid(0), store.peek(0)
+    for lo, hi in case["boxes"]:
+        before = ops.launches
+        got = tcut.cutout(store, 0, lo, hi)
+        assert ops.launches == before + 1
+        gshape, cells, alo = ops.build_plan(grid, lo, hi)
+        want = cutout_gather_ref(packed, torch.from_numpy(cells).to(cuda), gshape,
+                                 [l - a for l, a in zip(lo, alo)],
+                                 [h - l for l, h in zip(lo, hi)])
+        assert got.shape == want.shape and torch.equal(got, want)
+        box = tuple(slice(l, h) for l, h in zip(lo, hi))
+        assert np.array_equal(got.cpu().numpy().view(data.dtype), data[box])
+
+
 def test_detect_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(3)
     vol = rng.normal(100, 3, size=(48, 48, 16)).astype(np.float32)
@@ -156,6 +187,62 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, causal, window
     want = flash_attention_ref(q, k, v, causal=causal, scale=D ** -0.5, window=window)
     assert fa_ops.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 128, 9, 3, 64), (1, 96, 96, 32, 8, 128),
+                                   (1, 64, 64, 8, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_through_the_kernel(cuda, shape, dtype):
+    """The card's route is differentiable: the forward is the kernel (one
+    launch), and dq, dk, dv are autograd's through the plain version on the
+    same tensors (bit for bit: the backward recomputes the plain version),
+    finite and nonzero."""
+    B, Sq, Skv, H, K, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn(gen, s, dtype, cuda).requires_grad_()
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+    dout = _randn(gen, (B, Sq, H, D), dtype, cuda)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    assert fa_ops.launches == before + 1
+    want_out = flash_attention_ref(q, k, v, causal=True, scale=D ** -0.5)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    assert fa_ops.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+        assert bool(torch.isfinite(g.float()).all()) and bool((g != 0).any())
+
+
+def test_smoke_model_gradients_on_card_match_cpu(cuda):
+    """A 2-layer fp32 smollm at the smoke widths: every parameter's
+    gradient through the kernel route on the card within 1e-4 of its max
+    |g| of the CPU's (the plain route), w_q, w_k and w_v nonzero."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    cfg = get_smoke_config("smollm-135m").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    data = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(4, 33)).astype(np.int32))
+    batch = {"tokens": data[:, :-1], "labels": data[:, 1:]}
+    before = fa_ops.launches
+    grads = {}
+    for m in (cpu, card):
+        m.requires_grad_(True)
+        grads[m.device.type] = loss_and_grads(m, batch, cfg)[2]
+    assert fa_ops.launches == before + cfg.n_layers
+    for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["cpu"])):
+        w = w.float()
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    for name in ("w_q", "w_k", "w_v"):
+        g = grads["cuda"]["blocks"]["attn"][name]
+        assert bool((g != 0).any()) and bool(torch.isfinite(g).all())
 
 
 @pytest.mark.parametrize("shape", FD_SHAPES)

@@ -79,6 +79,10 @@ def test_params_round_trip_bit_exact(dtype):
 SMOKE_WIDTHS = {  # the port's smoke() configs, as scalings of the JAX configs
     "smollm_135m": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                         head_dim=16, d_ff=128, vocab=256),
+    "gemma_2b": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=1,
+                     head_dim=32, d_ff=256, vocab=256),
+    "minitron_8b": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                        head_dim=16, d_ff=192, vocab=256),
     "mamba2_370m": dict(n_layers=2, d_model=64, vocab=256, ssm_state=16,
                         ssm_head_dim=16, ssm_chunk=16),
     "granite_moe_1b_a400m": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
@@ -104,6 +108,70 @@ def test_specs_and_counts_match_jax():
         if arch not in SMOKE_WIDTHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_config(arch)
+    # llama3-405b: its smoke config runs, the full model stays with A13
+    from repro_torch.configs import llama3_405b
+    assert port_cfg(j_get_config("llama3_405b")) == llama3_405b.CONFIG
+    assert port_cfg(j_get_config("llama3_405b").scaled(**LLAMA3_SMOKE)) == \
+        get_smoke_config("llama3-405b")
+    with pytest.raises(NotImplementedError, match="does not fit one card.*A13"):
+        get_config("llama3-405b")
+    for arch in ARCH_IDS:
+        if arch not in SMOKE_WIDTHS and arch != "llama3_405b":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get_smoke_config(arch)
+
+
+LLAMA3_SMOKE = dict(n_layers=3, d_model=128, n_heads=8, n_kv_heads=2, head_dim=16,
+                    d_ff=384, vocab=512)
+# (arch, the published parameter count the JAX package's specs give)
+DENSE_FULL = [("gemma_2b", 2_506_172_416), ("minitron_8b", 9_882_046_464),
+              ("llama3_405b", 405_853_388_800)]
+
+
+@pytest.mark.parametrize("arch,n_params", DENSE_FULL)
+def test_dense_family_full_configs_match_jax(arch, n_params):
+    """Every field of the full config and the parameter count of its spec
+    tree (no weights allocated) equal the JAX package's."""
+    import importlib
+
+    from repro_torch.models.lm import lm_specs
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+    jcfg = j_get_config(arch)
+    assert port_cfg(jcfg) == cfg
+    assert count_params(lm_specs(cfg)) == j_count_params(j_build_model(jcfg).specs()) \
+        == n_params
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "minitron_8b", "llama3_405b"])
+def test_dense_family_smoke_parity(arch):
+    """The arch's smoke config in fp32 on carried weights: forward logits,
+    prefill logits and cache, and 6 greedy decode steps equal the JAX
+    package's on its default jnp attention (in fp32 the kernels' casts and
+    the blockwise path's rounding of q * scale are one rounding apart)."""
+    jcfg = j_get_config(arch).scaled(
+        **(SMOKE_WIDTHS.get(arch) or LLAMA3_SMOKE), dtype="float32")
+    assert port_cfg(jcfg) == get_smoke_config(arch).scaled(dtype="float32")
+    jm = j_build_model(jcfg)
+    jp = j_init_params(jm.specs(), jax.random.key(11))
+    tm = lm_params_from_numpy(port_cfg(jcfg), jax.tree.map(np.asarray, jp), "cpu")
+    tok = np.random.default_rng(12).integers(0, jcfg.vocab, size=(2, 10)).astype(np.int32)
+    want, _ = jm.forward(jp, jnp.asarray(tok))
+    got, _ = tm.forward(torch.from_numpy(tok))
+    np.testing.assert_allclose(f32(got), f32(want), **FP32)
+    want_lg, jc = jm.prefill(jp, jnp.asarray(tok), cache_len=16)
+    got_lg, tc = tm.prefill(torch.from_numpy(tok), cache_len=16)
+    np.testing.assert_allclose(f32(got_lg), f32(want_lg), **FP32)
+    np.testing.assert_allclose(f32(tc["blocks"]["v"]), f32(jc["blocks"]["v"]), **FP32)
+    j_nxt = jnp.argmax(want_lg[:, -1:], axis=-1).astype(jnp.int32)
+    t_nxt = torch.argmax(got_lg[:, -1:], dim=-1).to(torch.int32)
+    for i in range(6):
+        assert np.array_equal(np.asarray(j_nxt), t_nxt.numpy()), i
+        want, jc = jm.decode_step(jp, jc, j_nxt, jnp.int32(10 + i))
+        got, tc = tm.decode_step(tc, t_nxt, 10 + i)
+        np.testing.assert_allclose(f32(got), f32(want), **FP32)
+        j_nxt = jnp.argmax(want[:, -1:], axis=-1).astype(jnp.int32)
+        t_nxt = torch.argmax(got[:, -1:], dim=-1).to(torch.int32)
 
 
 def test_init_params_draws_seeded_normals():

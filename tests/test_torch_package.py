@@ -42,6 +42,9 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 42
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.train.train_step", "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(MODULES)
 
 
 def test_store_defaults_to_the_card():
