@@ -145,12 +145,16 @@ Phases (any failure raises and the exit code is non-zero):
    30 layers x 2 microbatches x 20 steps times (the forward; the backward
    recomputes through the plain version) and `cutout_gather` at least once
    a step (the pipeline's rows).  Median step time after 2 warm steps,
-   tokens/s, peak memory, the device's idle share over 2 profiled steps,
-   one step split by CUDA events into forward, backward (and its attention
-   recompute) and optimizer, and model FLOP/s as a share of the bf16 peak
+   tokens/s, peak memory, the device's idle share over 2 profiled steps
+   and a step's split into forward, backward (and its attention recompute)
+   and optimizer (the device time launched inside `make_train_step`'s
+   profiler ranges), and model FLOP/s as a share of the bf16 peak
    (`train_flops`); then one step each with bf16 and int8 gradient
    compression.
-17. Training checks: on the first batch's first 2 sequences every
+17. Training checks: the pipeline's batches of the first and last
+   counted steps, read through `cutout_gather` at the path's shapes,
+   equal to a CPU token store's (the plain gather) bit for bit.  On the
+   first batch's first 2 sequences every
    parameter's gradient through the kernel route against the same weights
    with attention through the plain version (`plain_attention`), in bf16
    and with the weights taken to fp32, at the tolerances of
@@ -217,8 +221,8 @@ from repro_torch.models import build_model, count_params  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import lm_specs  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
-from repro_torch.train import loss_and_grads, loss_fn, make_train_step  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.models.attention import attention, qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
 from repro_torch.models.ssm import ssm_inputs, ssm_output  # noqa: E402
@@ -486,10 +490,11 @@ def check_results(cfg, dev, spec, store, proj, report):
         f"{n_dets} detections, identical to the stored labels")
 
 
-def profile_window(dev, fn):
+def profile_window(dev, fn, ranges=()):
     """torch.profiler over one call of ``fn`` (after a warm-up call): the
-    ops that take the host's and the device's time, and the device's busy
-    time over the window's wall time."""
+    ops that take the host's and the device's time, the device's busy
+    time over the window's wall time, and the device time launched inside
+    each profiler range named in ``ranges`` (`range_device_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm the allocator and the kernels
@@ -505,7 +510,9 @@ def profile_window(dev, fn):
                          getattr(e, "self_cuda_time_total", 0))
         if str(e.device_type).endswith("CPU"):
             ops.append((e.key, e.count, e.self_cpu_time_total, dev_us))
-        else:  # kernels, copies and fills as the device ran them
+        elif not getattr(e, "is_user_annotation", False):
+            # kernels, copies and fills as the device ran them (not the
+            # device-side spans of profiler ranges)
             busy += dev_us / 1e6
             kernels.append((e.key, e.count, 0, dev_us))
     top_dev = sorted(ops, key=lambda x: -x[3])[:8]
@@ -516,7 +523,26 @@ def profile_window(dev, fn):
                        device_ops=sum(k[1] for k in kernels),
                        top_device=top_dev, top_host=top_cpu,
                        top_kernels=top_kernels)
+    if ranges:
+        prof_report["ranges"] = range_device_ms(prof, ranges)
     return out, prof_report
+
+
+def range_device_ms(prof, names):
+    """The device time of the work launched inside each named profiler
+    range, summed over the range's occurrences: each op's own kernels go
+    to the ranges whose host interval holds the op's start, so the work
+    that autograd's thread launches while the caller waits in a range
+    counts in it."""
+    cpu = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
+    launched = [(e.time_range.start, sum(k.duration for k in e.kernels)) for e in cpu
+                if e.kernels]
+    out = {}
+    for n in names:
+        spans = [(e.time_range.start, e.time_range.end) for e in cpu if e.name == n]
+        out[n] = dict(calls=len(spans), ms=sum(us for t, us in launched
+                                                for a, b in spans if a <= t <= b) / 1e3)
+    return out
 
 
 def log_profile(label, p):
@@ -1152,7 +1178,7 @@ def layer0_ssm_vs_plain(sc, dev, cfg, model, prompts, report, errs):
     comes across chunk boundaries."""
     blk = model.blocks[0]
     seeded_dt = F.softplus(blk.ssm.dt_bias)  # dt at x . w_dt = 0
-    tree = dict(blk.ssm.tree())
+    tree = dict(blk.ssm)
     pub = published_ssm_init({k: tree[k].cpu().numpy() for k in ("A_log", "dt_bias")}, 18)
     tree.update({k: torch.from_numpy(v).to(dev) for k, v in pub.items()})
     n = min(8, prompts.shape[0])  # a slice of the batch bounds the plain version's memory
@@ -1342,7 +1368,7 @@ def layer0_moe_vs_plain(sc, dev, cfg, model, prompts, report, errs):
     for dt in (torch.float32, torch.bfloat16):  # bf16 last: its dispatch is timed
         tag = "bf16" if dt == torch.bfloat16 else "fp32"
         p = SimpleNamespace(**{k: v.to(dt) if v.dtype == torch.bfloat16 else v
-                               for k, v in blk.moe.tree().items()})
+                               for k, v in blk.moe.items()})
         dk = moe_mod.dispatch(p, cfg, xt.to(dt))
         dp = moe_mod.dispatch(p, cfg, xt.to(dt))
         for field in ("expert_ids", "keep", "slot", "counts", "grouped"):
@@ -1640,23 +1666,51 @@ def training_state(tc, dev):
     return cfg, model, opt, pipe
 
 
+def training_batches_vs_cpu(tc, cfg, pipe, report):
+    """The pipeline's batches at the path's own shapes (rows of seq_len + 1
+    tokens out of the store's cuboids: on the card through `cutout_gather`)
+    against the same corpus in a CPU token store, read by the plain
+    gather: bit for bit, at the first and the last step of the counted
+    run."""
+    cpu = DataPipeline(train_mod.synthetic_corpus(cfg, doc_len=pipe.store.doc_len,
+                                                  device="cpu"), pipe.cfg)
+    steps = (0, tc["steps"] - 1)
+    for s in steps:
+        got, want = pipe.get_batch(s), cpu.get_batch(s)
+        for k in ("tokens", "labels"):
+            if not torch.equal(got[k].cpu(), want[k]):
+                n = int((got[k].cpu() != want[k]).sum())
+                raise RuntimeError(f"training batch {s}: {k} differ from the plain gather's "
+                                   f"in {n} of {want[k].numel()} places")
+    report["training_batches_vs_cpu"] = dict(steps=list(steps),
+                                             shape=list(want["tokens"].shape),
+                                             cuboid=list(pipe.store.spec.base_cuboid))
+    log(f"training batches {list(steps)} ({tuple(want['tokens'].shape)} tokens out of a "
+        f"{pipe.store.n_docs} x {pipe.store.doc_len} store in "
+        f"{tuple(pipe.store.spec.base_cuboid)} cuboids): equal to the plain gather's bit "
+        f"for bit")
+
+
 def opt_config(tc, **kw):
     return AdamWConfig(lr_peak=tc["lr"], warmup_steps=5, total_steps=tc["steps"], **kw)
 
 
 # The gradient check's tolerances.  fp32: phase 6's (atol and rtol 2e-5,
 # element by element).  bf16: the CPU tests' bf16 gradient tolerance, 2e-2
-# of the leaf's max |g| (tests/test_torch_train.py), and 2e-2 in norm; and
-# the kernel route no farther from the fp32 gradients than 1.25 x the
-# plain route's distance.  Phase 6's bf16 tolerance taken element by
-# element (rtol 2e-2 and 5% of the leaf's mean |g|) does not hold for
-# gradients after 30 bf16 layers: on the H100 0.38-0.44% of the elements of
-# w_q, w_k and embed fall outside it, with the kernel route 7e-3 from the
-# plain one in norm and each route ~1e-2 from the fp32 gradients; the
-# share outside it is reported.
+# of the leaf's max |g| (tests/test_torch_train.py), and 2e-2 in norm; the
+# kernel route no farther from the fp32 gradients than 1.25 x the plain
+# route's distance; and at most 1% of a leaf's elements outside phase 6's
+# bf16 tolerance taken element by element (rtol 2e-2 and 5% of the leaf's
+# mean |g|).  That tolerance does not hold for every element of gradients
+# after 30 bf16 layers: in two runs on the H100 0.38-0.44% of the elements
+# of w_q, w_k and embed fell outside it (and none of the other leaves'),
+# with the kernel route 7e-3 from the plain one in norm and each route
+# ~1e-2 from the fp32 gradients.  The 1% limit fails a fault confined to
+# a few tiles, which the norms would not see.
 GRAD_FP32_TOL = FP32_TOL
 GRAD_BF16_SHARE = 2e-2
 GRAD_BF16_VS_FP32 = 1.25
+GRAD_BF16_PHASE6_OUTSIDE = 1e-2
 
 
 def _rel(a, b):
@@ -1709,7 +1763,8 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
                                ) from None
         if not (r["bf16_max_abs_err"] <= GRAD_BF16_SHARE * r["bf16_max_abs"]
                 and r["bf16_rel_norm"] <= GRAD_BF16_SHARE
-                and r["bf16_kernel_vs_fp32"] <= GRAD_BF16_VS_FP32 * r["bf16_plain_vs_fp32"]):
+                and r["bf16_kernel_vs_fp32"] <= GRAD_BF16_VS_FP32 * r["bf16_plain_vs_fp32"]
+                and r["bf16_phase6_outside"] <= GRAD_BF16_PHASE6_OUTSIDE):
             raise RuntimeError(f"gradient {path} (bf16): kernel route != plain route: {r}")
     report["training_grad_check"] = dict(seqs=tc["check_seqs"], losses=losses, leaves=rows)
     worst = max(rows.values(), key=lambda r: r["bf16_rel_norm"])
@@ -1718,7 +1773,9 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
         f"{GRAD_FP32_TOL['rtol']} (largest |diff| / |g| in norm "
         f"{max(r['fp32_rel_norm'] for r in rows.values()):.3g}); bf16 within "
         f"{GRAD_BF16_SHARE} of max |g| and in norm (largest {worst['bf16_rel_norm']:.3g}), "
-        f"no farther from the fp32 gradients than {GRAD_BF16_VS_FP32} x the plain route; "
+        f"no farther from the fp32 gradients than {GRAD_BF16_VS_FP32} x the plain route, "
+        f"at most {GRAD_BF16_PHASE6_OUTSIDE} of the elements outside phase 6's tolerance "
+        f"(largest {max(r['bf16_phase6_outside'] for r in rows.values()):.3g}); "
         f"w_q, w_k, w_v nonzero; losses {losses}")
     for path, r in rows.items():
         log(f"  {path}: bf16 |diff| / |g| {r['bf16_rel_norm']:.3g} (max {r['bf16_max_abs_err']:.3g} "
@@ -1772,9 +1829,17 @@ def train_flops(cfg, seq_len, seqs):
     return dense, attn
 
 
-def training_profile(tc, dev, cfg, model, opt, pipe, report, first=100):
+TRAIN_RANGES = ("train_step.forward", "train_step.backward", "flash_attention.recompute",
+                "train_step.optimizer")
+
+
+def training_profile(tc, dev, cfg, model, opt, pipe, name, report, first=100):
     """Two train steps under the profiler (after two warm ones): the
-    device's idle share of the steps' wall time."""
+    device's idle share of the steps' wall time, and a step's split into
+    forward, backward (of it the attention recompute) and optimizer, the
+    device time launched inside `make_train_step`'s profiler ranges (a
+    step's mean).  Then the model FLOPs over the median step of the
+    counted run as a share of the card's bf16 peak."""
     step_fn = make_train_step(model, cfg, opt_config(tc), n_microbatches=tc["microbatches"])
     steps = iter(range(first, first + 4))
 
@@ -1784,66 +1849,19 @@ def training_profile(tc, dev, cfg, model, opt, pipe, report, first=100):
             st, m = step_fn(st, pipe.get_batch(next(steps)))
         return float(m["loss"])
 
-    _, prof = profile_window(dev, two_steps)
+    _, prof = profile_window(dev, two_steps, TRAIN_RANGES)
     report[tc["key"]]["profile"] = prof
     log_profile(f"{cfg.name}: 2 train steps", prof)
-
-
-def training_split(tc, dev, cfg, model, opt, pipe, name, report):
-    """One train step split into forward, backward (with the attention
-    backward's recompute through the plain version, timed inside
-    `FlashAttention.backward`) and optimizer, by CUDA events; its model
-    FLOPs over the median step as a share of the card's bf16 peak."""
-    def ev():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    recompute = []
-    kernel_backward = fa_ops.FlashAttention.backward
-
-    def timed_backward(ctx, dout):
-        a = ev()
-        out = kernel_backward(ctx, dout)
-        recompute.append((a, ev()))
-        return out
-
-    n = tc["microbatches"]
-    batch = pipe.get_batch(200)
-    micro = {k: v.reshape(n, -1, *v.shape[1:]) for k, v in batch.items()}
-    params, slots = model.param_tree(), model.param_slots()
-    leaves = [p for s_ in tree_leaves(slots) for p in s_]
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
-    views = [v for s_, p, a in zip(tree_leaves(slots), tree_leaves(params), tree_leaves(acc))
-             for v in (a.unbind(0) if len(s_) > 1 or s_[0].shape != p.shape else [a])]
-    fwd, bwd = [], []
-    torch.cuda.synchronize(dev)
-    fa_ops.FlashAttention.backward = staticmethod(timed_backward)
-    try:
-        for i in range(n):
-            a = ev()
-            loss, _ = loss_fn(model, {k: v[i] for k, v in micro.items()}, cfg)
-            b = ev()
-            gs = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
-                for view, g in zip(views, gs):
-                    view.add_(g.float())
-            c = ev()
-            fwd.append((a, b))
-            bwd.append((b, c))
-            del loss, gs
-    finally:
-        fa_ops.FlashAttention.backward = staticmethod(kernel_backward)
-    a = ev()
-    adamw_update(opt_config(tc), tree_map(lambda g: g / n, acc), opt, params)
-    opt_ev = (a, ev())
-    torch.cuda.synchronize(dev)
-
-    def ms(pairs):
-        return sum(x.elapsed_time(y) for x, y in pairs)
-
-    split = dict(forward_ms=ms(fwd), backward_ms=ms(bwd), recompute_ms=ms(recompute),
-                 recompute_calls=len(recompute), optimizer_ms=ms([opt_ev]))
+    r = prof["ranges"]
+    split = dict(forward_ms=r["train_step.forward"]["ms"] / 2,
+                 backward_ms=r["train_step.backward"]["ms"] / 2,
+                 recompute_ms=r["flash_attention.recompute"]["ms"] / 2,
+                 recompute_calls=r["flash_attention.recompute"]["calls"] / 2,
+                 optimizer_ms=r["train_step.optimizer"]["ms"] / 2)
+    want = cfg.n_layers * tc["microbatches"]
+    if split["recompute_calls"] != want or min(split.values()) <= 0:
+        raise RuntimeError(f"{cfg.name} train step split {split}: want every part's "
+                           f"device time > 0 and {want} recomputes a step")
     dense, attn = train_flops(cfg, tc["seq_len"], tc["batch"])
     step_s = report[tc["key"]]["median_step_s"]
     peak = bf16_peak_flops(name)
@@ -1851,9 +1869,10 @@ def training_split(tc, dev, cfg, model, opt, pipe, name, report):
                  model_tflops=(dense + attn) / step_s / 1e12,
                  bf16_peak_share=(dense + attn) / step_s / peak)
     report[tc["key"]]["split"] = split
-    log(f"{cfg.name} train step split (one step, CUDA events): forward "
-        f"{split['forward_ms']:.1f} ms, backward {split['backward_ms']:.1f} ms (of it the "
-        f"attention recompute {split['recompute_ms']:.1f} ms over {len(recompute)} calls), "
+    log(f"{cfg.name} train step split (device time launched in each profiler range, "
+        f"a step's mean over the profiled 2): forward {split['forward_ms']:.1f} ms, "
+        f"backward {split['backward_ms']:.1f} ms (of it the attention recompute "
+        f"{split['recompute_ms']:.1f} ms over {split['recompute_calls']:.0f} calls), "
         f"optimizer {split['optimizer_ms']:.1f} ms")
     log(f"{cfg.name} model FLOPs a step {dense + attn:.4g} (6 x "
         f"{count_params(lm_specs(cfg))} parameters x {tc['batch'] * tc['seq_len']} tokens = "
@@ -1946,6 +1965,7 @@ def rehearse():
     for sc in DENSE_TINY:
         dense_family_path(sc, dev, report)
     cfg, model, opt, pipe = training_state(TRAIN_TINY, dev)
+    training_batches_vs_cpu(TRAIN_TINY, cfg, pipe, report)
     training_grad_check(TRAIN_TINY, dev, cfg, model, pipe, report)
     training_path(TRAIN_TINY, dev, cfg, model, opt, pipe, report)
     training_small_vs_cpu(dev, report)
@@ -2111,6 +2131,7 @@ def main(argv=None) -> int:
     # dense training at full width
     t0 = time.perf_counter()
     cfg, model, opt, pipe = training_state(TRAIN_FULL, dev)
+    training_batches_vs_cpu(TRAIN_FULL, cfg, pipe, report)
     training_grad_check(TRAIN_FULL, dev, cfg, model, pipe, report)
     torch.cuda.empty_cache()
     reset_launches()
@@ -2127,8 +2148,7 @@ def main(argv=None) -> int:
         f"x {TRAIN_FULL['microbatches']} microbatches x {TRAIN_FULL['steps']} steps, "
         f"forward only); max memory allocated "
         f"{report['training']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
-    training_profile(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
-    training_split(TRAIN_FULL, dev, cfg, model, opt, pipe, name, report)
+    training_profile(TRAIN_FULL, dev, cfg, model, opt, pipe, name, report)
     training_compressed_steps(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
     del model, opt, pipe
     torch.cuda.empty_cache()

@@ -67,7 +67,6 @@ def main(argv=None) -> Dict:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compression", default="none",

@@ -1,18 +1,19 @@
 """Decoder-only LM (`repro.models.lm.LM`), dense, MoE and ssm families.
 
-The module holds its parameters: the token embedding, the final norm, an
-untied head where the config asks for one, and one `ParamTree` per layer
-in ``blocks`` (the JAX package stacks the layers on a leading axis and
-scans them; here they are a Python loop).  Weights keep the JAX layout
-(``x @ W`` with W of shape (d_in, d_out)), so the JAX package's parameters
-load unchanged (`carry.lm_params_from_numpy`).  Each layer's parameters are
-views of the stacked tensors, which `param_tree` hands out: an in-place
-update of the tree (the optimizer's) is an update of the model.
+The module holds its parameters in the JAX package's tree: the token
+embedding, the final norm, an untied head where the config asks for one
+(``top``), and the layers' parameters stacked on a leading axis
+(``stack``).  The JAX package scans the layers; here they are a Python
+loop over `blocks`, each layer's views of the stacked tensors.  Weights
+keep the JAX layout (``x @ W`` with W of shape (d_in, d_out)), so the JAX
+package's parameters load unchanged (`carry.lm_params_from_numpy`).
+`param_tree` hands out the Parameters themselves: an in-place update of
+the tree (the optimizer's) is an update of the model.
 
 Parameters do not require gradients until the caller asks for them with
 ``model.requires_grad_(True)`` (`train.make_train_step` does).  Autograd's
-leaves are then the per-layer parameters, in their own dtype;
-`param_slots` lists them in the tree's structure.
+leaves are then the tree's tensors, in their own dtype, and the gradients
+come in the tree's stacked shapes.
 
 The dense and MoE families' cache is the JAX tree ``{"blocks": {"k": (L,
 B, S, K, hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
@@ -93,8 +94,22 @@ class ParamTree(nn.Module):
         return out
 
 
-def _layer(tree, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+class Layer(dict):
+    """One layer's parameters: a dict with attribute access."""
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError:
+            raise AttributeError(key) from None
+
+
+def _layers(tree, n: int) -> list:
+    """``n`` `Layer`s, layer i holding index i of each stacked leaf: one
+    `unbind` a leaf, whose backward stacks the layers' gradients."""
+    per = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in tree.items()}
+    return [Layer({k: v[i] for k, v in per.items()}) for i in range(n)]
 
 
 def _as_index(index):
@@ -135,9 +150,8 @@ class LM(nn.Module):
             params = init_params(self.specs(), generator, device=self.device)
         top = {k: v for k, v in params.items() if k != "blocks"}
         self.top = ParamTree(top)
-        self._stacked = params["blocks"]  # the layers' parameters are views of it
-        self.blocks = nn.ModuleList(ParamTree(_layer(params["blocks"], i))
-                                    for i in range(cfg.n_layers))
+        self.stack = ParamTree(params["blocks"])
+        self._views = None
 
     # ---------------------------------------------------------- specs ----
     def specs(self) -> dict:
@@ -145,24 +159,21 @@ class LM(nn.Module):
 
     def param_tree(self) -> Dict:
         """The parameters in the JAX package's structure (blocks stacked),
-        not copied: the stacked tensors hold the layers' parameters."""
+        not copied."""
         out = self.top.tree()
-        out["blocks"] = self._stacked
+        out["blocks"] = self.stack.tree()
         return out
 
-    def param_slots(self) -> Dict:
-        """The parameter tree with each leaf as the list of parameters that
-        hold it: the one top-level parameter, or the layers' slices of a
-        stacked leaf, in layer order (autograd's leaves)."""
-        out = {k: [p] for k, p in self.top.tree().items()}
-        trees = [b.tree() for b in self.blocks]
-
-        def slots(ts):
-            return {k: slots([t[k] for t in ts]) if isinstance(ts[0][k], dict)
-                    else [t[k] for t in ts] for k in ts[0]}
-
-        out["blocks"] = slots(trees)
-        return out
+    @property
+    def blocks(self) -> list:
+        """Each layer's parameters, views of the stacked ones.  Taken anew
+        while autograd records (so the layers' gradients reach the stacked
+        leaves), else once."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.stack.parameters()):
+            return _layers(self.stack.tree(), self.cfg.n_layers)
+        if self._views is None:
+            self._views = _layers(self.stack.tree(), self.cfg.n_layers)
+        return self._views
 
     # -------------------------------------------------------- forward ----
     def _ffn(self, p, x: torch.Tensor):

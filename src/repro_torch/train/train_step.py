@@ -7,7 +7,9 @@ gives); the attention kernel's backward is `FlashAttention`'s recompute
 through the plain version.  With ``n_microbatches > 1`` the global batch
 is split along axis 0 and the gradients add up in fp32.  The JAX step
 returns new parameters; here the model's parameters and the optimizer
-state are updated in place (`adamw_update`).
+state are updated in place (`adamw_update`).  Profiler ranges
+(``train_step.forward``, ``.backward``, ``.optimizer``) mark the step's
+parts; they cost nothing while no profiler runs.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..models.config import ModelConfig
 from ..models.params import tree_leaves, tree_map
@@ -56,16 +59,12 @@ def loss_and_grads(model, batch: Dict, cfg: ModelConfig, loss_impl: str = "gathe
     """(loss, metrics, grads): `loss_fn` and its gradients with respect to
     the model's parameters (which must require them), in the parameter
     tree's structure and dtypes, layers stacked (`jax.value_and_grad`)."""
-    params, slots = model.param_tree(), model.param_slots()
-    loss, metrics = loss_fn(model, batch, cfg, loss_impl)
-    gs = iter(torch.autograd.grad(loss, [p for s in tree_leaves(slots) for p in s]))
-
-    def take(slot, p):
-        if len(slot) == 1 and slot[0].shape == p.shape:  # a top-level leaf
-            return next(gs)
-        return torch.stack([next(gs) for _ in slot])
-
-    grads = tree_map(take, slots, params)
+    params = model.param_tree()
+    with record_function("train_step.forward"):
+        loss, metrics = loss_fn(model, batch, cfg, loss_impl)
+    with record_function("train_step.backward"):
+        gs = iter(torch.autograd.grad(loss, tree_leaves(params)))
+    grads = tree_map(lambda _: next(gs), params)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -88,7 +87,8 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
         for i in range(n_microbatches):
             loss, _, grads = loss_and_grads(model, {k: v[i] for k, v in micro.items()},
                                             cfg, loss_impl)
-            acc = tree_map(lambda a, g: a.add_(g.to(F32)), acc, grads)
+            with record_function("train_step.backward"):
+                acc = tree_map(lambda a, g: a.add_(g.to(F32)), acc, grads)
             loss_sum = loss_sum + loss
         grads = tree_map(lambda g: g / n_microbatches, acc)
         return loss_sum / n_microbatches, {}, grads
@@ -98,12 +98,13 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss, metrics, grads = accumulate(batch)
         else:
             loss, metrics, grads = loss_and_grads(model, batch, cfg, loss_impl)
-        if opt_cfg.grad_compression != "none":
-            # the round trip a compressed all-reduce would make; the
-            # residual starts anew each step, as in the JAX step
-            comp, _ = compress_grads(grads, opt_cfg.grad_compression)
-            grads = decompress_grads(comp, opt_cfg.grad_compression)
-        _, opt_state, om = adamw_update(opt_cfg, grads, opt_state, params)
+        with record_function("train_step.optimizer"):
+            if opt_cfg.grad_compression != "none":
+                # the round trip a compressed all-reduce would make; the
+                # residual starts anew each step, as in the JAX step
+                comp, _ = compress_grads(grads, opt_cfg.grad_compression)
+                grads = decompress_grads(comp, opt_cfg.grad_compression)
+            _, opt_state, om = adamw_update(opt_cfg, grads, opt_state, params)
         return opt_state, dict(metrics, loss=loss, **om)
 
     return train_step

@@ -225,6 +225,26 @@ def test_loss_fn_matches_jax(loss_impl):
                                float(got), rtol=1e-6)
 
 
+def test_layers_are_views_of_the_stacked_parameters():
+    """`LM.blocks` hands out index i of each stacked Parameter: an in-place
+    update of `param_tree` (the optimizer's) reaches the layers, and under
+    autograd a layer's gradient lands in its slice of the stacked leaf."""
+    _, _, _, tm = pair(seed=5)
+    w_q = tm.param_tree()["blocks"]["attn"]["w_q"]
+    view = tm.blocks[1].attn.w_q
+    assert view.data_ptr() == w_q[1].data_ptr() and view.grad_fn is None
+    with torch.no_grad():
+        w_q[1].add_(1.0)
+    assert torch.equal(tm.blocks[1].attn.w_q, w_q[1])
+    tm.requires_grad_(True)
+    view = tm.blocks[1].attn.w_q
+    assert view.data_ptr() == w_q[1].data_ptr() and view.grad_fn is not None
+    view.sum().backward()
+    assert w_q.grad.shape == w_q.shape
+    assert torch.equal(w_q.grad[1], torch.ones_like(view))
+    assert not w_q.grad[0].any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gradients_match_jax_grad(dtype):
     jcfg, jm, jp, tm = pair(dtype, seed=3)
