@@ -156,12 +156,40 @@ Phases (any failure raises and the exit code is non-zero):
    equal to a CPU token store's (the plain gather) bit for bit.  On the
    first batch's first 2 sequences every
    parameter's gradient through the kernel route against the same weights
-   with attention through the plain version (`plain_attention`), in bf16
+   with attention through the plain version (`plain_kernels`), in bf16
    and with the weights taken to fp32, at the tolerances of
    `training_grad_check`; w_q, w_k and w_v nonzero.  A 2-layer fp32 smollm
    at the smoke widths trains 5 steps on the card and on the CPU from the
    same weights and batches: losses and grad norms within rtol 1e-4, the
    parameters within 2 x the sum of the steps' lr.
+18. MoE training at granite-moe-1b-a400m's full width in bf16, as phases
+   16-17 (the same calls and batch, 12 steps, no compressed steps): first
+   the gradient check on one sequence, every leaf through the kernel route
+   (`moe_gemm` inside `MoeGemm`, `flash_attention` inside
+   `FlashAttention`) against the plain route, bf16 (phase 17's criteria)
+   and fp32 (within rtol 1e-4 and 1e-4 of the leaf's max |g|), the plain
+   route taking the kernel route's top-k picks and the flips it would have
+   made counted; then the counted run: the
+   loss must fall, every step's gradient norm be finite, `moe_gemm` and
+   `flash_attention` launch exactly 24 layers x microbatches x steps times
+   and `cutout_gather` at least once a step.  The split reads
+   ``moe_gemm.recompute`` and ``flash_attention.recompute``.  Then a
+   2-layer fp32 granite trains alike on card and CPU, with its routing
+   flips reported.
+19. ssm training at mamba2-370m's full width in bf16, at its published
+   chunk of 256 and with `build_state`'s init, as phase 18: `ssd_scan`
+   (inside `SsdScan`) launches exactly 48 x microbatches x steps times;
+   the bf16 gradients are held to the plain route's by their distance
+   from the fp32 ones (`bf16_holds`);
+   the split reads ``ssd_scan.recompute``; the 2-layer fp32 model trains
+   alike on card and CPU at chunk 256 over 256 steps, where the plain
+   scan's decay overflowed exp before its repair.
+20. Checkpoint and restart on the card: each family's smoke model through
+   `launch.train.main`, 10 steps with ``--ckpt-every 5
+   --inject-failure-at 8`` against the same run without a failure: the
+   recovery log shows the restore to step 5 and the replay, the replayed
+   losses are equal, the final parameters and optimizer state are equal
+   bit for bit, and the step-10 checkpoint restores on the CPU bit for bit.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -178,6 +206,7 @@ import argparse
 import contextlib
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -192,7 +221,9 @@ import torch.nn.functional as F
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy  # noqa: E402
+from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,  # noqa: E402
+                               train_state_from_tree, train_state_to_tree)
+from repro_torch.ckpt import restore_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import cutout as cut  # noqa: E402
 from repro_torch.core.annotations import AnnotationProject  # noqa: E402
@@ -235,13 +266,13 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
-        ops=gather_ops, paths=("detection", "training")),
+        ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
         ops=fa_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
-                           "training")),
+                           "training", "moe_training")),
     "flash_decode": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
@@ -251,12 +282,12 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/ssd_scan/kernel.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:67",
-        ops=ssd_ops, paths=("ssm_serving",)),
+        ops=ssd_ops, paths=("ssm_serving", "ssm_training")),
     "moe_gemm": dict(
         route="cuda",
         source="src/repro_torch/kernels/moe_gemm/kernel.cu",
         replaces="src/repro/kernels/moe_gemm/kernel.py:55",
-        ops=mg_ops, paths=("moe_serving",)),
+        ops=mg_ops, paths=("moe_serving", "moe_training")),
     "morton_matmul": dict(
         route="cuda",
         source="src/repro_torch/kernels/morton_matmul/kernel.cu",
@@ -297,8 +328,20 @@ DENSE_TINY = [d | dict(smoke=True, batch=2, prompt=16, steps=4) for d in DENSE_F
 # the gradient check takes the first batch's first ``check_seqs`` sequences
 # (the plain route keeps every layer's fp32 scores for its backward)
 TRAIN_FULL = dict(arch="smollm-135m", key="training", smoke=False, seq_len=2048, batch=16,
-                  microbatches=2, steps=20, warm=2, lr=3e-3, check_seqs=2)
-TRAIN_TINY = TRAIN_FULL | dict(smoke=True, seq_len=32, batch=4, steps=8, warm=1)
+                  microbatches=2, steps=20, warm=2, lr=3e-3, check_seqs=2, compressed=True)
+# the MoE and ssm families' training, the same batch and schedule over 12
+# steps, so that the smoke stays near half its time limit (the ssm at its
+# published chunk of 256 and with `build_state`'s init); the MoE's
+# gradient check takes one sequence: its plain route keeps 24 layers' (16,
+# 2,048, 2,048) fp32 attention scores, and two sequences ran out of memory
+# on the H100
+MOE_TRAIN_FULL = TRAIN_FULL | dict(arch="granite-moe-1b-a400m", key="moe_training",
+                                   steps=12, compressed=False, check_seqs=1)
+SSM_TRAIN_FULL = TRAIN_FULL | dict(arch="mamba2-370m", key="ssm_training", steps=12,
+                                   compressed=False)
+TRAINS_FULL = (TRAIN_FULL, MOE_TRAIN_FULL, SSM_TRAIN_FULL)
+TRAINS_TINY = tuple(tc | dict(smoke=True, seq_len=32, batch=4, steps=8, warm=1)
+                    for tc in TRAINS_FULL)
 # the tile-order study's products (M, N, K), and a tiny rehearsal of them
 MM_FULL = mm_bench.SHAPES
 MM_TINY = [(96, 80, 64), (60, 100, 40)]
@@ -844,8 +887,8 @@ def serving_small_vs_cpu(dev, report, arch="smollm-135m"):
                 eng.submit(Request(rid, tok[rid % 4, :n].tolist(), 12))
             served[model.device.type] = (torch.cat(out, 1), eng.run())
     if cfg.family == "moe":
-        report[f"{arch}_routing"] = router_flips(arch, routes[dev.type], routes["cpu"],
-                                                 cfg.top_k)
+        report[f"{arch}_routing"] = router_flips(f"{arch} smoke model", routes[dev.type],
+                                                 routes["cpu"], cfg.top_k)
     if not torch.equal(served[dev.type][0], served["cpu"][0]):
         raise RuntimeError(f"{arch} smoke model: batched tokens differ between card and CPU")
     if served[dev.type][1] != served["cpu"][1]:
@@ -1282,12 +1325,13 @@ def routing_of(calls):
     return record
 
 
-def router_flips(arch, card_calls, cpu_calls, k):
-    """Top-k picks that differ between card and CPU, call by call, with the
+def router_flips(arch, card_calls, cpu_calls, k, between="card and CPU"):
+    """Top-k picks that differ between card and CPU (or the two runs named
+    by ``between``), call by call, with the
     gap between the k-th and (k+1)-th router probability of each token
     (on the CPU): a near-tie that rounding can flip shows as a small gap."""
     flipped, gaps, min_gap = 0, [], float("inf")
-    for (pc, ic), (_, ih) in zip(card_calls, cpu_calls):
+    for (pc, ic, *_), (_, ih, *_) in zip(card_calls, cpu_calls):
         top = torch.topk(pc, k + 1, dim=-1).values
         gap = top[:, k - 1] - top[:, k]
         min_gap = min(min_gap, float(gap.min()))
@@ -1298,8 +1342,8 @@ def router_flips(arch, card_calls, cpu_calls, k):
         gaps += [float(g) for g in gap[diff]]
     out = dict(calls=len(cpu_calls), flipped_tokens=flipped, gaps_at_flips=gaps,
                min_gap=min_gap)
-    log(f"{arch} smoke model routing: {len(cpu_calls)} dispatches, {flipped} tokens whose "
-        f"top-{k} picks differ between card and CPU (gaps {gaps}); the smallest gap between "
+    log(f"{arch} routing: {len(cpu_calls)} dispatches, {flipped} tokens whose "
+        f"top-{k} picks differ between {between} (gaps {gaps[:20]}); the smallest gap between "
         f"the {k}-th and {k + 1}-th router probability is {min_gap:.3g}")
     return out
 
@@ -1634,21 +1678,48 @@ def check_dense_launches(sc, cfg, counts):
 # -------------------------------------------------------------- training ----
 
 @contextlib.contextmanager
-def plain_attention():
-    """The model's full-sequence attention through the plain version (the
-    reference route of the gradient checks), differentiated by autograd."""
-    kernel_route = attn_mod.flash_attention
+def plain_kernels():
+    """The model's attention, expert GEMM and SSD scan through their plain
+    versions (the reference route of the gradient checks), differentiated
+    by autograd."""
+    kernel_route = attn_mod.flash_attention, moe_mod.moe_gemm, ssd_ops.ssd_scan
 
     def plain(q, k, v, *, causal=True, scale=None, window=None):
         return flash_attention_ref(q, k, v, causal=causal,
                                    scale=q.shape[-1] ** -0.5 if scale is None else scale,
                                    window=window)
 
-    attn_mod.flash_attention = plain
+    attn_mod.flash_attention, moe_mod.moe_gemm, ssd_ops.ssd_scan = (
+        plain, moe_gemm_ref, ssd_scan_ref)
     try:
         yield
     finally:
-        attn_mod.flash_attention = kernel_route
+        attn_mod.flash_attention, moe_mod.moe_gemm, ssd_ops.ssd_scan = kernel_route
+
+
+@contextlib.contextmanager
+def routing(calls, replay=None):
+    """Within the block each MoE dispatch appends its own top-k picks to
+    ``calls`` as (router probabilities, ids sorted, ids as picked), the
+    first two on the CPU for `router_flips`; with ``replay`` (another
+    run's ``calls``) it then routes as that run did, taking that run's
+    picks at its own probabilities (`models.moe.top_k`)."""
+    own = moe_mod.top_k
+    theirs = None if replay is None else iter(replay)
+
+    def top_k(probs, k):
+        gates, ids = own(probs, k)
+        calls.append((probs.detach().cpu(), ids.sort(dim=-1).values.cpu(), ids))
+        if theirs is not None:
+            ids = next(theirs)[2]
+            gates = probs.gather(-1, ids)
+        return gates, ids
+
+    moe_mod.top_k = top_k
+    try:
+        yield
+    finally:
+        moe_mod.top_k = own
 
 
 def training_state(tc, dev):
@@ -1682,11 +1753,11 @@ def training_batches_vs_cpu(tc, cfg, pipe, report):
                 n = int((got[k].cpu() != want[k]).sum())
                 raise RuntimeError(f"training batch {s}: {k} differ from the plain gather's "
                                    f"in {n} of {want[k].numel()} places")
-    report["training_batches_vs_cpu"] = dict(steps=list(steps),
-                                             shape=list(want["tokens"].shape),
-                                             cuboid=list(pipe.store.spec.base_cuboid))
-    log(f"training batches {list(steps)} ({tuple(want['tokens'].shape)} tokens out of a "
-        f"{pipe.store.n_docs} x {pipe.store.doc_len} store in "
+    report[f"{tc['key']}_batches_vs_cpu"] = dict(steps=list(steps),
+                                                 shape=list(want["tokens"].shape),
+                                                 cuboid=list(pipe.store.spec.base_cuboid))
+    log(f"{cfg.name} training batches {list(steps)} ({tuple(want['tokens'].shape)} tokens "
+        f"out of a {pipe.store.n_docs} x {pipe.store.doc_len} store in "
         f"{tuple(pipe.store.spec.base_cuboid)} cuboids): equal to the plain gather's bit "
         f"for bit")
 
@@ -1696,7 +1767,11 @@ def opt_config(tc, **kw):
 
 
 # The gradient check's tolerances.  fp32: phase 6's (atol and rtol 2e-5,
-# element by element).  bf16: the CPU tests' bf16 gradient tolerance, 2e-2
+# element by element) for the dense family; for the MoE and ssm families
+# rtol 1e-4 and 1e-4 of the leaf's max |g|, the fp32 tolerance of their
+# kernels' own checks (MOE_FP32_REL, SSD_REL: the expert sums and the
+# scan's cumsum round in another order than the plain versions').  bf16:
+# the CPU tests' bf16 gradient tolerance, 2e-2
 # of the leaf's max |g| (tests/test_torch_train.py), and 2e-2 in norm; the
 # kernel route no farther from the fp32 gradients than 1.25 x the plain
 # route's distance; and at most 1% of a leaf's elements outside phase 6's
@@ -1707,82 +1782,144 @@ def opt_config(tc, **kw):
 # with the kernel route 7e-3 from the plain one in norm and each route
 # ~1e-2 from the fp32 gradients.  The 1% limit fails a fault confined to
 # a few tiles, which the norms would not see.
+# The MoE family is held to the same bf16 criteria.  The ssm family's bf16
+# check holds the kernel route to the plain route by their distances from
+# the fp32 gradients: in norm, and in the share of elements outside phase
+# 6's tolerance, the kernel route no farther than 1.25 x the plain route
+# (or 1% of the elements, the dense family's limit, where the plain
+# route's share is below that).  Its bf16 gradients are as far from each
+# other as each is from the fp32 ones: in the first full-width run of
+# mamba2-370m on the H100 every leaf's two bf16 routes were 1.3-4.0% apart
+# in norm, with 2-8% of the elements outside phase 6's tolerance of each
+# other, and each route 3-8% from the fp32 gradients (blocks/ln: kernel
+# 7.77%, plain 7.71%), which the two fp32 routes matched to 2.3e-5.  A hole
+# or a fault in a few tiles moves the kernel route away from the fp32
+# gradients and not the plain route.
 GRAD_FP32_TOL = FP32_TOL
+GRAD_FP32_REL = 1e-4  # the MoE and ssm families
 GRAD_BF16_SHARE = 2e-2
 GRAD_BF16_VS_FP32 = 1.25
 GRAD_BF16_PHASE6_OUTSIDE = 1e-2
+# the leaves that reach the loss only, or in part, through a family's kernels:
+# each must get a nonzero gradient through the kernel route
+KERNEL_LEAVES = {
+    "dense": ("blocks/attn/w_q", "blocks/attn/w_k", "blocks/attn/w_v"),
+    "moe": ("blocks/attn/w_q", "blocks/attn/w_k", "blocks/attn/w_v", "blocks/moe/w_gate",
+            "blocks/moe/w_up", "blocks/moe/w_down", "blocks/moe/w_router"),
+    "ssm": ("blocks/ssm/w_dt", "blocks/ssm/dt_bias", "blocks/ssm/A_log",
+            "blocks/ssm/w_xBC", "blocks/ssm/conv_w")}
 
 
 def _rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def bf16_holds(family, r):
+    """The bf16 criteria above for one leaf's row of `training_grad_check`."""
+    nearer = r["bf16_kernel_vs_fp32"] <= GRAD_BF16_VS_FP32 * r["bf16_plain_vs_fp32"]
+    if family in ("dense", "moe"):
+        return (nearer and r["bf16_max_abs_err"] <= GRAD_BF16_SHARE * r["bf16_max_abs"]
+                and r["bf16_rel_norm"] <= GRAD_BF16_SHARE
+                and r["bf16_phase6_outside"] <= GRAD_BF16_PHASE6_OUTSIDE)
+    return nearer and r["bf16_kernel_outside_fp32"] <= max(
+        GRAD_BF16_VS_FP32 * r["bf16_plain_outside_fp32"], GRAD_BF16_PHASE6_OUTSIDE)
+
+
 def training_grad_check(tc, dev, cfg, model, pipe, report):
     """Every parameter's gradient through the kernel route against the same
-    weights with attention through the plain version, on the first batch's
-    first ``check_seqs`` sequences: in the model's bf16 and with the weights
-    taken to fp32, at the tolerances above; finite, and w_q, w_k and w_v
-    nonzero through the kernel route."""
+    weights with attention, expert GEMM and scan through their plain
+    versions (`plain_kernels`), on the first batch's first ``check_seqs``
+    sequences: in the model's bf16 and with the weights taken to fp32, at
+    the tolerances above; finite, and the kernels' leaves
+    (`KERNEL_LEAVES`) nonzero through the kernel route.  A MoE's plain
+    route takes the kernel route's top-k picks (`routing`): where the k-th
+    and (k+1)-th router probabilities nearly tie, the two routes' rounding
+    can pick different experts for a token (a flip), and that token's
+    gradient would then go to other experts' weights; the flips the plain
+    route would have made are counted and reported (`router_flips`), and
+    the gradients are compared under one routing."""
     batch = {k: v[:tc["check_seqs"]] for k, v in pipe.get_batch(0).items()}
     cfg32 = cfg.scaled(dtype="float32")
     model32 = build_model(cfg32, tree_map(lambda t: t.detach().float(), model.param_tree()),
                           device=dev)
-    grads, losses = {}, {}
+    paths = _paths(model.param_tree())
+    grads, losses, flips = {}, {}, {}
     for tag, m, c in (("bf16", model, cfg), ("fp32", model32, cfg32)):
         m.requires_grad_(True)
+        calls = {}
         for route in ("kernel", "plain"):
-            with plain_attention() if route == "plain" else contextlib.nullcontext():
+            calls[route] = []
+            with (plain_kernels() if route == "plain" else contextlib.nullcontext()), \
+                    routing(calls[route], calls["kernel"] if route == "plain" else None):
                 loss, _, g = loss_and_grads(m, batch, c)
-            grads[route, tag] = [x.float() for x in tree_leaves(g)]
+            grads[route, tag] = list(tree_leaves(g))  # bf16 leaves kept in bf16
             losses[f"{route}_{tag}"] = float(loss)
             del g
-        for name in ("w_q", "w_k", "w_v"):
-            g = grads["kernel", tag][_paths(model.param_tree()).index(f"blocks/attn/{name}")]
+        if cfg.family == "moe":
+            flips[tag] = router_flips(f"{cfg.name} gradient check ({tag})", calls["kernel"],
+                                      calls["plain"], cfg.top_k,
+                                      between="the kernel route and the plain route")
+        del calls
+        for name in KERNEL_LEAVES[cfg.family]:
+            g = grads["kernel", tag][paths.index(name)]
             if not bool((g != 0).any()):
                 raise RuntimeError(f"gradient of {name} ({tag}) is zero through the kernel "
                                    f"route")
     del model32
-    rows = {}
-    for i, path in enumerate(_paths(model.param_tree())):
-        kb, pb = grads["kernel", "bf16"][i], grads["plain", "bf16"][i]
-        kf, pf = grads["kernel", "fp32"][i], grads["plain", "fp32"][i]
+    fp32_tol = (lambda pf: GRAD_FP32_TOL) if cfg.family == "dense" else (
+        lambda pf: dict(rtol=GRAD_FP32_REL, atol=GRAD_FP32_REL * float(pf.abs().max())))
+    rows, failed = {}, []
+    for i, path in enumerate(paths):
+        kb, pb, kf, pf = (grads[k][i].float() for k in (
+            ("kernel", "bf16"), ("plain", "bf16"), ("kernel", "fp32"), ("plain", "fp32")))
         if not (bool(torch.isfinite(kb).all()) and bool(torch.isfinite(kf).all())):
             raise RuntimeError(f"gradient {path}: non-finite through the kernel route")
         phase6 = 2e-2 * pb.abs() + FULL_WIDTH_BF16_ATOL_SHARE * pb.abs().mean()
+        phase6_fp32 = 2e-2 * pf.abs() + FULL_WIDTH_BF16_ATOL_SHARE * pf.abs().mean()
         r = dict(bf16_max_abs_err=float((kb - pb).abs().max()),
                  bf16_max_abs=float(pb.abs().max()), bf16_rel_norm=_rel(kb, pb),
                  bf16_kernel_vs_fp32=_rel(kb, pf), bf16_plain_vs_fp32=_rel(pb, pf),
                  bf16_phase6_outside=float(((kb - pb).abs() > phase6).float().mean()),
+                 bf16_kernel_outside_fp32=float(((kb - pf).abs() > phase6_fp32).float().mean()),
+                 bf16_plain_outside_fp32=float(((pb - pf).abs() > phase6_fp32).float().mean()),
                  fp32_max_abs_err=float((kf - pf).abs().max()),
                  fp32_max_abs=float(pf.abs().max()), fp32_rel_norm=_rel(kf, pf))
         rows[path] = r
         try:
-            torch.testing.assert_close(kf, pf, **GRAD_FP32_TOL)
+            torch.testing.assert_close(kf, pf, **fp32_tol(pf))
         except AssertionError as e:
-            raise RuntimeError(f"gradient {path} (fp32): kernel route != plain route\n{e}"
-                               ) from None
-        if not (r["bf16_max_abs_err"] <= GRAD_BF16_SHARE * r["bf16_max_abs"]
-                and r["bf16_rel_norm"] <= GRAD_BF16_SHARE
-                and r["bf16_kernel_vs_fp32"] <= GRAD_BF16_VS_FP32 * r["bf16_plain_vs_fp32"]
-                and r["bf16_phase6_outside"] <= GRAD_BF16_PHASE6_OUTSIDE):
-            raise RuntimeError(f"gradient {path} (bf16): kernel route != plain route: {r}")
-    report["training_grad_check"] = dict(seqs=tc["check_seqs"], losses=losses, leaves=rows)
+            failed.append(f"gradient {path} (fp32): kernel route != plain route\n{e}")
+        if not bf16_holds(cfg.family, r):
+            failed.append(f"gradient {path} (bf16): kernel route != plain route: {r}")
+    report[f"{tc['key']}_grad_check"] = dict(seqs=tc["check_seqs"], losses=losses,
+                                             leaves=rows, router_flips=flips)
     worst = max(rows.values(), key=lambda r: r["bf16_rel_norm"])
+    fp32_desc = (f"atol and rtol {GRAD_FP32_TOL['rtol']}" if cfg.family == "dense"
+                 else f"rtol {GRAD_FP32_REL} and {GRAD_FP32_REL} of max |g|")
+    if cfg.family in ("dense", "moe"):
+        bf16_desc = (f"within {GRAD_BF16_SHARE} of max |g| and in norm (largest "
+                     f"{worst['bf16_rel_norm']:.3g}), no farther from the fp32 gradients than "
+                     f"{GRAD_BF16_VS_FP32} x the plain route, at most "
+                     f"{GRAD_BF16_PHASE6_OUTSIDE} of the elements outside phase 6's tolerance "
+                     f"(largest {max(r['bf16_phase6_outside'] for r in rows.values()):.3g})")
+    else:
+        bf16_desc = (f"no farther from the fp32 gradients than {GRAD_BF16_VS_FP32} x the "
+                     f"plain route, in norm and in the share of elements outside phase 6's "
+                     f"tolerance (or {GRAD_BF16_PHASE6_OUTSIDE} of them)")
     log(f"{cfg.name} gradients ({tc['check_seqs']} x {tc['seq_len']} tokens), kernel route "
-        f"vs plain route, {len(rows)} leaves: fp32 within atol and rtol "
-        f"{GRAD_FP32_TOL['rtol']} (largest |diff| / |g| in norm "
-        f"{max(r['fp32_rel_norm'] for r in rows.values()):.3g}); bf16 within "
-        f"{GRAD_BF16_SHARE} of max |g| and in norm (largest {worst['bf16_rel_norm']:.3g}), "
-        f"no farther from the fp32 gradients than {GRAD_BF16_VS_FP32} x the plain route, "
-        f"at most {GRAD_BF16_PHASE6_OUTSIDE} of the elements outside phase 6's tolerance "
-        f"(largest {max(r['bf16_phase6_outside'] for r in rows.values()):.3g}); "
-        f"w_q, w_k, w_v nonzero; losses {losses}")
+        f"vs plain route, {len(rows)} leaves: fp32 within {fp32_desc} (largest |diff| / |g| "
+        f"in norm {max(r['fp32_rel_norm'] for r in rows.values()):.3g}); bf16 {bf16_desc}; "
+        f"{', '.join(n.split('/')[-1] for n in KERNEL_LEAVES[cfg.family])} nonzero; "
+        f"losses {losses}")
     for path, r in rows.items():
         log(f"  {path}: bf16 |diff| / |g| {r['bf16_rel_norm']:.3g} (max {r['bf16_max_abs_err']:.3g} "
             f"of max |g| {r['bf16_max_abs']:.3g}; vs fp32: kernel {r['bf16_kernel_vs_fp32']:.3g}, "
             f"plain {r['bf16_plain_vs_fp32']:.3g}; outside phase 6's bf16 tolerance "
-            f"{r['bf16_phase6_outside']:.2e}); fp32 max |diff| {r['fp32_max_abs_err']:.3g} of "
-            f"max |g| {r['fp32_max_abs']:.3g}")
+            f"{r['bf16_phase6_outside']:.2e}, against fp32 kernel "
+            f"{r['bf16_kernel_outside_fp32']:.2e}, plain {r['bf16_plain_outside_fp32']:.2e}); "
+            f"fp32 max |diff| {r['fp32_max_abs_err']:.3g} of max |g| {r['fp32_max_abs']:.3g}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def _paths(tree, prefix=""):
@@ -1793,7 +1930,8 @@ def _paths(tree, prefix=""):
 def training_path(tc, dev, cfg, model, opt, pipe, report):
     """The counted run: ``steps`` train steps through `make_train_step`, each
     batch from the pipeline (its rows through `cutout`).  The loss must fall
-    from the first step to the last."""
+    from the first step to the last, and every step's gradient norm (so
+    every gradient) must be finite."""
     step_fn = make_train_step(model, cfg, opt_config(tc), n_microbatches=tc["microbatches"])
     losses, norms, times = [], [], []
     for s in range(tc["steps"]):
@@ -1803,7 +1941,10 @@ def training_path(tc, dev, cfg, model, opt, pipe, report):
         norms.append(float(m["grad_norm"]))
         times.append(time.perf_counter() - t0)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise RuntimeError(f"training: the loss did not fall: {losses}")
+        raise RuntimeError(f"{cfg.name} training: the loss did not fall: {losses}")
+    if not all(np.isfinite(norms)):
+        raise RuntimeError(f"{cfg.name} training: a gradient was not finite (grad norms "
+                           f"{norms})")
     tokens = tc["batch"] * tc["seq_len"]
     step_s = statistics.median(times[tc["warm"]:])
     report[tc["key"]] = dict(arch=cfg.name, seq_len=tc["seq_len"], batch=tc["batch"],
@@ -1813,35 +1954,70 @@ def training_path(tc, dev, cfg, model, opt, pipe, report):
     log(f"{cfg.name} training ({tc['steps']} steps of {tc['batch']} x {tc['seq_len']} "
         f"tokens in {tc['microbatches']} microbatches, lr {tc['lr']}): loss {losses[0]:.4f} "
         f"-> {losses[-1]:.4f}; median step {step_s:.4f} s after {tc['warm']} warm steps, "
-        f"{tokens / step_s:.6g} tokens/s")
+        f"{tokens / step_s:.6g} tokens/s; every grad norm finite")
     log(f"  losses {[round(x, 4) for x in losses]}")
     return opt
 
 
+# the kernels a family's training forward launches, once per layer and
+# microbatch (the backward recomputes through their plain versions)
+TRAIN_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention", "moe_gemm"),
+                 "ssm": ("ssd_scan",)}
+
+
+def check_training_launches(tc, cfg, counts):
+    """Each of the family's kernels exactly once per layer, microbatch and
+    step; `cutout_gather` at least once a step (the pipeline's rows)."""
+    want = cfg.n_layers * tc["microbatches"] * tc["steps"]
+    bad = {k: counts[k] for k in TRAIN_KERNELS[cfg.family] if counts[k] != want}
+    if bad or counts["cutout_gather"] < tc["steps"]:
+        raise RuntimeError(f"{cfg.name} training launches {counts}: want "
+                           f"{' and '.join(TRAIN_KERNELS[cfg.family])} {want} each (layers x "
+                           f"microbatches x steps) and cutout_gather >= {tc['steps']}")
+
+
 def train_flops(cfg, seq_len, seqs):
-    """Model FLOPs of one training step: 6 x parameters x tokens (the tied
-    embedding counted once, as the head's product), plus the causal
-    attention's products, 12 x layers x B x H x D x S(S+1)/2 (QK^T and PV,
-    forward and twice in the backward; the backward's recompute of the
-    forward is not counted)."""
-    dense = 6 * count_params(lm_specs(cfg)) * seq_len * seqs
-    attn = 12 * cfg.n_layers * seqs * cfg.n_heads * cfg.head_dim * seq_len * (seq_len + 1) // 2
-    return dense, attn
+    """Model FLOPs of one training step, the forward's and twice that in
+    the backward (the backward's recomputes of the forward not counted):
+    - 6 x the parameters a token uses x tokens: the tied embedding counted
+      once, as the head's product; of a MoE's experts only the top k;
+    - causal attention's products, 12 x layers x B x H x D x S(S+1)/2 (QK^T
+      and PV);
+    - the ssm's SSD products as the chunked scan forms them, the
+      intra-chunk ones causal like attention's: 6 x layers x B x (S(Q+1)/2
+      x (N + H P) for C.B^T and its product with x dt, plus 2 S H P N for
+      the chunk states and the carried state's share), Q the chunk.
+    Returns {"dense", "attention", "ssd"}."""
+    params = count_params(lm_specs(cfg))
+    if cfg.family == "moe":
+        experts = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+        params -= experts - experts * cfg.top_k // cfg.n_experts
+    out = dict(dense=6 * params * seq_len * seqs, attention=0, ssd=0)
+    if cfg.family in ("dense", "moe"):
+        out["attention"] = (12 * cfg.n_layers * seqs * cfg.n_heads * cfg.head_dim
+                            * seq_len * (seq_len + 1) // 2)
+    if cfg.family == "ssm":
+        Q, N = min(cfg.ssm_chunk, seq_len), cfg.ssm_state
+        HP = cfg.ssm_heads * cfg.ssm_head_dim
+        out["ssd"] = 6 * cfg.n_layers * seqs * (seq_len * (Q + 1) // 2 * (N + HP)
+                                                + 2 * seq_len * HP * N)
+    return out
 
 
-TRAIN_RANGES = ("train_step.forward", "train_step.backward", "flash_attention.recompute",
-                "train_step.optimizer")
+TRAIN_RANGES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 
 def training_profile(tc, dev, cfg, model, opt, pipe, name, report, first=100):
     """Two train steps under the profiler (after two warm ones): the
     device's idle share of the steps' wall time, and a step's split into
-    forward, backward (of it the attention recompute) and optimizer, the
-    device time launched inside `make_train_step`'s profiler ranges (a
-    step's mean).  Then the model FLOPs over the median step of the
-    counted run as a share of the card's bf16 peak."""
+    forward, backward (of it each kernel's recompute through its plain
+    version) and optimizer, the device time launched inside
+    `make_train_step`'s and the Functions' profiler ranges (a step's mean).
+    Then the model FLOPs over the median step of the counted run as a share
+    of the card's bf16 peak."""
     step_fn = make_train_step(model, cfg, opt_config(tc), n_microbatches=tc["microbatches"])
     steps = iter(range(first, first + 4))
+    recomputes = [f"{k}.recompute" for k in TRAIN_KERNELS[cfg.family]]
 
     def two_steps():
         st = opt
@@ -1849,34 +2025,36 @@ def training_profile(tc, dev, cfg, model, opt, pipe, name, report, first=100):
             st, m = step_fn(st, pipe.get_batch(next(steps)))
         return float(m["loss"])
 
-    _, prof = profile_window(dev, two_steps, TRAIN_RANGES)
+    _, prof = profile_window(dev, two_steps, TRAIN_RANGES + tuple(recomputes))
     report[tc["key"]]["profile"] = prof
     log_profile(f"{cfg.name}: 2 train steps", prof)
     r = prof["ranges"]
     split = dict(forward_ms=r["train_step.forward"]["ms"] / 2,
                  backward_ms=r["train_step.backward"]["ms"] / 2,
-                 recompute_ms=r["flash_attention.recompute"]["ms"] / 2,
-                 recompute_calls=r["flash_attention.recompute"]["calls"] / 2,
-                 optimizer_ms=r["train_step.optimizer"]["ms"] / 2)
+                 optimizer_ms=r["train_step.optimizer"]["ms"] / 2,
+                 recompute={n: dict(ms=r[n]["ms"] / 2, calls=r[n]["calls"] / 2)
+                            for n in recomputes})
     want = cfg.n_layers * tc["microbatches"]
-    if split["recompute_calls"] != want or min(split.values()) <= 0:
+    parts = [split["forward_ms"], split["backward_ms"], split["optimizer_ms"]] + [
+        v["ms"] for v in split["recompute"].values()]
+    if any(v["calls"] != want for v in split["recompute"].values()) or min(parts) <= 0:
         raise RuntimeError(f"{cfg.name} train step split {split}: want every part's "
-                           f"device time > 0 and {want} recomputes a step")
-    dense, attn = train_flops(cfg, tc["seq_len"], tc["batch"])
+                           f"device time > 0 and {want} calls of each recompute a step")
+    flops = train_flops(cfg, tc["seq_len"], tc["batch"])
+    total = sum(flops.values())
     step_s = report[tc["key"]]["median_step_s"]
     peak = bf16_peak_flops(name)
-    split.update(model_flops=dense + attn, dense_flops=dense, attention_flops=attn,
-                 model_tflops=(dense + attn) / step_s / 1e12,
-                 bf16_peak_share=(dense + attn) / step_s / peak)
+    split.update(model_flops=total, flops=flops, model_tflops=total / step_s / 1e12,
+                 bf16_peak_share=total / step_s / peak)
     report[tc["key"]]["split"] = split
     log(f"{cfg.name} train step split (device time launched in each profiler range, "
         f"a step's mean over the profiled 2): forward {split['forward_ms']:.1f} ms, "
-        f"backward {split['backward_ms']:.1f} ms (of it the attention recompute "
-        f"{split['recompute_ms']:.1f} ms over {split['recompute_calls']:.0f} calls), "
-        f"optimizer {split['optimizer_ms']:.1f} ms")
-    log(f"{cfg.name} model FLOPs a step {dense + attn:.4g} (6 x "
-        f"{count_params(lm_specs(cfg))} parameters x {tc['batch'] * tc['seq_len']} tokens = "
-        f"{dense:.4g}, causal attention {attn:.4g}): {split['model_tflops']:.2f} TFLOP/s "
+        f"backward {split['backward_ms']:.1f} ms (of it " + ", ".join(
+            f"{n} {v['ms']:.1f} ms over {v['calls']:.0f} calls"
+            for n, v in split["recompute"].items()) +
+        f"), optimizer {split['optimizer_ms']:.1f} ms")
+    log(f"{cfg.name} model FLOPs a step {total:.4g} ({flops}; "
+        f"{tc['batch'] * tc['seq_len']} tokens): {split['model_tflops']:.2f} TFLOP/s "
         f"over the median step = {100 * split['bf16_peak_share']:.2f}% of the "
         f"{peak / 1e12:.0f} TFLOP/s bf16 peak")
 
@@ -1897,22 +2075,61 @@ def training_compressed_steps(tc, dev, cfg, model, opt, pipe, report):
         for k, v in out.items()))
 
 
-SMALL_TRAIN = dict(arch="smollm-135m", smoke=True, seq_len=32, batch=4, microbatches=2,
-                   steps=5, lr=3e-3)
+def training_phase(tc, dev, name, report, by_path):
+    """A family's training at full width: the batch and gradient checks,
+    then the counted run with the launch counts set to 0 just before it
+    and read just after, the step's profile, and (``compressed``) a step
+    each with compressed gradients."""
+    t0 = time.perf_counter()
+    cfg, model, opt, pipe = training_state(tc, dev)
+    del opt  # the checks take no step; the counted run gets the same state anew
+    training_batches_vs_cpu(tc, cfg, pipe, report)
+    training_grad_check(tc, dev, cfg, model, pipe, report)
+    torch.cuda.empty_cache()
+    opt = adamw_init(model.param_tree())
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = training_path(tc, dev, cfg, model, opt, pipe, report)
+    by_path[tc["key"]] = counts = read_launches(tc["key"])
+    check_training_launches(tc, cfg, counts)
+    report[tc["key"]]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the {tc['key']} path: {counts} ({', '.join(TRAIN_KERNELS[cfg.family])} "
+        f"= {cfg.n_layers} layers x {tc['microbatches']} microbatches x {tc['steps']} steps "
+        f"each, forward only); max memory allocated "
+        f"{report[tc['key']]['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    training_profile(tc, dev, cfg, model, opt, pipe, name, report)
+    if tc.get("compressed"):
+        training_compressed_steps(tc, dev, cfg, model, opt, pipe, report)
+    pipe.stop()
+    del model, opt, pipe
+    torch.cuda.empty_cache()
+    training_small_vs_cpu(dev, report, tc["arch"])
+    report[tc["key"]]["phase_s"] = time.perf_counter() - t0
+    log(f"{tc['key']} phase {report[tc['key']]['phase_s']:.1f} s")
+
+
+# the 2-layer fp32 models trained on the card and the CPU; the ssm's at the
+# published chunk of 256 over 256 steps with `build_state`'s init, whose
+# decay overflowed exp above the chunk's diagonal before the plain scan's
+# repair (`kernels/ssd_scan/ref.py` `causal_decay`)
+SMALL_TRAIN = dict(smoke=True, seq_len=32, batch=4, microbatches=2, steps=5, lr=3e-3)
+SMALL_TRAIN_ARCH = {"mamba2-370m": (dict(seq_len=256), dict(ssm_chunk=256))}
 SMALL_TRAIN_RTOL = 1e-4  # losses and grad norms, fp32 card (kernel) vs CPU (plain)
 
 
-def training_small_vs_cpu(dev, report):
-    """A 2-layer fp32 smollm at the smoke widths trains 5 steps from the
+def training_small_vs_cpu(dev, report, arch="smollm-135m"):
+    """A 2-layer fp32 model at the smoke widths trains 5 steps from the
     same weights and batches on the card and on the CPU: losses and grad
     norms within rtol 1e-4, the parameters within 2 x the sum of the steps'
     lr (AdamW moves an element whose gradient is ~0 by about +-lr a step,
-    whichever way its rounding falls)."""
-    tc = SMALL_TRAIN
-    cfg = get_smoke_config(tc["arch"]).scaled(dtype="float32")
+    whichever way its rounding falls); a MoE's routing flips between the
+    two are reported."""
+    run, scale = SMALL_TRAIN_ARCH.get(arch, ({}, {}))
+    tc = SMALL_TRAIN | run
+    cfg = get_smoke_config(arch).scaled(dtype="float32", **scale)
     cpu, _ = train_mod.build_state(cfg, seed=1, device="cpu")
     card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), dev)
-    runs = {}
+    runs, routes = {}, {}
     for model in (card, cpu):
         d = model.device
         pipe = DataPipeline(train_mod.synthetic_corpus(cfg, doc_len=tc["seq_len"] + 65,
@@ -1922,38 +2139,104 @@ def training_small_vs_cpu(dev, report):
         step_fn = make_train_step(model, cfg, opt_config(tc),
                                   n_microbatches=tc["microbatches"])
         runs[d.type] = rows = []
-        for s in range(tc["steps"]):
-            batch = pipe.get_batch(s)
-            opt, m = step_fn(opt, batch)
-            rows.append((batch["tokens"].cpu(), float(m["loss"]), float(m["grad_norm"]),
-                         float(m["lr"])))
+        routes[d.type] = calls = []
+        with routing(calls):
+            for s in range(tc["steps"]):
+                batch = pipe.get_batch(s)
+                opt, m = step_fn(opt, batch)
+                rows.append((batch["tokens"].cpu(), float(m["loss"]), float(m["grad_norm"]),
+                             float(m["lr"])))
+        pipe.stop()
+    flips = (router_flips(f"{arch} training", routes[dev.type], routes["cpu"], cfg.top_k)
+             if cfg.family == "moe" else None)
     lrs = 0.0
     for (tk, lk, nk, _), (tp, lp, np_, lr) in zip(runs[dev.type], runs["cpu"]):
         if not torch.equal(tk, tp):
-            raise RuntimeError("training small model: card and CPU batches differ")
+            raise RuntimeError(f"training small {arch}: card and CPU batches differ")
         for what, a, b in (("loss", lk, lp), ("grad norm", nk, np_)):
-            if abs(a - b) > SMALL_TRAIN_RTOL * abs(b):
-                raise RuntimeError(f"training small model: {what} {a} on the card, "
+            if not (np.isfinite(a) and abs(a - b) <= SMALL_TRAIN_RTOL * abs(b)):
+                raise RuntimeError(f"training small {arch}: {what} {a} on the card, "
                                    f"{b} on the CPU")
         lrs += lr
     diffs = [float(np.abs(a - b).max()) for a, b in zip(
         tree_leaves(lm_params_to_numpy(card)), tree_leaves(lm_params_to_numpy(cpu)))]
     if max(diffs) > 2 * lrs:
-        raise RuntimeError(f"training small model: parameters {max(diffs)} apart, "
+        raise RuntimeError(f"training small {arch}: parameters {max(diffs)} apart, "
                            f"tolerance {2 * lrs}")
-    report["training_small_vs_cpu"] = dict(
-        losses=[r[1] for r in runs["cpu"]], card_losses=[r[1] for r in runs[dev.type]],
-        grad_norms=[r[2] for r in runs["cpu"]], max_param_diff=max(diffs),
-        param_tol=2 * lrs)
-    log(f"training small model (fp32, {tc['steps']} steps, card vs CPU): losses "
+    key = "training_small_vs_cpu" if arch == "smollm-135m" else f"{arch}_training_small_vs_cpu"
+    report[key] = dict(
+        seq_len=tc["seq_len"], scale=scale, losses=[r[1] for r in runs["cpu"]],
+        card_losses=[r[1] for r in runs[dev.type]], grad_norms=[r[2] for r in runs["cpu"]],
+        max_param_diff=max(diffs), param_tol=2 * lrs, router_flips=flips)
+    log(f"training small {arch} (fp32, {tc['steps']} steps of {tc['batch']} x {tc['seq_len']}"
+        f"{', ' + str(scale) if scale else ''}, card vs CPU): losses "
         f"{[round(r[1], 6) for r in runs[dev.type]]} vs {[round(r[1], 6) for r in runs['cpu']]} "
         f"within rtol {SMALL_TRAIN_RTOL}, grad norms too; parameters at most "
         f"{max(diffs):.3g} apart (tolerance 2 x sum of lr = {2 * lrs:.3g})")
 
 
+# ------------------------------------------------ checkpoint and restart ----
+
+RESTART_RUN = ["--smoke", "--steps", "10", "--seq-len", "64", "--batch", "4"]
+RESTART_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m")
+
+
+def _state_bits(tree):
+    """The leaves of a train-state tree as (path, CPU tensor)."""
+    return [(p, t.detach().cpu()) for p, t in zip(_paths(tree), tree_leaves(tree))]
+
+
+def restart_vs_uninterrupted(dev, report, arch):
+    """`launch.train.main` at the smoke widths, 10 steps with ``--ckpt-every
+    5 --inject-failure-at 8`` against the same run without a failure: the
+    recovery log must show the restore to step 5 and the replay of steps
+    5-7, the replayed losses must equal the first run's, and the final
+    parameters and optimizer state must be equal bit for bit (the largest
+    difference is printed where they are not).  Then the step-10 checkpoint
+    the card wrote restores on the CPU (`ckpt.restore_checkpoint`, into a
+    CPU model's live tensors) bit for bit."""
+    root = HERE / "build" / "smoke_ckpt" / arch
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", arch] + RESTART_RUN + (["--device", "cpu"] if dev.type == "cpu" else [])
+    plain = train_mod.main(argv)
+    out = train_mod.main(argv + ["--ckpt-dir", str(root), "--ckpt-every", "5",
+                                 "--inject-failure-at", "8"])
+    want_log = [dict(failed_step=8, worker=0, restored_to=5, lost_steps=3)]
+    if out["recoveries"] != want_log:
+        raise RuntimeError(f"{arch} restart: recovery log {out['recoveries']}, want {want_log}")
+    if out["losses"][:8] != plain["losses"][:8] or out["losses"][8:] != plain["losses"][5:]:
+        raise RuntimeError(f"{arch} restart: losses {out['losses']} against the "
+                           f"uninterrupted run's {plain['losses']}")
+    got, want = _state_bits(out["state"]), _state_bits(plain["state"])
+    diffs = {p: float((g.double() - w.double()).abs().max()) for (p, g), (_, w) in
+             zip(got, want) if not torch.equal(g, w)}
+    if diffs:
+        worst = max(diffs, key=diffs.get)
+        raise RuntimeError(f"{arch} restart: {len(diffs)} of {len(got)} leaves differ from "
+                           f"the uninterrupted run, the largest {worst} by {diffs[worst]}")
+    step, tree = restore_checkpoint(str(root))
+    cfg = get_smoke_config(arch)
+    cpu_model, cpu_opt = train_mod.build_state(cfg, seed=1, device="cpu")
+    restored = _state_bits(train_state_to_tree(
+        cpu_model, train_state_from_tree(tree, cpu_model, cpu_opt)))
+    if step != 10 or any(not torch.equal(r, g) for (_, r), (_, g) in zip(restored, got)):
+        raise RuntimeError(f"{arch} restart: the step-{step} checkpoint does not restore on "
+                           f"the CPU to the card's final state")
+    shutil.rmtree(root, ignore_errors=True)
+    report.setdefault("restart", {})[arch] = dict(
+        recoveries=out["recoveries"], losses=out["losses"], leaves=len(got),
+        bit_equal=True, restored_step=step)
+    log(f"{arch} restart on {dev.type}: recovered {out['recoveries']}; replayed losses equal; "
+        f"final parameters and optimizer state ({len(got)} leaves) bit-equal to the "
+        f"uninterrupted run; the step-{step} checkpoint restores on the CPU bit for bit")
+
+
 def rehearse():
-    """Both paths at a tiny size on the CPU: control flow only, no kernels,
-    no timing claims and no result line."""
+    """Every path at a tiny size on the CPU: control flow only, no kernels,
+    no timing claims and no result line.  One intra-op thread: at these
+    sizes more threads add only their overhead, and beside other busy
+    processes on the same cores they stall the run many times over."""
+    torch.set_num_threads(1)
     dev = torch.device("cpu")
     report = {}
     spec, store, proj = main_path(TINY, dev, report)
@@ -1964,11 +2247,15 @@ def rehearse():
     morton_path(MM_TINY, dev, report)
     for sc in DENSE_TINY:
         dense_family_path(sc, dev, report)
-    cfg, model, opt, pipe = training_state(TRAIN_TINY, dev)
-    training_batches_vs_cpu(TRAIN_TINY, cfg, pipe, report)
-    training_grad_check(TRAIN_TINY, dev, cfg, model, pipe, report)
-    training_path(TRAIN_TINY, dev, cfg, model, opt, pipe, report)
-    training_small_vs_cpu(dev, report)
+    for tc in TRAINS_TINY:
+        cfg, model, opt, pipe = training_state(tc, dev)
+        training_batches_vs_cpu(tc, cfg, pipe, report)
+        training_grad_check(tc, dev, cfg, model, pipe, report)
+        training_path(tc, dev, cfg, model, opt, pipe, report)
+        pipe.stop()
+        training_small_vs_cpu(dev, report, tc["arch"])
+    for arch in RESTART_ARCHS:
+        restart_vs_uninterrupted(dev, report, arch)
     log(json.dumps({"rehearsal": report}, default=str))
     return 0
 
@@ -2128,33 +2415,17 @@ def main(argv=None) -> int:
     for arch in ("gemma-2b", "minitron-8b", "llama3-405b"):
         serving_small_vs_cpu(dev, report, arch)
 
-    # dense training at full width
+    # training at full width: the dense, MoE and ssm families
+    for tc in TRAINS_FULL:
+        training_phase(tc, dev, name, report, by_path)
+
+    # checkpoint and restart of each family's smoke model on the card
     t0 = time.perf_counter()
-    cfg, model, opt, pipe = training_state(TRAIN_FULL, dev)
-    training_batches_vs_cpu(TRAIN_FULL, cfg, pipe, report)
-    training_grad_check(TRAIN_FULL, dev, cfg, model, pipe, report)
+    for arch in RESTART_ARCHS:
+        restart_vs_uninterrupted(dev, report, arch)
+    report["restart"]["phase_s"] = time.perf_counter() - t0
+    log(f"restart phase {report['restart']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
-    opt = training_path(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
-    by_path["training"] = counts = read_launches("training")
-    want = cfg.n_layers * TRAIN_FULL["microbatches"] * TRAIN_FULL["steps"]
-    if counts["flash_attention"] != want or counts["cutout_gather"] < TRAIN_FULL["steps"]:
-        raise RuntimeError(f"training launches {counts}: want flash_attention {want} "
-                           f"(layers x microbatches x steps) and cutout_gather >= "
-                           f"{TRAIN_FULL['steps']}")
-    report["training"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    log(f"launches on the training path: {counts} (flash_attention = {cfg.n_layers} layers "
-        f"x {TRAIN_FULL['microbatches']} microbatches x {TRAIN_FULL['steps']} steps, "
-        f"forward only); max memory allocated "
-        f"{report['training']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
-    training_profile(TRAIN_FULL, dev, cfg, model, opt, pipe, name, report)
-    training_compressed_steps(TRAIN_FULL, dev, cfg, model, opt, pipe, report)
-    del model, opt, pipe
-    torch.cuda.empty_cache()
-    training_small_vs_cpu(dev, report)
-    report["training"]["phase_s"] = time.perf_counter() - t0
-    log(f"training phase {report['training']['phase_s']:.1f} s")
 
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],

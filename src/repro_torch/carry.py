@@ -13,6 +13,11 @@ into the port's `LM`; bfloat16 leaves are taken bit for bit through a
 uint16 bit patterns.  `opt_state_from_numpy` and `opt_state_to_numpy` do the
 same for an AdamW state (``mu``, ``nu``, ``master``, ``step``), so a JAX
 state and a port state compute the same step.
+
+A train state (the model and its AdamW state) is checkpointed as the JAX
+driver's tree ``{"params": ..., "opt": {"mu", "nu", "master", "step"}}``
+(`train_state_to_tree`); `train_state_from_tree` loads a restored tree back
+into the live tensors.
 """
 from __future__ import annotations
 
@@ -125,6 +130,40 @@ def opt_state_to_numpy(state: Dict) -> Dict:
     out = {k: tree_map(_leaf_to_numpy, state[k]) for k in ("mu", "nu", "master")}
     out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
     return out
+
+
+def train_state_to_tree(model: LM, opt: Dict) -> Dict:
+    """The train state as the JAX driver's checkpoint tree: the model's
+    live Parameters and the live optimizer state (a checkpoint snapshot
+    copies them to the host)."""
+    return {"params": model.param_tree(), "opt": opt}
+
+
+@torch.no_grad()
+def train_state_from_tree(tree, model: LM, opt: Dict) -> Dict:
+    """Copy a restored checkpoint tree (tensors on any device) into the
+    model's Parameters and ``opt`` in place, and return ``opt``.  In place
+    because `train.make_train_step` closes over ``model.param_tree()`` and
+    `optim.adamw_update` updates the state's tensors: new tensors would
+    leave the step updating the old ones.  Keys, shapes and dtypes must
+    match."""
+    _copy_into(tree, train_state_to_tree(model, opt), "")
+    return opt
+
+
+def _copy_into(src, dst, path: str) -> None:
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            got = sorted(src) if isinstance(src, dict) else type(src).__name__
+            raise ValueError(f"{path or 'state'}: keys {got}, want {sorted(dst)}")
+        for k in dst:
+            _copy_into(src[k], dst[k], f"{path}/{k}" if path else k)
+        return
+    if not torch.is_tensor(src) or src.shape != dst.shape or src.dtype != dst.dtype:
+        what = (f"{src.dtype} {tuple(src.shape)}" if torch.is_tensor(src)
+                else type(src).__name__)
+        raise ValueError(f"{path}: {what}, want {dst.dtype} {tuple(dst.shape)}")
+    dst.copy_(src)
 
 
 def _with_dtypes(specs, dtypes):

@@ -9,6 +9,11 @@ point (one per `moe_gemm` call: both phases), so a run can show that its
 path went through the kernel.  `grid_plan` is the host's view of the
 blocks each phase launches (bf16 runs the tensor-core body, fp32 the FMA
 body; ``kernel.cu``'s `moe_gemm_tiles` reports the same tiles).
+
+On the card the kernel runs inside `MoeGemm`, an autograd Function: its
+forward is the kernel, and its backward recomputes the product through
+the plain version and differentiates that.  The JAX package has no
+backward kernel either (its MoE differentiates three einsums).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import _build
 from .ref import moe_gemm_ref
@@ -156,6 +162,31 @@ def moe_gemm_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return y
 
 
+class MoeGemm(torch.autograd.Function):
+    """The expert GEMM whose forward is ``forward`` (the CUDA kernel; the
+    tests pass the plain version to reach the wiring on the CPU) and whose
+    backward is autograd's through `moe_gemm_ref`, recomputed from the
+    saved x and weights (the profiler range ``moe_gemm.recompute``).  Rows
+    at or past ``counts[e]`` get zero gradient (the plain version's
+    `where`); ``counts`` gets none."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, counts, forward):
+        ctx.save_for_backward(x, w_gate, w_up, w_down, counts)
+        return forward(x, w_gate, w_up, w_down, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad(), record_function("moe_gemm.recompute"):
+            *ins, counts = ctx.saved_tensors
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(ins, ctx.needs_input_grad)]
+            y = moe_gemm_ref(*ins, counts)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(y, wanted, dy))
+        return (*(next(got) if t.requires_grad else None for t in ins), None, None)
+
+
 def moe_gemm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Grouped SwiGLU expert GEMM over a capacity buffer.
@@ -164,11 +195,12 @@ def moe_gemm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     in x's dtype; counts (E,) int32, the tokens dispatched to each expert
     (a count above C means all C rows).  Returns y (E, C, d) in x's dtype:
     ``silu(x Wg) * (x Wu)`` in fp32 rounded to the dtype, times Wd in fp32,
-    rows at or past ``counts[e]`` 0.  The kernel on the card; the plain
-    version for CPU tensors.
+    rows at or past ``counts[e]`` 0.  The kernel on the card
+    (differentiable through `MoeGemm`); the plain version, differentiable
+    as it is, for CPU tensors.
     """
     if x.is_cuda:
-        return moe_gemm_cuda(x, w_gate, w_up, w_down, counts)
+        return MoeGemm.apply(x, w_gate, w_up, w_down, counts, moe_gemm_cuda)
     if x.device.type != "cpu":
         raise ValueError(f"no moe_gemm for device {x.device}")
     return moe_gemm_ref(x, w_gate, w_up, w_down, counts)

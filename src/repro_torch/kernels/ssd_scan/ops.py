@@ -8,6 +8,11 @@ without a copy.  `launches` counts kernel launches, so a run can show that
 its path went through the kernel.  `body` says which of ``kernel.cu``'s two
 bodies a dtype runs, and `tc_plan` is the host's view of the bf16 body's
 launch (``kernel.cu``'s `ssd_scan_tc_plan` reports the same).
+
+On the card the kernel runs inside `SsdScan`, an autograd Function: its
+forward is the kernel, and its backward recomputes the scan through the
+plain version and differentiates that.  The JAX package has no backward
+kernel either (its training path differentiates the jnp chunked scan).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import _build
 from .ref import ssd_scan_ref
@@ -167,6 +173,36 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+class SsdScan(torch.autograd.Function):
+    """The scan whose forward is ``forward`` (the CUDA kernel; the tests
+    pass the plain version to reach the wiring on the CPU) and whose
+    backward is autograd's through `ssd_scan_ref`, recomputed from the
+    saved x, dt, A, B and C (the profiler range ``ssd_scan.recompute``).
+    x, B and C may be strided views of one tensor (the mixer's conv
+    output): they are saved as they are, and autograd adds the three
+    gradients into that tensor's.  The final state's cotangent is None
+    where the caller drops the state (training)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int, forward):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return forward(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        with torch.enable_grad(), record_function("ssd_scan.recompute"):
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y, state = ssd_scan_ref(*ins, chunk=ctx.chunk)
+            outs, cots = zip(*[(o, g) for o, g in ((y, dy), (state, dstate))
+                               if g is not None])
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(outs, wanted, cots))
+        return (*(next(got) if t.requires_grad else None for t in ins), None, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = MAX_CHUNK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -174,11 +210,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x (B, S, H, P) fp32 or bf16; dt (B, S, H) fp32 (softplus'd steps); A
     (H,) fp32 < 0; B, C (B, S, N) in x's dtype.  Returns y (B, S, H, P)
-    fp32 and the final state (B, H, P, N) fp32.  The kernel on the card;
-    the plain version for CPU tensors.
+    fp32 and the final state (B, H, P, N) fp32.  The kernel on the card
+    (differentiable through `SsdScan`); the plain version, differentiable
+    as it is, for CPU tensors.
     """
     if x.is_cuda:
-        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+        return SsdScan.apply(x, dt, A, B, C, chunk, ssd_scan_cuda)
     if x.device.type != "cpu":
         raise ValueError(f"no ssd_scan for device {x.device}")
     return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)

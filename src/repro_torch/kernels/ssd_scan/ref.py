@@ -23,6 +23,16 @@ import torch.nn.functional as F
 F32 = torch.float32
 
 
+def causal_decay(diff: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+    """exp(diff) where ``causal``, else 0.  Above the diagonal diff =
+    cum_i - cum_j is positive and may pass fp32's ~88.7, where exp gives
+    inf: a `where` after the exp drops it from the forward, but the
+    backward multiplies its zero cotangent by inf and gets NaN.  So the
+    exponent is -inf there before the exp, whose value and gradient are
+    then 0; on the causal part the values are exp's own."""
+    return torch.exp(diff.masked_fill(~causal, float("-inf")))
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,12 +57,10 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Cc = Cf.reshape(Bsz, nc, Q, N)
     cum = torch.cumsum(dtc * A.to(F32), dim=2)               # (B, nc, Q, H)
 
-    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0 (the
-    # exponent of i < j is positive and may overflow; `where` drops it)
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B, nc, Q, Q, H)
-    L = torch.where(causal[None, None, :, :, None], torch.exp(diff), 0.0)
-    del diff
+    L = causal_decay(cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                     causal[None, None, :, :, None])          # (B, nc, Q, Q, H)
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     xdt = xc * dtc[..., None]                                 # (B, nc, Q, H, P)
     y = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, xdt)
@@ -108,8 +116,7 @@ def ssd_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bc, Cc = Bf[:, c0:c0 + q], Cf[:, c0:c0 + q]                # (B, q, N)
         cum = torch.cumsum(dtc * Af, dim=1)                         # (B, q, H)
         causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-        L = torch.where(causal[None, :, :, None],
-                        torch.exp(cum[:, :, None, :] - cum[:, None, :, :]), 0.0)
+        L = causal_decay(cum[:, :, None, :] - cum[:, None, :, :], causal[None, :, :, None])
         scores = torch.einsum("bin,bjn->bij", Cc, Bc)               # (B, q, q)
         g = scores[..., None] * L * dtc[:, None, :, :]              # (B, q, q, H)
         gh, gl = split_bf16(g, lo_terms)

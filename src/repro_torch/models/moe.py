@@ -21,8 +21,15 @@ atomic ``index_add_`` would sum bf16 in an order that varies by run.
 
 The router's load-balancing loss is computed on every call, as in the JAX
 package, and the LM discards it outside ``forward``.  Instruments read
-the routing through `observe` (a callback on every dispatch), not by
-replacing functions of this module.
+the routing through `observe` (a callback on every dispatch).
+
+Training differentiates all of it: on the card the expert GEMM through
+`MoeGemm` (the kernel's forward, the plain version's gradient), the
+dispatch's scatter and the combine's gather through autograd.  Their
+backwards are deterministic on the card: the combine's gather becomes an
+atomic add over the (E * C) slots, but each slot takes one kept pick's
+gradient plus zeros from dropped picks (their gate weight is 0), so the
+order of the adds does not change the sum.
 """
 from __future__ import annotations
 
@@ -89,6 +96,16 @@ def observe(fn: Callable) -> Iterator[None]:
         _observers.remove(fn)
 
 
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router's picks: (probabilities, expert ids), each (T, k), the
+    first k of a stable descending sort, so that among equal probabilities
+    the lower expert id wins, as in lax.top_k (torch.topk makes no
+    promise).  `dispatch` looks it up at each call, so an instrument can
+    record the picks or route the same tokens as another run did."""
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return gates[:, :k], ids[:, :k]
+
+
 def dispatch(p, cfg: ModelConfig, xt: torch.Tensor) -> Dispatch:
     """Route the tokens xt (T, d) and fill the capacity buffer."""
     T, d = xt.shape
@@ -98,10 +115,7 @@ def dispatch(p, cfg: ModelConfig, xt: torch.Tensor) -> Dispatch:
 
     logits = xt.to(F32) @ p.w_router.to(F32)                     # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    # the first k of a stable descending sort: among equal probabilities the
-    # lower expert id wins, as in lax.top_k (torch.topk makes no promise)
-    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, ids = gates[:, :k], ids[:, :k]                        # (T, k)
+    gates, ids = top_k(probs, k)                                 # (T, k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)  # renorm
 
     # Switch/GShard load-balancing loss

@@ -683,6 +683,141 @@ def test_moe_router_breaks_ties_by_lower_expert_id_on_the_card(cuda, case):
     else:
         assert bool((probs[:, 1] == probs[:, 6]).all())
 
+# ------------------------------------- the gradients of ssd_scan and moe_gemm ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", ["repo", "published"])
+def test_ssd_scan_gradients_through_the_kernel(cuda, dtype, init):
+    """The card's scan is differentiable at mamba2-370m's heads and its
+    chunk of 256: the forward is the kernel (one launch), x, B and C are
+    views of one conv output, and every gradient is autograd's through the
+    plain version on the same tensors (bit for bit: the backward recomputes
+    it), finite and nonzero.  The repo's init (A = -1, dt ~ 0.7) overflowed
+    exp above the chunk's diagonal before the plain scan's repair."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    Bsz, S, H, P, N = 2, 512, 32, 64, 128
+    conv = _randn(gen, (Bsz, S, H * P + 2 * N), dtype, cuda).requires_grad_()
+    if init == "repo":
+        dt_raw = torch.zeros((Bsz, S, H), device=cuda).requires_grad_()
+        A_log = torch.zeros((H,), device=cuda).requires_grad_()
+    else:
+        dt_raw = (np.log(1e-3) + np.log(100.0) * torch.rand((Bsz, S, H), generator=gen,
+                                                            device=cuda)).requires_grad_()
+        A_log = torch.log(1 + 15 * torch.rand((H,), generator=gen, device=cuda)
+                          ).requires_grad_()
+    dy = torch.randn((Bsz, S, H, P), generator=gen, device=cuda)
+
+    def inputs():
+        dt = torch.nn.functional.softplus(dt_raw) if init == "repo" else torch.exp(dt_raw)
+        return (conv[..., :H * P].unflatten(-1, (H, P)), dt, -torch.exp(A_log),
+                conv[..., H * P:H * P + N], conv[..., H * P + N:])
+
+    leaves = (conv, dt_raw, A_log)
+    before = ssd_ops.launches
+    y, _ = ssd_ops.ssd_scan(*inputs(), chunk=256)
+    assert ssd_ops.launches == before + 1
+    want_y, _ = ssd_scan_ref(*inputs(), chunk=256)
+    torch.testing.assert_close(y, want_y, **ssd_tol(want_y))
+    got = torch.autograd.grad(y, leaves, dy)
+    want = torch.autograd.grad(want_y, leaves, dy)
+    assert ssd_ops.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert bool(torch.isfinite(g.float()).all()) and bool((g != 0).any())
+
+
+@pytest.mark.parametrize("shape", [(32, 640, 1024, 512), (3, 130, 24, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_gradients_through_the_kernel(cuda, shape, dtype):
+    """The card's expert GEMM is differentiable: one launch forward, and the
+    gradients of x and the three weights are autograd's through the plain
+    version on the same tensors, bit for bit; rows past the counts (random
+    here) get zero gradient."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x, wg, wu, wd, counts = moe_inputs(gen, shape, dtype, cuda, junk=True)
+    ins = [t.requires_grad_() for t in (x, wg, wu, wd)]
+    dy = _randn(gen, x.shape, dtype, cuda)
+    before = mg_ops.launches
+    y = mg_ops.moe_gemm(*ins, counts)
+    assert mg_ops.launches == before + 1
+    want_y = moe_gemm_ref(*ins, counts)
+    torch.testing.assert_close(y, want_y, **moe_tol(want_y))
+    got = torch.autograd.grad(y, ins, dy)
+    want = torch.autograd.grad(want_y, ins, dy)
+    assert mg_ops.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w) and bool(torch.isfinite(g.float()).all())
+    dead = torch.arange(shape[1], device=cuda)[None, :] >= counts[:, None]
+    assert not bool(got[0][dead].any()) and bool(got[0][~dead].any())
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+def test_moe_layer_backward_is_deterministic_on_the_card(cuda, capacity_factor):
+    """granite's MoE layer in bf16 over 2,048 tokens, forward and backward
+    twice: the gradients of the tokens and of every weight are bit-equal
+    (the combine's backward adds into each slot one kept pick's gradient
+    and zeros from dropped picks; capacity 0.25 drops many)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe
+
+    cfg = get_config("granite-moe-1b-a400m").scaled(capacity_factor=capacity_factor)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = SimpleNamespace(
+        w_router=(torch.randn((d, E), generator=gen, device=cuda) * 0.02).requires_grad_(),
+        **{k: (torch.randn(s, generator=gen, device=cuda) * 0.02).to(torch.bfloat16
+                                                                     ).requires_grad_()
+           for k, s in (("w_gate", (E, d, f)), ("w_up", (E, d, f)), ("w_down", (E, f, d)))})
+    x = torch.randn((2, 1024, d), generator=gen, device=cuda).to(torch.bfloat16
+                                                                  ).requires_grad_()
+    dout = torch.randn((2, 1024, d), generator=gen, device=cuda).to(torch.bfloat16)
+    leaves = (x, p.w_router, p.w_gate, p.w_up, p.w_down)
+    runs = []
+    for _ in range(2):
+        out, aux = moe(p, cfg, x)
+        runs.append(torch.autograd.grad((out, aux), leaves, (dout, torch.ones_like(aux))))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b) and bool(a.any())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m"])
+def test_family_smoke_model_gradients_on_card_match_cpu(cuda, arch):
+    """A 2-layer fp32 granite and mamba2 (the latter at the published
+    chunk of 256 over 256 steps, the repo's init): every parameter's
+    gradient through the kernel route on the card within 1e-4 of its max
+    |g| of the CPU's (the plain route), finite, and the kernels' leaves
+    nonzero."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    moe_family = arch.startswith("granite")
+    cfg = get_smoke_config(arch).scaled(dtype="float32",
+                                        **({} if moe_family else dict(ssm_chunk=256)))
+    S = 32 if moe_family else 256
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    data = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(4, S + 1)).astype(np.int32))
+    batch = {"tokens": data[:, :-1], "labels": data[:, 1:]}
+    ops_ = mg_ops if moe_family else ssd_ops
+    before = ops_.launches
+    grads = {}
+    for m in (cpu, card):
+        m.requires_grad_(True)
+        grads[m.device.type] = loss_and_grads(m, batch, cfg)[2]
+    assert ops_.launches == before + cfg.n_layers
+    for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["cpu"])):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    blk = grads["cuda"]["blocks"]
+    for g in ((blk["moe"]["w_gate"], blk["moe"]["w_down"], blk["moe"]["w_router"])
+              if moe_family else (blk["ssm"]["A_log"], blk["ssm"]["dt_bias"], blk["ssm"]["w_dt"])):
+        assert bool((g != 0).any())
+
+
 # tests/test_kernels.py:78-80, then a grid of 3 x 3 blocks with non-consecutive
 # repeats, a ragged edge in every dimension and a row stride that is not a
 # multiple of 16 bytes

@@ -176,15 +176,21 @@ def test_cpu_driver_microbatches_and_compression():
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--ckpt-dir", "x"], "A6"),
-    (["--inject-failure-at", "3"], "A12"),
-    (["--arch", "granite-moe-1b-a400m"], "A8"),
-    (["--arch", "mamba2-370m"], "A8"),
+    (["--arch", "recurrentgemma-2b"], "A10"),
+    (["--arch", "seamless-m4t-medium"], "A10"),
+    (["--arch", "arctic-480b"], "A13"),
+    (["--arch", "internvl2-76b"], "A13"),
 ])
 def test_driver_raises_for_what_is_not_ported(argv, err):
     args = ["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1"]
     with pytest.raises(NotImplementedError, match=err):
         train.main(args + argv)
+
+
+def test_driver_refuses_a_failure_without_checkpoints():
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1",
+                    "--inject-failure-at", "3"])
 
 
 def test_driver_needs_the_card_unless_told():

@@ -41,10 +41,11 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 42
+    assert len(MODULES) >= 46
     assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.train.train_step", "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(MODULES)
+            "repro_torch.launch.train", "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+            "repro_torch.ft", "repro_torch.ft.supervisor"} <= set(MODULES)
 
 
 def test_store_defaults_to_the_card():

@@ -6,6 +6,12 @@ cannot go through the Pallas kernel, and its gradient is XLA's autodiff of
 `blockwise_attention`.  The port's CPU attention is the plain version,
 which the card's kernel route differentiates too (`FlashAttention`).
 
+The MoE and ssm families (granite-moe-1b-a400m and mamba2-370m at their
+smoke widths) are held the same way: the JAX MoE differentiates its
+expert einsums, the JAX mixer its jnp chunked scan (`use_ssd_kernel=False`);
+the port's CPU routes are the plain versions, which the card's `MoeGemm`
+and `SsdScan` differentiate too.
+
 Tolerances: the optimizer on identical gradients agrees to fp32 rounding
 (rtol 1e-5, atol 1e-8; the working weights in bf16 to one bf16 ulp where a
 master sits on a rounding boundary).  Gradients in fp32 within 1e-4 of
@@ -25,6 +31,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.models import build_model as j_build_model
 from repro.models.params import init_params as j_init_params
 from repro.optim import AdamWConfig as JAdamWConfig
@@ -39,6 +46,11 @@ from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,
                                opt_state_from_numpy, opt_state_to_numpy)
 from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.moe_gemm.ops import MoeGemm, moe_gemm
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.ssd_scan import ref as ssd_ref_mod
+from repro_torch.kernels.ssd_scan.ops import SsdScan, ssd_scan
+from repro_torch.kernels.ssd_scan.ref import causal_decay, ssd_scan_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -367,3 +379,260 @@ def test_flash_attention_on_the_cpu_is_the_plain_version():
     out = flash_attention(q, k, k, causal=True)
     assert out.grad_fn is not None and "FlashAttention" not in type(out.grad_fn).__name__
     assert torch.equal(out, flash_attention_ref(q, k, k, causal=True, scale=0.25))
+
+
+# ----------------------------------------------- the MoE and ssm families ----
+
+FAMILIES = ["granite_moe_1b_a400m", "mamba2_370m"]
+
+
+def family_pair(arch, dtype="float32", seed=0, **kw):
+    """(JAX cfg, JAX model, JAX params, port model) of ``arch``'s smoke
+    config on the same weights; the JAX model on its differentiable jnp
+    routes."""
+    jcfg = j_get_smoke_config(arch).scaled(dtype=dtype, **kw)
+    jm = j_build_model(jcfg)
+    jp = j_init_params(jm.specs(), jax.random.key(seed))
+    tm = lm_params_from_numpy(port_cfg(jcfg), jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, jm, jp, tm
+
+
+def j_grads(jm, jp, b, jcfg):
+    return jax.grad(lambda p: j_loss_fn(jm, p, jax.tree.map(jnp.asarray, b), jcfg)[0])(jp)
+
+
+def assert_grads_close(got, want, share):
+    """Each leaf within ``share`` of the JAX leaf's max |g|, in the JAX
+    leaf's dtype and shape."""
+    leaves_w = jax.tree_util.tree_leaves_with_path(want)
+    leaves_g = tree_leaves(got)
+    assert len(leaves_w) == len(leaves_g)
+    for (path, w), g in zip(leaves_w, leaves_g):
+        assert g.dtype == getattr(torch, jnp.dtype(w.dtype).name), path
+        assert tuple(g.shape) == w.shape, path
+        w = f32(w)
+        assert np.isfinite(w).all() and np.abs(w).max() > 0, path
+        np.testing.assert_allclose(f32(g), w, rtol=0, atol=share * np.abs(w).max(),
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_gradients_match_jax_grad(arch, dtype):
+    """Every leaf of the MoE and ssm smoke models (experts, router, mixer,
+    A_log, dt_bias, D, ...) against `jax.grad`, the MoE aux loss in the
+    loss; the ssm at the smoke config's chunk of 16 over 64 steps."""
+    jcfg, jm, jp, tm = family_pair(arch, dtype, seed=3)
+    S = 64 if arch.startswith("mamba") else 16
+    b = batch(2, S, seed=4)
+    want = j_grads(jm, jp, b, jcfg)
+    tm.requires_grad_(True)
+    loss, metrics, got = loss_and_grads(tm, as_torch(b), tm.cfg)
+    jloss, jmetrics = j_loss_fn(jm, jp, jax.tree.map(jnp.asarray, b), jcfg)
+    rtol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=rtol)
+    np.testing.assert_allclose(float(metrics["aux"]), float(jmetrics["aux"]), rtol=rtol)
+    assert (float(metrics["aux"]) > 0) == arch.startswith("granite")
+    assert_grads_close(got, want, 1e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("arch,n_micro,compression", [
+    ("granite_moe_1b_a400m", 2, "bf16"), ("granite_moe_1b_a400m", 1, "int8"),
+    ("mamba2_370m", 2, "int8"), ("mamba2_370m", 1, "bf16")])
+def test_family_train_step_matches_jax(arch, n_micro, compression):
+    """3 steps of the MoE and ssm train steps from the same weights, state
+    and batches, with microbatches and compressed gradients: losses, grad
+    norms and parameters as for the dense family."""
+    jcfg, jm, jp, tm = family_pair(arch, seed=5)
+    kw = dict(lr_peak=1e-3, warmup_steps=2, total_steps=10,
+              grad_compression=compression)
+    jstep = jax.jit(j_make_train_step(jm, jcfg, JAdamWConfig(**kw), n_micro))
+    tstep = make_train_step(tm, tm.cfg, AdamWConfig(**kw), n_micro)
+    jo = j_opt_state(jp)
+    to = opt_state_from_numpy(tm.cfg, jax.tree.map(np.asarray, jo), "cpu")
+    lrs = 0.0
+    S = 32 if arch.startswith("mamba") else 12
+    for step in range(3):
+        b = batch(4, S, seed=10 + step)
+        jp, jo, jm_ = jstep(jp, jo, jax.tree.map(jnp.asarray, b))
+        to, tm_ = tstep(to, as_torch(b))
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm_[key]), float(jm_[key]), rtol=1e-4,
+                                       err_msg=key)
+        lrs += float(jm_["lr"])
+    got = lm_params_to_numpy(tm)
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(jp), tree_leaves(got)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=2 * lrs,
+                                   err_msg=str(path))
+        assert np.mean(np.abs(g - np.asarray(w)) > 1e-5) < 1e-3, path
+    assert int(opt_state_to_numpy(to)["step"]) == 3
+
+
+# ------------------------------------ the chunked scan's NaN gradient ----
+
+def old_causal_decay(diff, causal):
+    """The chunked scan's decay before the repair (and the JAX package's,
+    `repro/models/ssm.py:74`): exp first, then `where`."""
+    return torch.where(causal, torch.exp(diff), 0.0)
+
+
+def test_ssd_scan_ref_forward_is_unchanged_by_the_repair(monkeypatch):
+    """`causal_decay` gives the old expression's values bit for bit, and so
+    the scan its outputs, over exponents that overflow above the diagonal."""
+    rng = np.random.default_rng(8)
+    B, S, H, P, N = 2, 96, 3, 16, 16
+    x, Bm, Cm = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 for s in ((B, S, H, P), (B, S, N), (B, S, N)))
+    dt = torch.from_numpy(rng.uniform(0.5, 3.0, size=(B, S, H)).astype(np.float32))
+    A = torch.tensor([-1.0, -2.0, -0.5])
+    for chunk in (32, 48, 96):
+        want = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+        with monkeypatch.context() as m:
+            m.setattr(ssd_ref_mod, "causal_decay", old_causal_decay)
+            old = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+        for g, w in zip(want, old):
+            assert torch.equal(g, w)
+    diff = torch.from_numpy(rng.normal(size=(5, 7, 7)).astype(np.float32)) * 60
+    causal = torch.ones(7, 7, dtype=torch.bool).tril()
+    assert torch.equal(causal_decay(diff, causal), old_causal_decay(diff, causal))
+
+
+def test_ssd_scan_ref_gradient_is_finite_where_the_decay_overflows(monkeypatch):
+    """dt = 2 over one chunk of 64: cum spans 128 > 88.7, so exp overflows
+    above the diagonal.  The old expression's gradient is NaN; the
+    repaired one is finite."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(1, 64, 2, 8)).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(rng.normal(size=(1, 64, 8)).astype(np.float32))
+              for _ in range(2))
+    A = torch.tensor([-1.0, -1.0])
+
+    def dt_grad():
+        dt = torch.full((1, 64, 2), 2.0, requires_grad=True)
+        y, _ = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=64)
+        (g,) = torch.autograd.grad(y.sum(), dt)
+        return g
+
+    assert bool(torch.isfinite(dt_grad()).all())
+    with monkeypatch.context() as m:
+        m.setattr(ssd_ref_mod, "causal_decay", old_causal_decay)
+        assert bool(torch.isnan(dt_grad()).any())
+
+
+def test_ssm_gradient_at_the_published_chunk_is_finite_where_jax_is_nan():
+    """mamba2's smoke model at the published chunk of 256 over 256 steps,
+    with the repo's init (A = -1, dt ~ 0.7: cum spans ~177).  The JAX
+    gradient is NaN (its chunked scan exps before its `where`); the port's
+    is finite and equals its gradient at chunk 16, which equals JAX's."""
+    b = batch(2, 256, seed=4)
+    jcfg, jm, jp, _ = family_pair("mamba2_370m", seed=3, ssm_chunk=256)
+    want_nan = j_grads(jm, jp, b, jcfg)
+    nan_leaves = [str(p) for p, w in jax.tree_util.tree_leaves_with_path(want_nan)
+                  if np.isnan(f32(w)).any()]
+    assert any("A_log" in p for p in nan_leaves) and any("embed" in p for p in nan_leaves)
+    grads = {}
+    for chunk in (256, 16):
+        jcfg, jm, jp, tm = family_pair("mamba2_370m", seed=3, ssm_chunk=chunk)
+        tm.requires_grad_(True)
+        grads[chunk] = loss_and_grads(tm, as_torch(b), tm.cfg)[2]
+    assert_grads_close(grads[16], j_grads(jm, jp, b, jcfg), 1e-4)
+    for g256, g16 in zip(tree_leaves(grads[256]), tree_leaves(grads[16])):
+        assert bool(torch.isfinite(g256).all())
+        torch.testing.assert_close(g256, g16, rtol=0, atol=1e-4 * float(g16.abs().max()))
+
+
+# ---------------------------------- the MoE and scan gradients' wiring ----
+
+def test_ssd_scan_function_backward_is_the_plain_gradient():
+    """`SsdScan` with the plain version as its forward (the kernel needs
+    the card): x, B and C are strided views of one conv output, as in the
+    mixer, and their gradients add up into it; every gradient is autograd's
+    through the plain version, bit for bit, with the state's cotangent
+    dropped (training) and given."""
+    rng = np.random.default_rng(10)
+    Bsz, S, H, P, N, chunk = 2, 40, 3, 8, 16, 16
+    di = H * P
+    conv = torch.from_numpy(rng.normal(size=(Bsz, S, di + 2 * N)).astype(np.float32)
+                            ).requires_grad_()
+    dt_raw = torch.from_numpy(rng.normal(size=(Bsz, S, H)).astype(np.float32)
+                              ).requires_grad_()
+    A_log = torch.from_numpy(rng.normal(size=(H,)).astype(np.float32)).requires_grad_()
+    dy = torch.from_numpy(rng.normal(size=(Bsz, S, H, P)).astype(np.float32))
+    dstate = torch.from_numpy(rng.normal(size=(Bsz, H, P, N)).astype(np.float32))
+    leaves = (conv, dt_raw, A_log)
+    calls = []
+
+    def forward(*args, **kw):
+        calls.append(kw)
+        return ssd_scan_ref(*args, **kw)
+
+    def inputs():
+        return (conv[..., :di].unflatten(-1, (H, P)),
+                torch.nn.functional.softplus(dt_raw), -torch.exp(A_log),
+                conv[..., di:di + N], conv[..., di + N:])
+
+    got_y, got_s = SsdScan.apply(*inputs(), chunk, forward)
+    want_y, want_s = ssd_scan_ref(*inputs(), chunk=chunk)
+    assert calls == [dict(chunk=chunk)]
+    assert torch.equal(got_y, want_y) and torch.equal(got_s, want_s)
+    for outs, cots in (((got_y,), (dy,)), ((got_y, got_s), (dy, dstate))):
+        got = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        want = torch.autograd.grad((want_y, want_s)[:len(outs)], leaves, cots,
+                                   retain_graph=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert bool(got[0][..., :di].any() and got[0][..., di:di + N].any()
+                    and got[0][..., di + N:].any())
+    # only the inputs that ask for a gradient get one
+    x, dt, A, Bm, Cm = inputs()
+    y, _ = SsdScan.apply(x.detach(), dt, A.detach(), Bm.detach(), Cm.detach(), chunk,
+                         forward)
+    (g,) = torch.autograd.grad(y, (dt_raw,), dy)
+    assert g.shape == dt_raw.shape
+
+
+def test_moe_gemm_function_backward_is_the_plain_gradient():
+    """`MoeGemm` with the plain version as its forward: gradients of x and
+    the three weights are autograd's through the plain version, bit for
+    bit; rows at or past ``counts[e]`` (random here) get zero gradient, and
+    counts none."""
+    rng = np.random.default_rng(11)
+    E, C, d, f = 4, 12, 16, 24
+    x, wg, wu, wd = (torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.3
+                                      ).requires_grad_()
+                     for s in ((E, C, d), (E, d, f), (E, d, f), (E, f, d)))
+    counts = torch.tensor([0, 5, C, C + 3], dtype=torch.int32)
+    dy = torch.from_numpy(rng.normal(size=(E, C, d)).astype(np.float32))
+    calls = []
+
+    def forward(*args):
+        calls.append(len(args))
+        return moe_gemm_ref(*args)
+
+    got_y = MoeGemm.apply(x, wg, wu, wd, counts, forward)
+    want_y = moe_gemm_ref(x, wg, wu, wd, counts)
+    assert calls == [5] and torch.equal(got_y, want_y)
+    got = torch.autograd.grad(got_y, (x, wg, wu, wd), dy)
+    want = torch.autograd.grad(want_y, (x, wg, wu, wd), dy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and bool(g.any())
+    dead = torch.arange(C)[None, :] >= counts[:, None]
+    assert not bool(got[0][dead].any()) and bool(got[0][~dead].all())
+    (gwd,) = torch.autograd.grad(MoeGemm.apply(x.detach(), wg, wu, wd, counts, forward),
+                                 (wd,), dy)
+    assert torch.equal(gwd, want[3])
+
+
+def test_moe_and_scan_on_the_cpu_are_the_plain_versions():
+    x = torch.randn(2, 8, 16, requires_grad=True)
+    w = [torch.randn(2, 16, 8), torch.randn(2, 16, 8), torch.randn(2, 8, 16)]
+    counts = torch.tensor([3, 8], dtype=torch.int32)
+    y = moe_gemm(x, *w, counts)
+    assert "MoeGemm" not in type(y.grad_fn).__name__
+    assert torch.equal(y, moe_gemm_ref(x, *w, counts))
+    xs = torch.randn(1, 8, 2, 8, requires_grad=True)
+    dt, A = torch.rand(1, 8, 2), -torch.ones(2)
+    Bm = Cm = torch.randn(1, 8, 8)
+    y, _ = ssd_scan(xs, dt, A, Bm, Cm, chunk=4)
+    assert "SsdScan" not in type(y.grad_fn).__name__
+    assert torch.equal(y, ssd_scan_ref(xs, dt, A, Bm, Cm, chunk=4)[0])
