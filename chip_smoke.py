@@ -190,6 +190,35 @@ Phases (any failure raises and the exit code is non-zero):
    recovery log shows the restore to step 5 and the replay, the replayed
    losses are equal, the final parameters and optimizer state are equal
    bit for bit, and the step-10 checkpoint restores on the CPU bit for bit.
+21. The annotation service on the detection path's own state (run after
+   phase 4, before that state is freed), with the launch counts set to 0
+   just before it and read just after: index-only `bounding_box` of every
+   detected id (each box holds every stored voxel of its id);
+   `batch_read_objects` of 40 ids (each equal to the plain-gather cutout
+   of its box, masked to the id); `objects_in_region` over the 4
+   re-check tiles (the sorted unique stored ids); `distance` between two
+   neighbouring synapses (equal to numpy's chunked norm); `propagate`
+   (levels 3-5; `pending_propagation` true, then false; a level-3 box
+   equals the stride-sampled level-2 box); `project` at level 0 (a full
+   8,192 x 8,192 z-slice, and the max and mean over z of a 1,024 x 1,024
+   x 256 box, each equal to numpy's reduction of the plain-gather
+   cutout); `batch_cutout` of 40 boxes, unaligned and at the volume edge
+   (each equal to its own `cutout`); the ``exception`` discipline (the
+   re-check tiles' stored ids, half of them written first, then all
+   shifted by a fixed offset under ``exception``: the primary labels
+   equal where(old != 0, old, new) and every touched cuboid's exception
+   list equals numpy's); and a one-rank NCCL world: `distributed_cutout`
+   of a 1,024 x 1,024 x 64 box of level 0 equals `cutout`, and
+   `distributed_write_cutout` (zeros included) equals its numpy oracle.
+   `cutout_gather` must have launched; each step is timed (one run).
+22. Time series and channels, after the detection state is freed, counted
+   as phase 21: a seeded rank-4 uint8 dataset of 2,048 x 2,048 x 64 x 16
+   (cuboids 128 x 128 x 16 x 16, 4 GiB) ingested, then aligned, unaligned
+   and edge cutouts, each bit-exact against the plain version and the host
+   slice; the 1,024 x 1,024 x 32 x 16 box timed with CUDA events (median
+   of >= 20) beside its byte bound; and a 3-channel uint16 dataset of
+   4,096 x 4,096 x 64 per channel (2 GiB each) written and read back per
+   channel.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -226,6 +255,8 @@ from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,  # noqa
 from repro_torch.ckpt import restore_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import cutout as cut  # noqa: E402
+from repro_torch.core import distributed as dist_mod  # noqa: E402
+from repro_torch.core import morton  # noqa: E402
 from repro_torch.core.annotations import AnnotationProject  # noqa: E402
 from repro_torch.core.cuboid import (CuboidGrid, DatasetSpec,  # noqa: E402
                                      downsample_block)
@@ -266,7 +297,8 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
-        ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training")),
+        ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training",
+                               "annotation", "timeseries")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
@@ -297,9 +329,20 @@ KERNELS = {
 
 FULL = dict(volume=(8192, 8192, 256), n_resolutions=6, r=2,
             tile=(512, 512, 64), lowres=5, workers=20, n_blobs=49152,
-            slab=128)
+            slab=128, reduce_box=((2048, 3072, 0), (3072, 4096, 256)),
+            dist_box=((1024, 5120, 64), (2048, 6144, 128)), batch=40)
 TINY = dict(volume=(256, 256, 32), n_resolutions=3, r=1,
-            tile=(64, 64, 32), lowres=2, workers=3, n_blobs=48, slab=64)
+            tile=(64, 64, 32), lowres=2, workers=3, n_blobs=48, slab=64,
+            reduce_box=((64, 96, 0), (128, 160, 32)),
+            dist_box=((32, 160, 8), (96, 224, 24)), batch=6)
+# phase 22: a rank-4 time series (default cuboids 128 x 128 x 16 x 16) and
+# a 3-channel uint16 dataset
+TS_FULL = dict(volume=(2048, 2048, 64, 16), slab=256,
+               box=((0, 0, 0, 0), (1024, 1024, 32, 16)),
+               ch_volume=(4096, 4096, 64), channels=3)
+TS_TINY = dict(volume=(64, 64, 32, 8), slab=16,
+               box=((0, 0, 0, 0), (32, 32, 16, 8)),
+               ch_volume=(64, 64, 32), channels=3)
 
 # the serving paths: smollm-135m and mamba2-370m at full width (bf16), and
 # tiny rehearsals; ``key`` names the path's entry in the report
@@ -477,6 +520,13 @@ def main_path(cfg, dev, report):
     return spec, store, proj
 
 
+def recheck_boxes(cfg, spec):
+    """The 4 tiles that phase 3 re-runs and phase 21 queries."""
+    tiles = sd.tiling(spec.grid(cfg["r"]).volume_shape, cfg["tile"])
+    return [tiles[i] for i in sorted({0, len(tiles) // 3, 2 * len(tiles) // 3,
+                                      len(tiles) - 1})]
+
+
 def check_results(cfg, dev, spec, store, proj, report):
     r = cfg["r"]
     if report["detections"] <= 0:
@@ -500,9 +550,7 @@ def check_results(cfg, dev, spec, store, proj, report):
     low = cut.cutout(store, cfg["lowres"], (0, 0, 0),
                      spec.grid(cfg["lowres"]).volume_shape)
     excl_full = sd.large_structure_mask(low.to(torch.float32))
-    tiles = sd.tiling(grid.volume_shape, cfg["tile"])
-    boxes = [tiles[i] for i in sorted({0, len(tiles) // 3,
-                                       2 * len(tiles) // 3, len(tiles) - 1})]
+    boxes = recheck_boxes(cfg, spec)
     packed = store.peek(r)
     n_dets = 0
     for lo, hi in boxes:
@@ -752,6 +800,317 @@ def kernel_checks(dev, store, spec, cfg, report, peak):
             f"{peak / 1e12:.2f} TB/s HBM peak (bound {bound:.4f} ms)")
     report["cutout_gather"] = timings
     return max(errs), timings["tile"]
+
+
+# ------------------------------------------- annotation service, phase 21 ----
+
+def drive(counts, dev, fn):
+    """One driven call, timed, with the launch counts set to 0 just before
+    it; what it launched is added to ``counts`` (checks launch outside)."""
+    reset_launches()
+    out, t = timed(dev, fn)
+    for n, k in KERNELS.items():
+        counts[n] = counts.get(n, 0) + k["ops"].launches
+    return out, t
+
+
+def plain_cutout(packed, grid, lo, hi, dev):
+    """The box through the plain gather (`cutout_gather_ref`)."""
+    return cutout_gather_ref(*gather_case(packed, grid, lo, hi, dev))
+
+
+def uint_ids(t):
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def annotation_service(cfg, dev, spec, store, proj, report, counts):
+    """Phase 21: the annotation API on the detection path's state, each
+    call driven once and checked against the plain gather or numpy."""
+    r = cfg["r"]
+    grid = spec.grid(r)
+    labels = proj.store.peek(r)
+    times, out = {}, {}
+
+    # index-only bounding boxes: each holds every stored voxel of its id
+    ids = proj.index.ids()
+    boxes, times["bounding_box"] = drive(counts, dev, lambda: [
+        proj.bounding_box(i, r) for i in ids])
+    nz = (labels != 0).nonzero()
+    cs = np.asarray(grid.cuboid_shape)
+    origins = torch.from_numpy(morton.morton_decode(np.arange(grid.n_cells), grid.bits)
+                               * cs).to(dev)
+    coords = origins[nz[:, 0]] + nz[:, 1:]
+    vals = uint_ids(labels[tuple(nz.T)])
+    id_t = torch.tensor(ids, device=dev)
+    pos = torch.searchsorted(id_t, vals).clamp_(max=len(ids) - 1)
+    lo_t = torch.tensor([b[0] for b in boxes], device=dev)[pos]
+    hi_t = torch.tensor([b[1] for b in boxes], device=dev)[pos]
+    if not (bool((id_t[pos] == vals).all()) and bool((coords >= lo_t).all())
+            and bool((coords < hi_t).all())):
+        raise RuntimeError("bounding_box: a stored voxel lies outside its id's box")
+    out["bounding_boxes"] = len(ids)
+    out["stored_voxels"] = int(nz.shape[0])
+    box_of = dict(zip(ids, boxes))
+
+    # the paper's batch of 40 object reads
+    pick = ids[::max(1, len(ids) // cfg["batch"])][:cfg["batch"]]
+    got, times["batch_read_objects"] = drive(counts, dev, lambda: proj.batch_read_objects(pick, r))
+    for i in pick:
+        lo, dense = got[i]
+        ref = plain_cutout(labels, grid, *box_of[i], dev)
+        if lo != box_of[i][0] or not torch.equal(dense, torch.where(ref == i, ref, 0)) \
+                or not bool((dense != 0).any()):
+            raise RuntimeError(f"batch_read_objects: object {i} != its masked box")
+    out["batch_read_objects"] = len(pick)
+
+    # the ids of the re-check tiles
+    tiles = recheck_boxes(cfg, spec)
+    regions, times["objects_in_region"] = drive(counts, dev, lambda: [
+        proj.objects_in_region(r, lo, hi) for lo, hi in tiles])
+    for (lo, hi), found in zip(tiles, regions):
+        want = [i for i in torch.unique(uint_ids(plain_cutout(labels, grid, lo, hi, dev)))
+                .tolist() if i]
+        if found != want or not found:
+            raise RuntimeError(f"objects_in_region {lo}: {len(found)} ids, want {len(want)}")
+    out["objects_in_region"] = [len(f) for f in regions]
+
+    # two neighbouring synapses: numpy's chunked norm, exactly
+    near = next(f for f in regions if len(f) >= 2)
+    a = near[0]
+    centre = {i: np.add(*box_of[i]) / 2 for i in near}
+    b = min(near[1:], key=lambda i: float(np.abs(centre[i] - centre[a]).sum()))
+    d, times["distance"] = drive(counts, dev, lambda: proj.distance(a, b, r))
+    va, vb = proj.voxel_list(a, r), proj.voxel_list(b, r)
+    want = min(float(np.linalg.norm(va[i:i + 4096, None, :] - vb[None], axis=-1).min())
+               for i in range(0, len(va), 4096))
+    if d != want:
+        raise RuntimeError(f"distance({a}, {b}) = {d!r}, numpy {want!r}")
+    out["distance"] = dict(a=a, b=b, voxels=(len(va), len(vb)), value=d)
+
+    # the label hierarchy: pending, propagated, stride-sampled
+    pending = proj.pending_propagation
+    _, times["propagate"] = drive(counts, dev, proj.propagate)
+    if not pending or proj.pending_propagation:
+        raise RuntimeError("pending_propagation did not go from true to false")
+    v3 = spec.grid(r + 1).volume_shape
+    lo3, hi3 = (v3[0] // 4, v3[1] // 4, 0), (3 * v3[0] // 4, 3 * v3[1] // 4, v3[2])
+    up = proj.read(r, (2 * lo3[0], 2 * lo3[1], 0), (2 * hi3[0], 2 * hi3[1], v3[2]))
+    if not torch.equal(proj.read(r + 1, lo3, hi3), up[::2, ::2]) or not bool(up.any()):
+        raise RuntimeError("level r+1 is not the stride-sampled level r")
+    out["propagated_levels"] = list(range(r + 1, spec.n_resolutions))
+
+    # projections at level 0 (a tile, then MIP and mean renderings)
+    g0 = spec.grid(0)
+    v0 = g0.volume_shape
+    z = v0[2] // 2 + 3
+    tile, times["project_slice"] = drive(counts, dev, lambda: cut.project(
+        store, 0, (0, 0, z), v0, 2, "slice"))
+    if not torch.equal(tile, plain_cutout(store.peek(0), g0, (0, 0, z),
+                                          (v0[0], v0[1], z + 1), dev)[..., 0]):
+        raise RuntimeError("project slice != the plain-gather plane")
+    lo, hi = cfg["reduce_box"]
+    host = plain_cutout(store.peek(0), g0, lo, hi, dev).cpu().numpy()
+    for red, want in (("max", host.max(axis=2)), ("mean", host.mean(axis=2).astype(np.uint8))):
+        got, times[f"project_{red}"] = drive(counts, dev, lambda red=red: cut.project(
+            store, 0, lo, hi, 2, red))
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise RuntimeError(f"project {red} != numpy's")
+    out["project"] = dict(slice=list(tile.shape), reduce_box=[list(lo), list(hi)])
+
+    # a batch of 40 boxes, unaligned and at the volume edge
+    rng = np.random.default_rng(21)
+    bxs = []
+    for k in range(cfg["batch"]):
+        size = [int(rng.integers(1, t + 1)) for t in cfg["tile"]]
+        lo = ([v - s for v, s in zip(v0, size)] if k % 4 == 3 else
+              [int(rng.integers(0, v - s + 1)) for v, s in zip(v0, size)])
+        bxs.append((lo, [l + s for l, s in zip(lo, size)]))
+    got, times["batch_cutout"] = drive(counts, dev, lambda: cut.batch_cutout(store, 0, bxs))
+    for (lo, hi), g in zip(bxs, got):
+        if not torch.equal(g, cut.cutout(store, 0, lo, hi)):
+            raise RuntimeError(f"batch_cutout box {lo}: != its own cutout")
+    out["batch_cutout"] = dict(boxes=len(bxs), bytes=sum(g.numel() for g in got))
+
+    exception_discipline(cfg, dev, spec, proj, tiles, counts, times, out)
+    multi_rank(cfg, dev, spec, store, counts, times, out)
+    report["annotation"] = dict(times_s=times, **out)
+    log(f"annotation service: {len(ids)} bounding boxes, {len(pick)} objects, "
+        f"{sum(out['objects_in_region'])} ids in {len(tiles)} regions, distance "
+        f"{out['distance']['value']:.6g}, hierarchy to level {spec.n_resolutions - 1}, "
+        f"projections, {len(bxs)} batch boxes, {out['exceptions']['entries']} exception "
+        f"entries in {out['exceptions']['cuboids']} cuboids, one-rank "
+        f"{out['multi_rank']['backend']} cutout and write: all as checked; times (s) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+
+EXC_SHIFT = 1_000_000  # the second labelling's ids: the stored ones + this
+
+
+def exception_discipline(cfg, dev, spec, proj, tiles, counts, times, out):
+    """The re-check tiles' stored ids, even ones written first, then all of
+    them shifted under ``exception``: primary labels and every touched
+    cuboid's list against numpy."""
+    r = cfg["r"]
+    grid = spec.grid(r)
+    cs = grid.cuboid_shape
+    exc = AnnotationProject("exceptions", spec, enable_exceptions=True, device=dev)
+    pairs = []
+    for lo, hi in tiles:
+        stored = proj.read(r, lo, hi)
+        old = torch.where(stored % 2 == 0, stored, 0)
+        new = torch.where(stored != 0, stored + EXC_SHIFT, 0)
+        exc.write(r, lo, old)
+        pairs.append((lo, hi, old, new))
+    _, times["exception_write"] = drive(counts, dev, lambda: [
+        exc.write(r, lo, new, discipline="exception") for lo, hi, old, new in pairs])
+    want_lists = {}
+    for lo, hi, old, new in pairs:
+        if not torch.equal(exc.read(r, lo, hi), torch.where(old != 0, old, new)):
+            raise RuntimeError(f"exception tile {lo}: primary labels != where(old, old, new)")
+        o, n = old.cpu().numpy(), new.cpu().numpy()
+        conflict = (o != 0) & (n != 0) & (o != n)
+        glo = [l // c for l, c in zip(lo, cs)]
+        ghi = [-(-h // c) for h, c in zip(hi, cs)]
+        for g in np.ndindex(*[b - a for a, b in zip(glo, ghi)]):
+            origin = [(a + i) * c for a, i, c in zip(glo, g, cs)]
+            a_ = [max(l, o_) for l, o_ in zip(lo, origin)]
+            b_ = [min(h, o_ + c) for h, o_, c in zip(hi, origin, cs)]
+            tsl = tuple(slice(x - l, y - l) for x, y, l in zip(a_, b_, lo))
+            csl = tuple(slice(x - o_, y - o_) for x, y, o_ in zip(a_, b_, origin))
+            cf, nf = np.zeros(cs, bool), np.zeros(cs, np.int64)
+            cf[csl], nf[csl] = conflict[tsl], n[tsl]
+            offs = np.flatnonzero(cf)
+            if offs.size:
+                m = grid.cuboid_of_voxel(origin)
+                want_lists.setdefault(m, []).extend(zip(offs.tolist(),
+                                                        nf.reshape(-1)[offs].tolist()))
+    for m, want in want_lists.items():
+        if exc.exceptions_at(r, m) != want:
+            raise RuntimeError(f"exceptions_at({r}, {m}) != numpy's list")
+    if not want_lists or set(m for _, m in exc._exceptions) != set(want_lists):
+        raise RuntimeError("exception lists: touched cuboids differ from numpy's")
+    out["exceptions"] = dict(cuboids=len(want_lists),
+                             entries=sum(len(v) for v in want_lists.values()))
+
+
+def multi_rank(cfg, dev, spec, store, counts, times, out):
+    """A one-rank world (NCCL on the card, gloo on the CPU): the multi-rank
+    cutout equals `cutout`, the multi-rank write (zeros included) equals
+    its numpy oracle.  The write changes level 0, so this runs last."""
+    import torch.distributed as tdist
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    rdv = HERE / "build" / "smoke_rendezvous"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    tdist.init_process_group(backend, init_method=f"file://{rdv}", rank=0, world_size=1)
+    try:
+        g0 = spec.grid(0)
+        shard = dist_mod.shard_cuboids(store.peek(0), 0, 1)
+        lo, hi = cfg["dist_box"]
+        # the first collective sets up the communicator: timed apart
+        _, times["distributed_cutout_first"] = drive(
+            counts, dev, lambda: dist_mod.distributed_cutout(shard, g0, lo, [l + 1 for l in lo]))
+        got, times["distributed_cutout"] = drive(counts, dev, lambda: dist_mod.distributed_cutout(
+            shard, g0, lo, hi))
+        if not torch.equal(got, cut.cutout(store, 0, lo, hi)):
+            raise RuntimeError("distributed_cutout != cutout")
+        wlo = [l + (h - l) // 8 + 3 for l, h in zip(lo, hi)]
+        shape = [(h - l) // 4 for l, h in zip(lo, hi)]
+        data = np.random.default_rng(22).integers(0, 3, size=shape).astype(np.uint8) * 100
+        mlo, mhi = [l - 5 for l in wlo], [l + s + 5 for l, s in zip(wlo, shape)]
+        expect = cut.cutout(store, 0, mlo, mhi).cpu().numpy()
+        expect[tuple(slice(5, 5 + s) for s in shape)] = data
+        _, times["distributed_write_cutout"] = drive(
+            counts, dev, lambda: dist_mod.distributed_write_cutout(shard, g0, wlo, data))
+        if not np.array_equal(cut.cutout(store, 0, mlo, mhi).cpu().numpy(), expect):
+            raise RuntimeError("distributed_write_cutout != its numpy oracle")
+    finally:
+        tdist.destroy_process_group()
+        rdv.unlink(missing_ok=True)
+    out["multi_rank"] = dict(backend=backend, box=[list(lo), list(hi)],
+                             write_shape=shape, zeros_written=int((data == 0).sum()))
+
+
+# --------------------------------------- time series and channels, phase 22 ----
+
+def timeseries_and_channels(tc, dev, report, peak, counts):
+    """Phase 22: a rank-4 dataset's cutouts against the plain version and
+    the host slice (the big box timed), then a 3-channel dataset written and
+    read per channel."""
+    t_phase = time.perf_counter()
+    spec = DatasetSpec("timeseries", tc["volume"], dtype="uint8")
+    grid = spec.grid(0)
+    store = DeviceCuboidStore(spec, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    host = np.empty(tc["volume"], np.uint8)
+    v = tc["volume"]
+    times = {"ingest": 0.0}
+    for x0 in range(0, v[0], tc["slab"]):
+        part = torch.randint(0, 256, (tc["slab"],) + tuple(v[1:]), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        host[x0:x0 + tc["slab"]] = part.cpu().numpy()
+        _, t = drive(counts, dev, lambda: cut.ingest(store, 0, part, offset=(x0, 0, 0, 0)))
+        times["ingest"] += t
+    del part
+    boxes = {"box": tc["box"],
+             "unaligned": ((v[0] // 8 + 5, v[1] // 16 + 3, 3, 1),
+                           (v[0] * 3 // 4 + 3, v[1] * 5 // 8 + 1, v[2] - 5, v[3] - 2)),
+             "edge": ((v[0] - v[0] // 16 - 3, v[1] - v[1] // 8, v[2] - 9, v[3] - 5), v),
+             "voxel": ((v[0] - 1, 7, 2, 3), (v[0], 8, 3, 4))}
+    packed = store.peek(0)
+    for name, (lo, hi) in boxes.items():
+        got, times[f"cutout_{name}"] = drive(counts, dev, lambda: cut.cutout(store, 0, lo, hi))
+        want = plain_cutout(packed, grid, lo, hi, dev)
+        if not torch.equal(got, want) or not np.array_equal(
+                got.cpu().numpy(), host[tuple(slice(l, h) for l, h in zip(lo, hi))]):
+            raise RuntimeError(f"rank-4 cutout {name}: kernel, plain and host slice differ")
+    del host
+    ts = dict(volume=list(v), cuboid=list(grid.cuboid_shape), packed_bytes=store.nbytes,
+              boxes={k: [list(lo), list(hi)] for k, (lo, hi) in boxes.items()})
+    if dev.type == "cuda":
+        args = gather_case(packed, grid, *tc["box"], dev)
+        ms = event_times(dev, lambda i=0: gather_ops.cutout_gather_cuda(*args))
+        plain = event_times(dev, lambda i=0: cutout_gather_ref(*args))
+        nbytes = 2 * int(np.prod(args[4])) + args[1].numel() * 4
+        bound = nbytes / peak * 1e3
+        ts["gather"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bytes=nbytes,
+                            gbps=nbytes / ms / 1e6, hbm_share=bound / ms)
+        log(f"cutout_gather rank 4, {tuple(args[4])} uint8 box of {grid.cuboid_shape} "
+            f"cuboids: {ms:.4f} ms (plain {plain:.4f} ms), {nbytes / ms / 1e6:.1f} GB/s = "
+            f"{100 * bound / ms:.1f}% of the HBM peak (bound {bound:.4f} ms)")
+    del store, packed
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    cv = tuple(tc["ch_volume"])
+    cspec = DatasetSpec("channels", cv, n_channels=tc["channels"], dtype="uint16")
+    cstore = DeviceCuboidStore(cspec, device=dev)
+    box = ((5, 7, 3), (cv[0] // 8 + 5, cv[1] // 8 + 7, cv[2] // 2 + 3))
+    samples = []
+    for c in range(tc["channels"]):
+        vol = torch.randint(0, 256, cv[:-1] + (2 * cv[-1],), generator=gen, device=dev,
+                            dtype=torch.uint8).view(torch.uint16)
+        _, times[f"write_channel{c}"] = drive(counts, dev, lambda: cut.ingest(
+            cstore, 0, vol, channel=c))
+        back, times[f"read_channel{c}"] = drive(counts, dev, lambda: cut.cutout(
+            cstore, 0, (0, 0, 0), cv, channel=c))
+        if not torch.equal(back.view(torch.int16), vol.view(torch.int16)):
+            raise RuntimeError(f"channel {c}: read != written")
+        samples.append(vol[tuple(slice(l, h) for l, h in zip(*box))].cpu())
+        del vol, back
+    for c, want in enumerate(samples):
+        got = cut.cutout(cstore, 0, *box, channel=c).cpu()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise RuntimeError(f"channel {c}: a box differs after the other channels' writes")
+    ts["channels"] = dict(volume=list(cv), channels=tc["channels"], packed_bytes=cstore.nbytes)
+    del cstore
+    ts["times_s"] = times
+    ts["phase_s"] = time.perf_counter() - t_phase
+    report["timeseries"] = ts
+    log(f"time series {tuple(v)} uint8 ({ts['packed_bytes'] / 2 ** 30:.2f} GiB) and "
+        f"{tc['channels']} channels of {cv} uint16: kernel == plain == host slice; times (s) "
+        + ", ".join(f"{k} {t:.4f}" for k, t in times.items()))
 
 
 # -------------------------------------------------------- serving path ----
@@ -2241,6 +2600,9 @@ def rehearse():
     report = {}
     spec, store, proj = main_path(TINY, dev, report)
     check_results(TINY, dev, spec, store, proj, report)
+    annotation_service(TINY, dev, spec, store, proj, report, {})
+    del spec, store, proj
+    timeseries_and_channels(TS_TINY, dev, report, None, {})
     for sc in (SERVE_TINY, SSM_TINY, MOE_TINY):
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
@@ -2265,9 +2627,11 @@ def reset_launches():
         k["ops"].reset_launches()
 
 
-def read_launches(path):
-    """Launch counts of the kernels of ``path``; each must be > 0."""
-    counts = {n: k["ops"].launches for n, k in KERNELS.items() if path in k["paths"]}
+def read_launches(path, driven=None):
+    """Launch counts of the kernels of ``path`` (now, or summed over the
+    driven calls of ``driven``); each must be > 0."""
+    counts = {n: driven.get(n, 0) if driven is not None else k["ops"].launches
+              for n, k in KERNELS.items() if path in k["paths"]}
     for n, c in counts.items():
         if c <= 0:
             raise RuntimeError(f"kernel {n} was not launched on the {path} path")
@@ -2312,7 +2676,24 @@ def main(argv=None) -> int:
     where_time_goes(FULL, dev, spec, store, report)
     small_pipeline_vs_cpu(dev, report)
     gather_err, tile = kernel_checks(dev, store, spec, FULL, report, peak)
+
+    # the annotation service on the detection path's state (phase 21)
+    t0 = time.perf_counter()
+    counts = {}
+    annotation_service(FULL, dev, spec, store, proj, report, counts)
+    by_path["annotation"] = read_launches("annotation", counts)
+    report["annotation"]["phase_s"] = time.perf_counter() - t0
+    log(f"launches on the annotation path: {by_path['annotation']}; phase "
+        f"{report['annotation']['phase_s']:.1f} s")
     del spec, store, proj
+    torch.cuda.empty_cache()
+
+    # time series and channels (phase 22)
+    counts = {}
+    timeseries_and_channels(TS_FULL, dev, report, peak, counts)
+    by_path["timeseries"] = read_launches("timeseries", counts)
+    log(f"launches on the timeseries path: {by_path['timeseries']}; phase "
+        f"{report['timeseries']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # the serving path
@@ -2427,9 +2808,11 @@ def main(argv=None) -> int:
     log(f"restart phase {report['restart']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    rank4 = report["timeseries"]["gather"]
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
-                 bound_by="bytes", library_ms=None)]
+                 bound_by="bytes", library_ms=None, rank4_ms=rank4["ms"],
+                 rank4_plain_ms=rank4["plain_ms"], rank4_bound_ms=rank4["bound_ms"])]
     for n in ("flash_attention", "flash_decode", "ssd_scan", "moe_gemm", "morton_matmul"):
         t = timings[n]
         rows.append(dict(name=n, max_abs_err=max(errs[n]), ms=t["ms"],

@@ -1,9 +1,18 @@
 """Carry state between the reference's numpy world and the port's device.
 
-A dataset is a set of dense resolution levels.  `store_from_numpy` packs
-each level into a `DeviceCuboidStore` (the reference's dense levels come
-from its own ``cutout(store, r, 0, shape)``); `store_to_numpy` is the
-inverse and hands label datasets back as uint32.
+A dataset is a set of dense resolution levels per channel.
+`store_from_numpy` packs each level into a `DeviceCuboidStore` (the
+reference's dense levels come from its own ``cutout(store, r, 0, shape,
+channel)``); `store_to_numpy` is the inverse and hands label datasets back
+as uint32 (`labels_to_numpy` does so for one label tensor).
+
+An annotation project's state is its label levels, metadata rows, object
+index, exception lists, auto-id counter and dirty levels.
+`project_to_numpy` gives it as plain Python and numpy (levels as uint32
+arrays, rows as dicts, the index as ``{id: [cells]}``, the exception lists
+as ``{(r, m): [(offset, label)]}``); `project_from_numpy` builds a project
+holding it.  The reference project can be set from or read into the same
+structure, so both sides can start from one state.
 
 An LM's parameters are a tree of arrays in the JAX package's structure
 (blocks stacked on a leading layer axis).  `lm_params_from_numpy` loads it
@@ -22,14 +31,15 @@ into the live tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
+from .core.annotations import Annotation, AnnotationProject
 from .core.cuboid import DatasetSpec
-from .core.cutout import as_device_tensor
-from .core.distributed import pack_to_cuboids, signed_view, unpack_from_cuboids
+from .core.distributed import (as_device_tensor, pack_to_cuboids, signed_view,
+                               unpack_from_cuboids)
 from .core.store import DeviceCuboidStore
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
@@ -37,30 +47,68 @@ from .models.lm import LM, lm_specs
 from .models.params import DTYPES, ParamSpec, tree_map
 
 
-def store_from_numpy(spec: DatasetSpec, levels: Dict[int, np.ndarray],
+def store_from_numpy(spec: DatasetSpec,
+                     levels: Dict[Union[int, Tuple[int, int]], np.ndarray],
                      device: DeviceLike = "cuda") -> DeviceCuboidStore:
-    """A device store holding the given dense level volumes."""
+    """A device store holding the given dense level volumes, keyed by level
+    ``r`` (channel 0) or by ``(r, channel)``."""
     store = DeviceCuboidStore(spec, device=device)
-    for r, vol in levels.items():
+    for key, vol in levels.items():
+        r, channel = key if isinstance(key, tuple) else (key, 0)
         dense = as_device_tensor(np.asarray(vol, dtype=np.dtype(spec.dtype)),
-                           store.device)
-        store.set_level(r, pack_to_cuboids(dense, spec.grid(r)))
+                                 store.device)
+        store.set_level(r, pack_to_cuboids(dense, spec.grid(r)), channel)
     return store
 
 
-def store_to_numpy(store: DeviceCuboidStore) -> Dict[int, np.ndarray]:
-    """Dense numpy volume of every level (unwritten levels are zeros)."""
+def labels_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A label tensor (int32 holding uint32 ids) as a uint32 numpy array."""
+    return signed_view(t).cpu().numpy().view(np.uint32)
+
+
+def store_to_numpy(store: DeviceCuboidStore, channel: int = 0) -> Dict[int, np.ndarray]:
+    """Dense numpy volume of every level of ``channel`` (unwritten levels
+    are zeros)."""
     out = {}
     dtype = np.dtype(store.spec.dtype)
     for r in range(store.spec.n_resolutions):
         grid = store.spec.grid(r)
-        packed = store.peek(r)
+        packed = store.peek(r, channel)
         if packed is None:
             out[r] = np.zeros(grid.volume_shape, dtype=dtype)
             continue
         dense = signed_view(unpack_from_cuboids(packed, grid)).cpu()
         out[r] = dense.numpy().view(dtype)
     return out
+
+
+def project_to_numpy(proj: AnnotationProject) -> Dict[str, Any]:
+    """An annotation project's state as plain Python and numpy."""
+    return {"levels": store_to_numpy(proj.store),
+            "rows": [dataclasses.asdict(a) for a in proj.meta._rows.values()],
+            "next_id": proj.meta._next_id,
+            "index": {i: proj.index.cuboids(i) for i in proj.index.ids()},
+            "exceptions": {k: list(v) for k, v in proj._exceptions.items()},
+            "dirty": sorted(proj._dirty_levels)}
+
+
+def project_from_numpy(name: str, image_spec: DatasetSpec, state: Dict[str, Any],
+                       enable_exceptions: bool = False, readonly: bool = False,
+                       device: DeviceLike = "cuda") -> AnnotationProject:
+    """A project holding ``state`` (`project_to_numpy`'s structure)."""
+    proj = AnnotationProject(name, image_spec, enable_exceptions=enable_exceptions,
+                             readonly=readonly, device=device)
+    proj.store = store_from_numpy(proj.spec, state["levels"], device=device)
+    for row in state["rows"]:
+        proj.meta.create(Annotation(**{k: (tuple(v) if k == "segments" else v)
+                                       for k, v in row.items()}))
+    proj.meta._next_id = int(state["next_id"])
+    if state["index"]:
+        proj.index.append_batch(state["index"])
+    proj._exceptions = {tuple(k): [tuple(e) for e in v]
+                        for k, v in state["exceptions"].items()}
+    proj._dirty_levels = set(state["dirty"])
+    return proj
 
 
 def _leaf_from_numpy(arr, spec: ParamSpec, path: str) -> torch.Tensor:

@@ -2,7 +2,11 @@
 
 An `AnnotationProject` pairs a host metadata table (a small RAMON-like
 ontology with predicate queries) and a host object index with a label
-database held as a `DeviceCuboidStore` registered to an image dataset.
+database held as a `DeviceCuboidStore` registered to an image dataset,
+with per-cuboid exception lists for multiply labelled voxels (the
+``exception`` write discipline), object queries (cutout, bounding box,
+region, voxel list, distance) and deferred propagation of the label
+hierarchy.
 Labels are uint32 identifiers in the reference; on the device they are
 held as int32 with the same bits, so an id at or above 2^31 is stored as
 a negative int32.  Ids are uint32 at every boundary: index keys and
@@ -13,12 +17,15 @@ labels bit for bit, and reads compare against an id's int32 view
 The batch write applies many objects as one voxel scatter with the same
 result as writing them one after another: for ``overwrite`` the last
 object that covers a voxel wins, for ``preserve`` a stored label is kept
-and otherwise the first object wins.
+and otherwise the first object wins.  Under ``exception`` (or on a
+readonly project) it writes object by object through `write`, as the
+reference does, so a later object's conflicts with an earlier one are
+listed.
 """
 from __future__ import annotations
 
 import dataclasses
-import itertools
+import math
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -28,7 +35,7 @@ import torch
 from ..device import DeviceLike
 from . import morton
 from .cuboid import DatasetSpec
-from .cutout import as_device_tensor, cutout, write_cutout
+from .cutout import as_device_tensor, build_hierarchy, cutout, write_cutout
 from .distributed import signed_view
 from .spatial_index import ObjectIndex
 from .store import DeviceCuboidStore
@@ -75,32 +82,56 @@ class Annotation:
 
 
 class MetadataTable:
-    """Key/value predicate queries over annotation metadata (paper §4.2)."""
+    """Key/value predicate queries over annotation metadata (paper §4.2).
+
+    Auto ids follow the reference: after a create the next one is the
+    largest id in the table plus one.  The table keeps that largest id as
+    it goes (the reference rescans every row per create, which is
+    quadratic) and recomputes it only when `delete` removes it.
+    """
 
     def __init__(self):
         self._rows: Dict[int, Annotation] = {}
-        self._next_id = itertools.count(1)
-        self._max_id = 0  # largest id in the table
+        self._next_id = 1  # the next auto id
+        self._max_id = 0   # largest id in the table
         self._lock = threading.Lock()
+
+    def _take_id(self) -> int:
+        ann_id = self._next_id
+        self._next_id += 1
+        return ann_id
 
     def create(self, ann: Optional[Annotation] = None, **kwargs) -> Annotation:
         with self._lock:
             if ann is None:
-                ann_id = kwargs.pop("ann_id", None) or next(self._next_id)
+                ann_id = kwargs.pop("ann_id", None) or self._take_id()
                 ann = Annotation(ann_id=ann_id, **kwargs)
             elif ann.ann_id in (0, None):
-                ann.ann_id = next(self._next_id)
+                ann.ann_id = self._take_id()
             if ann.ann_type not in RAMON_TYPES:
                 raise ValueError(f"unknown RAMON type {ann.ann_type!r}")
             self._rows[ann.ann_id] = ann
-            # keep auto-ids ahead of explicit ids; a running max, since
-            # rescanning every row per create is quadratic in the table
             self._max_id = max(self._max_id, ann.ann_id)
-            self._next_id = itertools.count(self._max_id + 1)
+            self._next_id = self._max_id + 1
             return ann
 
     def get(self, ann_id: int) -> Optional[Annotation]:
         return self._rows.get(int(ann_id))
+
+    def update(self, ann_id: int, **fields) -> Annotation:
+        ann = self._rows[int(ann_id)]
+        for k, v in fields.items():
+            if hasattr(ann, k):
+                setattr(ann, k, v)
+            else:
+                ann.kv[k] = v
+        return ann
+
+    def delete(self, ann_id: int) -> None:
+        with self._lock:
+            if self._rows.pop(int(ann_id), None) is not None \
+                    and int(ann_id) == self._max_id:
+                self._max_id = max(self._rows, default=0)
 
     def query(self, *predicates: Tuple[str, str, Any]) -> List[int]:
         """Conjunctive predicates: [(field, op, value), ...] -> ids."""
@@ -110,11 +141,20 @@ class MetadataTable:
                 out.append(ann_id)
         return sorted(out)
 
+    def __len__(self):
+        return len(self._rows)
+
 
 class AnnotationProject:
-    """One annotation database registered to an image dataset (paper §3.2)."""
+    """One annotation database registered to an image dataset (paper §3.2).
+
+    ``enable_exceptions`` lets writes use the ``exception`` discipline,
+    which keeps the stored label and lists each conflicting new label per
+    cuboid (`exceptions_at`, `voxel_labels`); ``readonly`` refuses writes.
+    """
 
     def __init__(self, name: str, image_spec: DatasetSpec,
+                 enable_exceptions: bool = False, readonly: bool = False,
                  device: DeviceLike = "cuda"):
         self.name = name
         self.spec = dataclasses.replace(
@@ -123,6 +163,12 @@ class AnnotationProject:
         self.store = DeviceCuboidStore(self.spec, device=device)
         self.meta = MetadataTable()
         self.index = ObjectIndex()
+        self.enable_exceptions = enable_exceptions
+        self.readonly = readonly
+        # (resolution, morton) -> [(flat voxel offset, label)], appended per
+        # write in ascending offset
+        self._exceptions: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
+        self._dirty_levels: set[int] = set()
 
     def _index_voxels(self, r: int, coords: torch.Tensor,
                       ids: torch.Tensor) -> None:
@@ -145,21 +191,37 @@ class AnnotationProject:
 
     # -- write -------------------------------------------------------------
     def write(self, r: int, lo: Sequence[int], labels,
-              discipline: str = "overwrite") -> None:
+              discipline: str = "overwrite", update_index: bool = True) -> None:
         """Write a labelled volume with a conflict discipline (paper §3.2).
 
         Visible at resolution ``r`` at once; other levels stay stale until
-        the label hierarchy is rebuilt (deferred consistency, paper §3.2).
+        `propagate` (deferred consistency, paper §3.2).
         """
+        if self.readonly:
+            raise PermissionError(f"project {self.name} is readonly")
+        if discipline == "exception" and not self.enable_exceptions:
+            raise ValueError("exceptions not enabled for this project")
         labels = as_device_tensor(labels, self.store.device)
         # uint32 ids keep their bits; other integer labels are cast
         labels = (labels.view(torch.int32) if labels.dtype == torch.uint32
                   else labels.to(torch.int32))
-        write_cutout(self.store, r, lo, labels, discipline=discipline)
-        nz = labels.nonzero()
-        coords = nz + torch.tensor([int(l) for l in lo], device=nz.device)
-        keep = self._in_volume(r, coords)
-        self._index_voxels(r, coords[keep], labels[tuple(nz[keep].T)])
+        sink = self._exception_sink(r) if discipline == "exception" else None
+        write_cutout(self.store, r, lo, labels, discipline=discipline,
+                     on_conflict=sink)
+        self._dirty_levels.add(r)
+        if update_index:
+            nz = labels.nonzero()
+            coords = nz + torch.tensor([int(l) for l in lo], device=nz.device)
+            keep = self._in_volume(r, coords)
+            self._index_voxels(r, coords[keep], labels[tuple(nz[keep].T)])
+
+    def _exception_sink(self, r: int):
+        def sink(m, origin, old_block, new_block):
+            flat_new = new_block.ravel()
+            offs = np.flatnonzero(flat_new)
+            self._exceptions.setdefault((r, m), []).extend(
+                zip(offs.tolist(), flat_new[offs].tolist()))
+        return sink
 
     def batch_write_objects(
             self, r: int,
@@ -167,12 +229,22 @@ class AnnotationProject:
             discipline: str = "overwrite") -> List[int]:
         """Write many (metadata, offset, labelled-volume) at once.
 
-        The paper doubled synapse-finder throughput batching 40 writes; here
-        the whole batch is one voxel scatter and one index transaction.
+        The paper doubled synapse-finder throughput batching 40 writes; for
+        ``overwrite`` and ``preserve`` the whole batch is one voxel scatter
+        and one index transaction.  Otherwise (``exception``, a readonly
+        project, an unknown discipline) the objects go one by one through
+        `write`, which lists conflicts or raises as the reference does.
         """
-        if discipline not in ("overwrite", "preserve"):
-            raise ValueError(f"unsupported batch discipline {discipline!r}")
         dev = self.store.device
+        if discipline not in ("overwrite", "preserve") or self.readonly:
+            ids = []
+            for ann, lo, vol in objects:
+                ann = self.meta.create(ann)
+                ids.append(ann.ann_id)
+                mask = as_device_tensor(vol, dev) != 0
+                self.write(r, lo, mask.to(torch.int32) * _stored_id(ann.ann_id),
+                           discipline=discipline)
+            return ids
         ids, masks, shapes, los = [], [], [], []
         for ann, lo, vol in objects:
             ids.append(self.meta.create(ann).ann_id)
@@ -182,6 +254,7 @@ class AnnotationProject:
             los.append([int(l) for l in lo])
         if not ids:
             return ids
+        self._dirty_levels.add(r)
         # one nonzero over the concatenated masks, then back to (object,
         # voxel) with the masks' offsets and shapes
         sizes = torch.tensor([m.numel() for m in masks], device=dev)
@@ -230,25 +303,105 @@ class AnnotationProject:
             flat[ukey] = val
 
     # -- read ---------------------------------------------------------------
-    def read(self, r: int, lo: Sequence[int], hi: Sequence[int]) -> torch.Tensor:
-        """Dense int32 labels of [lo, hi) on the project's device."""
+    def read(self, r: int, lo: Sequence[int], hi: Sequence[int],
+             with_exceptions: bool = False) -> torch.Tensor:
+        """Dense int32 labels of [lo, hi) on the project's device: the
+        primary labels (exceptions through `exceptions_at` and
+        `voxel_labels`, as in the reference, whatever ``with_exceptions``
+        says)."""
         return cutout(self.store, r, lo, hi)
 
-    def voxel_list(self, ann_id: int, r: int) -> np.ndarray:
-        """Sparse (N, rank) int64 voxel coordinates, in the index's curve
-        order and C order within each cuboid (paper Fig 9)."""
+    def exceptions_at(self, r: int, m: int) -> List[Tuple[int, int]]:
+        return list(self._exceptions.get((r, m), ()))
+
+    def voxel_labels(self, r: int, voxel: Sequence[int]) -> List[int]:
+        """All labels at one voxel: primary + exceptions (paper §3.2)."""
+        grid = self.spec.grid(r)
+        m = grid.cuboid_of_voxel(voxel)
+        local = tuple(int(v) - o for v, o in zip(voxel, grid.cuboid_origin(m)))
+        packed = self.store.peek(r)
+        primary = 0 if packed is None else int(packed[(m,) + local]) & 0xFFFFFFFF
+        labels = [primary] if primary else []
+        flat = int(np.ravel_multi_index(local, grid.cuboid_shape))
+        for off, lab in self._exceptions.get((r, m), ()):
+            if off == flat and lab not in labels:
+                labels.append(lab)
+        return labels
+
+    # -- object-level queries (paper §4.2) -----------------------------------
+    def object_cutout(self, ann_id: int, r: int,
+                      box: Optional[Tuple[Sequence[int], Sequence[int]]] = None
+                      ) -> Tuple[List[int], torch.Tensor]:
+        """One object's labels within its index bounding box (or ``box``),
+        other ids set to 0; int32 holding the uint32 ids on the device."""
+        bbox = box or self.index.bounding_box(ann_id, self.spec.grid(r))
+        if bbox is None:
+            rank = self.spec.spatial_rank
+            return [0] * rank, torch.zeros((0,) * rank, dtype=torch.int32,
+                                           device=self.store.device)
+        lo, hi = bbox
+        dense = self.read(r, lo, hi)
+        return list(lo), torch.where(dense == _stored_id(ann_id), dense, 0)
+
+    def objects_in_region(self, r: int, lo, hi) -> List[int]:
+        """The ids in a region, ascending by their uint32 value."""
+        ids = torch.unique(_uint_ids(self.read(r, lo, hi))).tolist()
+        return [i for i in ids if i]
+
+    def bounding_box(self, ann_id: int, r: int):
+        return self.index.bounding_box(ann_id, self.spec.grid(r))
+
+    def batch_read_objects(self, ann_ids: Sequence[int], r: int):
+        return {i: self.object_cutout(i, r) for i in ann_ids}
+
+    def _voxels(self, ann_id: int, r: int) -> torch.Tensor:
+        """(N, rank) int64 voxel coordinates on the device, in the index's
+        curve order and C order within each cuboid (paper Fig 9)."""
         grid = self.spec.grid(r)
         cells = self.index.cuboids(ann_id)
         packed = self.store.peek(r)
         if not cells or packed is None:
-            return np.zeros((0, grid.rank), dtype=np.int64)
+            return torch.zeros((0, grid.rank), dtype=torch.int64,
+                               device=self.store.device)
         rows = packed.index_select(
             0, torch.tensor(cells, dtype=torch.int64, device=packed.device))
-        hit = (rows == _stored_id(ann_id)).nonzero().cpu().numpy()
-        origins = morton.morton_decode(np.asarray(cells),
-                                       grid.bits) * np.asarray(grid.cuboid_shape)
-        return origins[hit[:, 0]] + hit[:, 1:]
+        hit = (rows == _stored_id(ann_id)).nonzero()
+        origins = torch.from_numpy(morton.morton_decode(
+            np.asarray(cells), grid.bits) * np.asarray(grid.cuboid_shape))
+        return origins.to(packed.device)[hit[:, 0]] + hit[:, 1:]
 
+    def voxel_list(self, ann_id: int, r: int) -> np.ndarray:
+        """Sparse (N, rank) int64 voxel coordinates, in the index's curve
+        order and C order within each cuboid (paper Fig 9)."""
+        return self._voxels(ann_id, r).cpu().numpy()
+
+    # -- hierarchy (deferred consistency) ------------------------------------
+    def propagate(self) -> None:
+        """Rebuild the label hierarchy (stride-sampled, paper §3.2): until
+        it runs, annotations are visible only at their write resolution."""
+        build_hierarchy(self.store, labels=True)
+        self._dirty_levels.clear()
+
+    @property
+    def pending_propagation(self) -> bool:
+        return bool(self._dirty_levels) and self.spec.n_resolutions > 1
+
+    # -- spatial analysis (paper §2) -----------------------------------------
     def centroid(self, ann_id: int, r: int) -> Optional[np.ndarray]:
         vox = self.voxel_list(ann_id, r)
         return vox.mean(axis=0) if len(vox) else None
+
+    def distance(self, a: int, b: int, r: int) -> float:
+        """Least voxel-to-voxel distance between two objects (synapse to
+        dendrite, paper §2): the least squared distance in int64 on the
+        device, chunked, then one square root, which equals the
+        reference's float64 norm on integer coordinates bit for bit."""
+        va, vb = self._voxels(a, r), self._voxels(b, r)
+        if not len(va) or not len(vb):
+            return float("inf")
+        step = max(1, (1 << 22) // len(vb))
+        best = None
+        for i in range(0, len(va), step):
+            d2 = (va[i:i + step, None, :] - vb[None]).square().sum(-1).min()
+            best = d2 if best is None else torch.minimum(best, d2)
+        return math.sqrt(int(best))

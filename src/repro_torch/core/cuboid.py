@@ -56,6 +56,21 @@ class CuboidGrid:
     def cuboid_voxels(self) -> int:
         return int(np.prod(self.cuboid_shape))
 
+    def cuboid_of_voxel(self, voxel: Sequence[int]) -> int:
+        coords = [v // c for v, c in zip(voxel, self.cuboid_shape)]
+        return int(morton.morton_encode(np.array(coords), self.bits))
+
+    def cuboid_origin(self, idx: int) -> Tuple[int, ...]:
+        coords = morton.morton_decode(idx, self.bits)
+        return tuple(int(c) * s for c, s in zip(coords, self.cuboid_shape))
+
+    def box_to_runs(self, lo: Sequence[int], hi: Sequence[int],
+                    max_runs: int | None = None) -> morton.Runs:
+        """Morton runs of cuboids intersecting voxel box [lo, hi)."""
+        glo = [l // c for l, c in zip(lo, self.cuboid_shape)]
+        ghi = [_ceil_div(h, c) for h, c in zip(hi, self.cuboid_shape)]
+        return morton.range_decompose(glo, ghi, self.bits, max_runs=max_runs)
+
     def clamp_box(self, lo, hi):
         lo = [max(0, int(l)) for l in lo]
         hi = [min(int(v), int(h)) for v, h in zip(self.volume_shape, hi)]
@@ -64,13 +79,18 @@ class CuboidGrid:
 
 @dataclasses.dataclass(frozen=True)
 class DatasetSpec:
-    """Dataset configuration (paper §4.2 'Projects and Datasets')."""
+    """Dataset configuration (paper §4.2 'Projects and Datasets').
+
+    ``spatial_rank``: the dims in the Morton index (XYZ, or XYZT: a 4-d
+    curve for time series, paper §3.1).  Channels are not in the index:
+    each channel has cuboids of its own.
+    """
     name: str
-    volume_shape: Tuple[int, ...]          # full-res spatial shape (X,Y,Z)
+    volume_shape: Tuple[int, ...]          # full-res spatial shape (X,Y,Z[,T])
     n_channels: int = 1
     n_resolutions: int = 1
     dtype: str = "uint8"
-    # dims that downscale per level (X,Y for EM; never Z):
+    # dims that downscale per level (X,Y for EM; never Z/T):
     scaled_dims: Tuple[int, ...] = (0, 1)
     base_cuboid: Tuple[int, ...] | None = None  # default: auto per level
 
@@ -90,7 +110,8 @@ class DatasetSpec:
 
     def cuboid_shape_at(self, r: int,
                         vol: Tuple[int, ...]) -> Tuple[int, ...]:
-        """Anisotropy-aware cuboid shapes (paper Fig 5), ~CUBOID_VOXELS each."""
+        """Anisotropy-aware cuboid shapes (paper Fig 5), ~CUBOID_VOXELS
+        each; trailing (time) dims get the Z shape."""
         if self.base_cuboid is not None:
             return tuple(min(c, v) for c, v in zip(self.base_cuboid, vol))
         rank = len(vol)

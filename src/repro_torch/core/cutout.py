@@ -1,23 +1,35 @@
 """The cutout engine on the device (paper §4.2, C2): sub-volume read/write.
 
 A cutout clamps its box to the volume and assembles it with the
-`cutout_gather` kernel straight from the level's packed tensor.  A write is
-a read-modify-write of whole cuboids: the data is laid into its
-cuboid-aligned box, split into cuboid blocks, merged with the stored rows
-by the conflict discipline (paper §3.2) and scattered back.  Large writes
-and the hierarchy build walk the box in slabs of cuboid planes so the
-temporaries stay bounded.
+`cutout_gather` kernel straight from the packed tensor of the level and
+channel.  A write is a read-modify-write of whole cuboids: the data is laid
+into its cuboid-aligned box, split into cuboid blocks, merged with the
+stored rows by the conflict discipline (paper §3.2) and scattered back.
+Large writes and the hierarchy build walk the box in slabs of cuboid
+planes so the temporaries stay bounded.
+
+The ``exception`` discipline merges as ``preserve`` and reports every voxel
+where a stored label and a new one differ (both nonzero) to
+``on_conflict(m, origin, old_full, new_full)`` per cuboid, in ascending
+Morton order, with numpy blocks of the full cuboid's shape in the
+dataset's dtype, as the reference does.  The conflicts are found on the
+device inside the merge; each slab brings its (cell, offset, old, new)
+values to the host in one transfer.
+
+`project` reduces a cutout along one axis (a tile, a MIP rendering, paper
+§3.3) and `batch_cutout` cuts many boxes, one gather each.  Grids of rank
+1-4 (a time series is rank 4) go through the same kernel.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels.cutout_gather.ops import build_plan, cutout_gather
 from .cuboid import CuboidGrid, downsample_block, downsample_labels
-from .distributed import pad_to_grid, signed_view, split_blocks
+from .distributed import as_device_tensor, pad_to_grid, signed_view, split_blocks
 from .store import DeviceCuboidStore
 
 # Elements per write/hierarchy slab: bounds the float64 temporaries of the
@@ -25,46 +37,84 @@ from .store import DeviceCuboidStore
 SLAB_ELEMENTS = 1 << 29
 
 
-def as_device_tensor(data, device: torch.device) -> torch.Tensor:
-    """A tensor on ``device`` from a tensor or numpy array; uint32 labels
-    become int32 with the same bits (ids at or above 2^31 turn negative)."""
-    if isinstance(data, torch.Tensor):
-        return data.to(device)
-    arr = np.asarray(data)
-    if arr.dtype == np.uint32:
-        arr = arr.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+Box = Tuple[Sequence[int], Sequence[int]]  # (lo, hi) half-open
+DISCIPLINES = ("overwrite", "preserve", "exception")
+ConflictSink = Callable[[int, Tuple[int, ...], np.ndarray, np.ndarray], None]
 
 
 def cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
-           hi: Sequence[int]) -> torch.Tensor:
+           hi: Sequence[int], channel: int = 0) -> torch.Tensor:
     """Dense sub-volume [lo, hi) at resolution ``r``, on the store's device."""
     grid = store.spec.grid(r)
     lo, hi = grid.clamp_box(lo, hi)
     shape = [max(0, h - l) for l, h in zip(lo, hi)]
-    packed = store.peek(r)
+    packed = store.peek(r, channel)
     if packed is None or 0 in shape:
         return torch.zeros(shape, dtype=store.dtype, device=store.device)
     return cutout_gather(packed, grid, lo, hi)
 
 
 def _merge_rows(packed: torch.Tensor, cells: torch.Tensor,
-                new: torch.Tensor, discipline: str) -> None:
-    """Merge full-cuboid ``new`` blocks into rows ``cells`` of ``packed``.
+                new: torch.Tensor, discipline: str,
+                report: bool = False) -> Optional[torch.Tensor]:
+    """Merge full-cuboid ``new`` blocks (a signed view for unsigned 16-64
+    bit data, as `_write_box` passes them) into rows ``cells`` of
+    ``packed``.
 
-    ``overwrite``: nonzero new voxels win; ``preserve``: nonzero stored
-    voxels win.  Zeros in ``new`` never change a voxel under either, which
-    is what lets callers pad partial cuboids with zeros.
+    ``overwrite``: nonzero new voxels win; ``preserve`` and ``exception``:
+    nonzero stored voxels win.  Zeros in ``new`` never change a voxel, which
+    is what lets callers pad partial cuboids with zeros.  With ``report``,
+    the conflicts (old and new nonzero and different) come back as one
+    uint8 tensor on the host: the int64 cells and flat offsets, then the
+    old and new values in the packed dtype (`_unpack_conflicts`).
     """
     rows = signed_view(packed)
     old = rows.index_select(0, cells)
-    if new.dtype == packed.dtype:
-        new = signed_view(new)
     if discipline == "overwrite":
         merged = torch.where(new != 0, new, old)
     else:
         merged = torch.where(old != 0, old, new)
+    found = None
+    if report:
+        n = cells.shape[0]
+        conflict = ((old != 0) & (new != 0) & (old != new)).reshape(n, -1)
+        row, flat = conflict.nonzero().unbind(1)
+        keys = torch.stack([cells[row], flat])
+        vals = torch.stack([old.reshape(n, -1)[row, flat],
+                            new.reshape(n, -1)[row, flat].to(rows.dtype)])
+        found = torch.cat([keys.reshape(-1).view(torch.uint8),
+                           vals.reshape(-1).view(torch.uint8)]).cpu()
     rows.index_copy_(0, cells, merged.to(rows.dtype))
+    return found
+
+
+def _unpack_conflicts(found: torch.Tensor, dtype: np.dtype):
+    """(cells, flat offsets, old, new) numpy arrays of `_merge_rows`'s
+    report; the values in the dataset's dtype (the packed bits)."""
+    raw = found.numpy()
+    k = raw.size // (16 + 2 * dtype.itemsize)
+    keys = raw[:16 * k].view(np.int64).reshape(2, k)
+    vals = raw[16 * k:].view(dtype).reshape(2, k)
+    return keys[0], keys[1], vals[0], vals[1]
+
+
+def _report_conflicts(grid: CuboidGrid, found: List[torch.Tensor],
+                      dtype: np.dtype, on_conflict: ConflictSink) -> None:
+    """Call ``on_conflict`` once per cuboid with a conflict, in ascending
+    Morton order, with full-cuboid blocks holding the conflicting voxels'
+    old and new values (zeros elsewhere)."""
+    parts = [_unpack_conflicts(f, dtype) for f in found]
+    cells, flats, olds, news = (np.concatenate(a) for a in zip(*parts))
+    order = np.lexsort((flats, cells))
+    cells, flats, olds, news = cells[order], flats[order], olds[order], news[order]
+    starts = np.flatnonzero(np.diff(cells, prepend=-1))
+    for a, b in zip(starts, list(starts[1:]) + [len(cells)]):
+        old_full = np.zeros(grid.cuboid_shape, dtype=dtype)
+        new_full = np.zeros(grid.cuboid_shape, dtype=dtype)
+        old_full.reshape(-1)[flats[a:b]] = olds[a:b]
+        new_full.reshape(-1)[flats[a:b]] = news[a:b]
+        m = int(cells[a])
+        on_conflict(m, grid.cuboid_origin(m), old_full, new_full)
 
 
 def _slabs(glo0: int, ghi0: int, plane_elements: int):
@@ -75,15 +125,17 @@ def _slabs(glo0: int, ghi0: int, plane_elements: int):
 
 
 def write_cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
-                 data, discipline: str = "overwrite") -> None:
+                 data, channel: int = 0, discipline: str = "overwrite",
+                 on_conflict: Optional[ConflictSink] = None) -> None:
     """Write dense ``data`` (tensor or numpy) at offset ``lo``.
 
-    Disciplines as the reference's ``overwrite``/``preserve`` (paper §3.2);
-    ``exception`` (multi-label exception lists) is not ported yet.
+    Disciplines as the reference's (paper §3.2): ``overwrite``,
+    ``preserve``, and ``exception``, which merges as ``preserve`` and calls
+    ``on_conflict`` for each cuboid where labels collide (module
+    docstring); the calls happen inside the store's write guard, so the
+    order of reports follows the order of merges.
     """
-    if discipline == "exception":
-        raise NotImplementedError("the exception discipline is not ported")
-    if discipline not in ("overwrite", "preserve"):
+    if discipline not in DISCIPLINES:
         raise ValueError(f"unknown discipline {discipline!r}")
     grid = store.spec.grid(r)
     lo = [int(l) for l in lo]
@@ -94,25 +146,36 @@ def write_cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
     cs = grid.cuboid_shape
     plane = int(np.prod([-(-h // c) - l // c for l, h, c in
                          zip(clo[1:], chi[1:], cs[1:])])) * grid.cuboid_voxels
+    report = discipline == "exception" and on_conflict is not None
+    found = []
     with store.write_guard:
-        packed = store.level(r)
+        packed = store.level(r, channel)
         for g0, g1 in _slabs(clo[0] // cs[0], -(-chi[0] // cs[0]), plane):
             slo = [max(clo[0], g0 * cs[0])] + clo[1:]
             shi = [min(chi[0], g1 * cs[0])] + chi[1:]
             src = data[tuple(slice(a - l, b - l)
                              for a, b, l in zip(slo, shi, lo))]
-            _write_box(packed, grid, slo, shi,
-                       as_device_tensor(src, store.device), discipline)
+            part = _write_box(packed, grid, slo, shi,
+                              as_device_tensor(src, store.device), discipline,
+                              report=report)
+            if part is not None and part.numel():
+                found.append(part)
+        if found:
+            _report_conflicts(grid, found, np.dtype(store.spec.dtype),
+                              on_conflict)
 
 
 def _write_box(packed: torch.Tensor, grid: CuboidGrid, lo, hi,
                data: torch.Tensor, discipline: str,
-               keep: Optional[torch.Tensor] = None) -> None:
+               keep: Optional[torch.Tensor] = None,
+               report: bool = False) -> Optional[torch.Tensor]:
     """Merge ``data`` (exactly the box [lo, hi)) into the packed level;
-    ``keep`` (bool per box-grid cell, row-major) restricts the cells."""
+    ``keep`` (bool per box-grid cell, row-major) restricts the cells;
+    ``report`` returns the conflicts (`_merge_rows`)."""
     gshape, cells, alo = build_plan(grid, lo, hi)
     cs = grid.cuboid_shape
     rel = [l - a for l, a in zip(lo, alo)]
+    data = signed_view(data)  # the card has no boolean indexing of uint16
     aligned = torch.zeros([g * c for g, c in zip(gshape, cs)],
                           dtype=data.dtype, device=data.device)
     aligned[tuple(slice(a, a + s) for a, s in zip(rel, data.shape))] = data
@@ -120,17 +183,60 @@ def _write_box(packed: torch.Tensor, grid: CuboidGrid, lo, hi,
     cells_t = torch.from_numpy(cells.astype(np.int64)).to(packed.device)
     if keep is not None:
         cells_t, blocks = cells_t[keep], blocks[keep]
-    _merge_rows(packed, cells_t, blocks, discipline)
+    return _merge_rows(packed, cells_t, blocks, discipline, report=report)
 
 
-def ingest(store: DeviceCuboidStore, r: int, volume,
+def project(store: DeviceCuboidStore, r: int, lo: Sequence[int],
+            hi: Sequence[int], axis: int, reduce: str = "slice",
+            channel: int = 0) -> torch.Tensor:
+    """Lower-dimensional projection of [lo, hi) (paper §3.3 tiles).
+
+    ``slice`` takes the first plane along ``axis`` (a tile request; only
+    that plane is cut out); ``max`` and ``mean`` reduce along it (MIP
+    renderings).  As numpy on the reference's arrays: unsigned data
+    (uint16, and uint32 labels held as int32) compares by its unsigned
+    value; an integer ``mean`` sums in float64 (exact) and truncates back to
+    the dtype; a float ``mean`` stays in its own dtype (numpy's pairwise
+    float32 sum rounds differently: equal within a relative 1e-6).
+    """
+    if reduce not in ("slice", "max", "mean"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    grid = store.spec.grid(r)
+    lo, hi = grid.clamp_box(lo, hi)
+    if reduce == "slice":
+        if hi[axis] <= lo[axis]:
+            raise IndexError(f"no plane to take along axis {axis} of [{lo}, {hi})")
+        hi[axis] = lo[axis] + 1
+        return cutout(store, r, lo, hi, channel).select(axis, 0)
+    vol = cutout(store, r, lo, hi, channel)
+    if vol.is_floating_point():
+        return (vol.amax(axis) if reduce == "max" else vol.mean(axis))
+    wide = vol.to(torch.int64)
+    if np.dtype(store.spec.dtype) == np.uint32:
+        wide &= 0xFFFFFFFF
+    if reduce == "max":
+        out = wide.amax(axis)
+    else:
+        out = (wide.to(torch.float64).sum(axis) / vol.shape[axis]).to(torch.int64)
+    return out.to(vol.dtype)  # int64 -> int32 keeps a uint32 label's bits
+
+
+def batch_cutout(store: DeviceCuboidStore, r: int, boxes: Sequence[Box],
+                 channel: int = 0) -> List[torch.Tensor]:
+    """Cutouts of many boxes (paper §4.2's batch interface), in request
+    order, one gather each."""
+    return [cutout(store, r, lo, hi, channel) for lo, hi in boxes]
+
+
+def ingest(store: DeviceCuboidStore, r: int, volume, channel: int = 0,
            offset: Optional[Sequence[int]] = None) -> None:
     """Bulk-load a dense volume (instrument -> store ingest path)."""
-    write_cutout(store, r, list(offset or [0] * volume.ndim), volume,
+    write_cutout(store, r, list(offset or [0] * volume.ndim), volume, channel,
                  discipline="overwrite")
 
 
-def build_hierarchy(store: DeviceCuboidStore, labels: bool = False) -> None:
+def build_hierarchy(store: DeviceCuboidStore, channel: int = 0,
+                    labels: bool = False) -> None:
     """Propagate level r -> r+1 for the whole dataset (paper §3.2).
 
     Image data average-pools the scaled dims; label data stride-samples so
@@ -142,7 +248,7 @@ def build_hierarchy(store: DeviceCuboidStore, labels: bool = False) -> None:
     spec = store.spec
     f = [2 if d in spec.scaled_dims else 1 for d in range(spec.spatial_rank)]
     for r in range(spec.n_resolutions - 1):
-        if store.peek(r) is None:
+        if store.peek(r, channel) is None:
             continue  # nothing stored at r: every destination is skipped
         dst = spec.grid(r + 1)
         cs = dst.cuboid_shape
@@ -153,7 +259,7 @@ def build_hierarchy(store: DeviceCuboidStore, labels: bool = False) -> None:
             dhi = [min(g1 * cs[0], dst.volume_shape[0])] + list(
                 dst.volume_shape[1:])
             block = cutout(store, r, [l * k for l, k in zip(dlo, f)],
-                           [h * k for h, k in zip(dhi, f)])
+                           [h * k for h, k in zip(dhi, f)], channel)
             gshape = [-(-(h - l) // c) for l, h, c in zip(dlo, dhi, cs)]
             src_cs = [c * k for c, k in zip(cs, f)]
             nonzero = split_blocks(pad_to_grid(block != 0, gshape, src_cs),
@@ -165,6 +271,6 @@ def build_hierarchy(store: DeviceCuboidStore, labels: bool = False) -> None:
             if 0 in down.shape:
                 continue
             with store.write_guard:
-                _write_box(store.level(r + 1), dst, dlo,
+                _write_box(store.level(r + 1, channel), dst, dlo,
                            [l + s for l, s in zip(dlo, down.shape)], down,
                            "overwrite", keep=nonzero)

@@ -6,8 +6,10 @@ with unequal per-dimension bit widths for anisotropic grids (exhausted
 dimensions drop out of the interleave, so the index stays dense in
 ``[0, prod(2^bits))``).  Pure numpy on the host — the plan is computed
 before any device work, and only the resulting cell list moves to the card.
-The 2-d Hilbert decode serves `kernels/morton_matmul`'s tile orders, and
-`partition_curve` cuts a curve into the hosts' segments (`data.pipeline`).
+`range_decompose` and the run helpers serve the object index and the
+cutout plan, the 2-d Hilbert decode serves `kernels/morton_matmul`'s tile
+orders, and `partition_curve` with `owner_of` cuts a curve into the ranks'
+or hosts' segments (`core.distributed`, `data.pipeline`).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+Runs = List[Tuple[int, int]]  # half-open [start, stop) morton-index runs
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +62,103 @@ def morton_decode(idx, bits: Tuple[int, ...]) -> np.ndarray:
 
 def total_bits(bits: Tuple[int, ...]) -> int:
     return int(sum(bits))
+
+
+def range_decompose(lo: Sequence[int], hi: Sequence[int],
+                    bits: Tuple[int, ...], max_runs: int | None = None) -> Runs:
+    """Decompose the axis-aligned box [lo, hi) into contiguous Morton runs.
+
+    Recursive descent over the implicit 2^d tree of the interleave layout:
+    cells fully inside the box emit one run, disjoint cells prune, partial
+    cells recurse, and adjacent runs merge, so an aligned box is one run.
+    ``max_runs`` greedily merges the nearest runs past that many
+    (`coarsen_runs`).
+    """
+    lo = [int(x) for x in lo]
+    hi = [int(x) for x in hi]
+    d = len(bits)
+    if len(lo) != d or len(hi) != d:
+        raise ValueError("lo/hi rank mismatch with bits")
+    for dim in range(d):
+        if not (0 <= lo[dim] <= hi[dim] <= (1 << bits[dim])):
+            raise ValueError(
+                f"box [{lo},{hi}) out of grid range for bits={bits}")
+        if lo[dim] == hi[dim]:
+            return []
+
+    placement = bit_placement(bits)
+    nbits = len(placement)
+    runs: Runs = []
+
+    # Iterative DFS; state = (pos, start_index, cell_lo tuple). pos counts
+    # from the MSB side: output bit index = nbits - 1 - pos.
+    stack = [(0, 0, tuple(0 for _ in range(d)))]
+    while stack:
+        pos, start, cell_lo = stack.pop()
+        span = 1 << (nbits - pos)  # indices covered by this cell
+        remaining = [0] * d
+        for p in range(pos, nbits):
+            dim, _ = placement[nbits - 1 - p]
+            remaining[dim] += 1
+        contained = True
+        disjoint = False
+        for dim in range(d):
+            c_lo = cell_lo[dim]
+            c_hi = c_lo + (1 << remaining[dim])
+            if c_hi <= lo[dim] or c_lo >= hi[dim]:
+                disjoint = True
+                break
+            if not (lo[dim] <= c_lo and c_hi <= hi[dim]):
+                contained = False
+        if disjoint:
+            continue
+        if contained or pos == nbits:
+            if runs and runs[-1][1] == start:
+                runs[-1] = (runs[-1][0], start + span)
+            else:
+                runs.append((start, start + span))
+            continue
+        dim, src_bit = placement[nbits - 1 - pos]
+        half = 1 << src_bit
+        hi_cell = list(cell_lo)
+        hi_cell[dim] += half
+        # child 1 first so child 0 pops first (curve order, for the merge)
+        stack.append((pos + 1, start + span // 2, tuple(hi_cell)))
+        stack.append((pos + 1, start, cell_lo))
+
+    if max_runs is not None and len(runs) > max_runs:
+        runs = coarsen_runs(runs, max_runs)
+    return runs
+
+
+def coarsen_runs(runs: Runs, max_runs: int) -> Runs:
+    """Merge nearest runs until len <= max_runs (reads extra, never less)."""
+    runs = sorted(runs)
+    while len(runs) > max_runs:
+        gaps = [(runs[i + 1][0] - runs[i][1], i) for i in range(len(runs) - 1)]
+        _, i = min(gaps)
+        runs[i:i + 2] = [(runs[i][0], runs[i + 1][1])]
+    return runs
+
+
+def runs_to_indices(runs: Runs) -> np.ndarray:
+    """Expand runs to a flat int64 array of morton indices (curve order)."""
+    if not runs:
+        return np.zeros((0,), dtype=np.int64)
+    return np.concatenate([np.arange(a, b, dtype=np.int64) for a, b in runs])
+
+
+def indices_to_runs(cells: Sequence[int]) -> Runs:
+    """Collapse *sorted* morton indices into minimal contiguous runs (the
+    inverse of `runs_to_indices`)."""
+    runs: Runs = []
+    for m in cells:
+        m = int(m)
+        if runs and runs[-1][1] == m:
+            runs[-1] = (runs[-1][0], m + 1)
+        else:
+            runs.append((m, m + 1))
+    return runs
 
 
 def morton_encode_torch(coords, bits: Tuple[int, ...]):
@@ -107,3 +208,17 @@ def partition_curve(n_cells: int, n_parts: int) -> List[Tuple[int, int]]:
         parts.append((start, start + size))
         start += size
     return parts
+
+
+def owner_of(idx, n_cells: int, n_parts: int):
+    """Owning segment of morton index(es) under `partition_curve`; scalar
+    in, scalar out.  ``searchsorted(bounds, idx, 'right') - 1`` lands on
+    the last segment starting at or before ``idx``, which is the non-empty
+    one, so ownership stays total when ``n_parts > n_cells``."""
+    parts = partition_curve(n_cells, n_parts)
+    bounds = np.asarray([a for a, _ in parts] + [n_cells], dtype=np.int64)
+    arr = np.asarray(idx, dtype=np.int64)
+    if arr.size and (arr.min() < 0 or arr.max() >= max(n_cells, 1)):
+        raise ValueError(f"morton index out of range [0, {n_cells})")
+    owner = np.searchsorted(bounds, arr, side="right") - 1
+    return owner if arr.ndim else int(owner)

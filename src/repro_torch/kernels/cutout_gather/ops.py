@@ -66,70 +66,72 @@ _I64 = ctypes.c_int64
 def _entry():
     fn = _build.library(NAME).cutout_gather_launch
     if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 3 + [_I64] * 12 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [_I64] * 16 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def cutout_gather_cuda(packed: torch.Tensor, plan: torch.Tensor, gshape,
                        offset, out_shape) -> torch.Tensor:
-    """Launch the CUDA kernel; same contract as `cutout_gather_ref`."""
+    """Launch the CUDA kernel; same contract as `cutout_gather_ref`, for a
+    grid of rank 3 (``packed`` (n_cells, cx, cy, cz)) or 4 (a time series,
+    (n_cells, cx, cy, cz, ct)).  Rank 3 goes to the C entry with a leading
+    unit axis, which runs the rank-3 kernel."""
     if not packed.is_cuda or plan.device != packed.device:
         raise ValueError("packed and plan must be on the same CUDA device")
-    if packed.dim() != 4 or not packed.is_contiguous():
-        raise ValueError(f"packed must be a contiguous (n_cells, cx, cy, cz) "
-                         f"tensor, got {tuple(packed.shape)}")
+    if packed.dim() not in (4, 5) or not packed.is_contiguous():
+        raise ValueError(f"packed must be a contiguous (n_cells, *cuboid) tensor "
+                         f"of rank 3 or 4, got {tuple(packed.shape)}")
     if plan.dtype != torch.int32 or not plan.is_contiguous():
         raise ValueError("plan must be a contiguous int32 tensor")
     esize = packed.element_size()
     if esize not in (1, 2, 4, 8):
         raise ValueError(f"unsupported element size {esize}")
-    _, cx, cy, cz = packed.shape
-    gx, gy, gz = gshape
-    if plan.numel() != gx * gy * gz:
+    pad = 5 - packed.dim()
+    cx, cy, cz, ct = (1,) * pad + tuple(packed.shape[1:])
+    _, gy, gz, gt = (1,) * pad + tuple(gshape)
+    if plan.numel() != int(np.prod(gshape)):
         raise ValueError("plan length does not match the box grid")
-    X, Y, Z = (int(s) for s in out_shape)
-    ox, oy, oz = (int(o) for o in offset)
-    out = torch.empty((X, Y, Z), dtype=packed.dtype, device=packed.device)
+    X, Y, Z, T = (1,) * pad + tuple(int(s) for s in out_shape)
+    ox, oy, oz, ot = (0,) * pad + tuple(int(o) for o in offset)
+    out = torch.empty(tuple(int(s) for s in out_shape), dtype=packed.dtype,
+                      device=packed.device)
     if out.numel() == 0:
         return out
-    unit = _unit_bytes(esize, (cz, oz, Z), (packed.data_ptr(), out.data_ptr()))
+    unit = _unit_bytes(esize, (ct, ot, T), (packed.data_ptr(), out.data_ptr()))
     per = unit // esize
     fn = _entry()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         err = fn(out.data_ptr(), packed.data_ptr(), plan.data_ptr(),
-                 X, Y, Z // per, ox, oy, oz // per, cx, cy, cz // per,
-                 gy, gz, unit, stream)
+                 X, Y, Z, T // per, ox, oy, oz, ot // per, cx, cy, cz, ct // per,
+                 gy, gz, gt, unit, stream)
     if err != 0:
         raise RuntimeError(f"cutout_gather launch failed (cudaError {err})")
     _count_launch()
     return out
 
 
-def cutout_gather(packed: torch.Tensor, grid: CuboidGrid, lo, hi) -> torch.Tensor:
-    """Dense cutout [lo, hi) from a cuboid-major tensor on its own device.
+def planned_gather(packed: torch.Tensor, plan: torch.Tensor, gshape, offset,
+                   out_shape) -> torch.Tensor:
+    """Gather a box by an explicit plan on ``packed``'s own device: the
+    kernel for a card tensor, the plain version for a CPU one.
 
-    A grid of rank below 3 (the training pipeline's 2-D token store) goes
-    to the kernel as a 3-D one with leading unit axes: the packed view, the
-    box grid, the offset and the output shape gain them, the plan's cells
-    stay (an axis of extent 1 takes no Morton bits), and the output drops
-    them again.
+    ``plan`` (int32, row-major over the box grid ``gshape``) names the row
+    of ``packed`` for each box-grid position; any rows will do, which lets
+    `core.distributed` gather a rank's rows and assemble gathered ones.  A
+    grid of rank below 3 (the training pipeline's 2-D token store) goes to
+    the kernel as a 3-D one with leading unit axes: the packed view, the
+    box grid, the offset and the output shape gain them, and the output
+    drops them again.
     """
-    lo = tuple(int(x) for x in lo)
-    hi = tuple(int(x) for x in hi)
-    if tuple(packed.shape) != (grid.n_cells,) + tuple(grid.cuboid_shape):
-        raise ValueError(f"packed shape {tuple(packed.shape)} does not match "
-                         f"the grid ({grid.n_cells}, {grid.cuboid_shape})")
-    if grid.rank > 3:
-        raise ValueError(f"cutout_gather takes grids of rank 1-3, got {grid.rank}")
-    gshape, cells, alo = build_plan(grid, lo, hi)
-    plan = torch.from_numpy(cells).to(packed.device)
-    offset = [l - a for l, a in zip(lo, alo)]
-    out_shape = [h - l for l, h in zip(lo, hi)]
-    pad = 3 - grid.rank
+    rank = packed.dim() - 1
+    if not 1 <= rank <= 4:
+        raise ValueError(f"cutout_gather takes grids of rank 1-4, got {rank}")
+    out_shape = [int(s) for s in out_shape]
+    pad = max(0, 3 - rank)
     view = packed.view((packed.shape[0],) + (1,) * pad + tuple(packed.shape[1:]))
-    args = (view, plan, (1,) * pad + tuple(gshape), [0] * pad + offset,
+    args = (view, plan, (1,) * pad + tuple(gshape), [0] * pad + list(offset),
             [1] * pad + out_shape)
     if packed.is_cuda:
         out = cutout_gather_cuda(*args)
@@ -138,3 +140,19 @@ def cutout_gather(packed: torch.Tensor, grid: CuboidGrid, lo, hi) -> torch.Tenso
     else:
         raise ValueError(f"no cutout_gather for device {packed.device}")
     return out.view(out_shape)
+
+
+def cutout_gather(packed: torch.Tensor, grid: CuboidGrid, lo, hi) -> torch.Tensor:
+    """Dense cutout [lo, hi) from a cuboid-major tensor on its own device
+    (a grid of rank 1-4): the Morton plan of the box, then
+    `planned_gather`.  The plan's cells keep their values when unit axes
+    are added (an axis of extent 1 takes no Morton bits)."""
+    lo = tuple(int(x) for x in lo)
+    hi = tuple(int(x) for x in hi)
+    if tuple(packed.shape) != (grid.n_cells,) + tuple(grid.cuboid_shape):
+        raise ValueError(f"packed shape {tuple(packed.shape)} does not match "
+                         f"the grid ({grid.n_cells}, {grid.cuboid_shape})")
+    gshape, cells, alo = build_plan(grid, lo, hi)
+    plan = torch.from_numpy(cells).to(packed.device)
+    return planned_gather(packed, plan, gshape, [l - a for l, a in zip(lo, alo)],
+                          [h - l for l, h in zip(lo, hi)])

@@ -147,6 +147,116 @@ def test_store_on_card_matches_cpu(cuda):
                            tcut.cutout(stores[1], r, (0, 0, 0), shape))
 
 
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+@pytest.mark.parametrize("cs", [(128, 128, 16, 16), (8, 8, 4, 4), (4, 8, 2, 3)])
+def test_gather_kernel_rank4_matches_plain(cuda, dtype, cs):
+    """The time-series (rank-4) body against the plain version: aligned,
+    unaligned, edge and one-voxel boxes, bit for bit, one launch each."""
+    grid = CuboidGrid((2 * cs[0] - 3, 2 * cs[1] + 1, 3 * cs[2] - 1, 2 * cs[3]), cs)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    packed = torch.randint(0, 256, (grid.n_cells,) + cs[:3] + (cs[3] * dtype.itemsize,),
+                           generator=gen, device=cuda, dtype=torch.uint8).view(dtype)
+    v = grid.volume_shape
+    before = ops.launches
+    boxes = [((0, 0, 0, 0), v), ((0, 0, 0, 0), (cs[0], cs[1], cs[2], cs[3])),
+             ((1, 1, 1, 1), (v[0] - 1, v[1] - 1, v[2], v[3] - 1)),
+             ((v[0] - 1, 2, 1, 0), (v[0], 3, 2, 1))]
+    for lo, hi in boxes:
+        got, want = _both(packed, grid, lo, hi)
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert ops.launches == before + len(boxes)
+
+
+def test_timeseries_and_channels_on_card_match_cpu(cuda):
+    """A rank-4 dataset and a 3-channel one, written and read on the card
+    and on the CPU."""
+    for spec in (DatasetSpec("ts", (40, 36, 8, 12), n_resolutions=2, dtype="uint8",
+                             base_cuboid=(16, 16, 4, 4)),
+                 DatasetSpec("ch", (40, 36, 8), n_channels=3, n_resolutions=2,
+                             dtype="uint16", base_cuboid=(16, 16, 4))):
+        rng = np.random.default_rng(1)
+        stores = [DeviceCuboidStore(spec, device=d) for d in (cuda, torch.device("cpu"))]
+        for c in range(spec.n_channels):
+            vol = rng.integers(0, 255, size=spec.volume_shape).astype(spec.dtype)
+            for s in stores:
+                tcut.ingest(s, 0, vol, channel=c)
+                tcut.build_hierarchy(s, channel=c)
+        for c in range(spec.n_channels):
+            for r in range(2):
+                shape = spec.grid(r).volume_shape
+                lo = (3,) * len(shape)
+                assert torch.equal(tcut.cutout(stores[0], r, lo, shape, channel=c).cpu(),
+                                   tcut.cutout(stores[1], r, lo, shape, channel=c))
+
+
+def test_exception_write_on_card_matches_cpu(cuda):
+    """Overlapping writes under ``exception`` (and a batch of objects):
+    labels, index and exception lists equal on the card and the CPU."""
+    from repro_torch.core.annotations import Annotation, AnnotationProject
+
+    spec = DatasetSpec("img", (64, 48, 16), base_cuboid=(16, 16, 4))
+    rng = np.random.default_rng(6)
+    writes = []
+    for k in range(6):
+        size = tuple(int(rng.integers(4, 20)) for _ in range(3))
+        vol = rng.choice(np.array([0, 5, 3_000_000_000], np.uint32), size=size)
+        writes.append(((int(rng.integers(0, 50)), int(rng.integers(0, 36)),
+                        int(rng.integers(0, 10))), vol, ("overwrite", "exception")[k % 2]))
+    objs = [((int(rng.integers(0, 50)), int(rng.integers(0, 36)), 2),
+             rng.random((9, 8, 7)) < 0.5) for _ in range(4)]
+    projs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = AnnotationProject("a", spec, enable_exceptions=True, device=dev)
+        for lo, vol, disc in writes:
+            p.write(0, lo, vol, discipline=disc)
+        p.batch_write_objects(0, [(Annotation(0), lo, m) for lo, m in objs],
+                              discipline="exception")
+        projs.append(p)
+    card, cpu = projs
+    assert card._exceptions == cpu._exceptions and card._exceptions
+    assert torch.equal(card.read(0, (0, 0, 0), (64, 48, 16)).cpu(),
+                       cpu.read(0, (0, 0, 0), (64, 48, 16)))
+    assert card.index.ids() == cpu.index.ids()
+    for i in cpu.index.ids():
+        assert card.index.cuboids(i) == cpu.index.cuboids(i)
+        assert card.objects_in_region(0, (0, 0, 0), (64, 48, 16)) == \
+            cpu.objects_in_region(0, (0, 0, 0), (64, 48, 16))
+    assert card.distance(5, 3_000_000_000, 0) == cpu.distance(5, 3_000_000_000, 0)
+
+
+def test_one_rank_nccl_distributed_cutout(cuda, tmp_path):
+    """`distributed_cutout` and `distributed_write_cutout` in a one-rank
+    NCCL world (one card), against the plain cutout and numpy."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (distributed_cutout, distributed_write_cutout,
+                                              pack_to_cuboids, shard_cuboids)
+
+    grid = CuboidGrid((96, 80, 24), (16, 16, 8))
+    vol = np.random.default_rng(3).integers(1, 250, size=grid.volume_shape, dtype=np.uint8)
+    packed = pack_to_cuboids(torch.from_numpy(vol).to(cuda), grid)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv", rank=0,
+                            world_size=1)
+    try:
+        shard = shard_cuboids(packed, 0, 1)
+        before = ops.launches
+        for lo, hi in [((0, 0, 0), (96, 80, 24)), ((5, 17, 3), (90, 61, 22))]:
+            got = distributed_cutout(shard, grid, lo, hi)
+            assert got.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          vol[tuple(slice(l, h) for l, h in zip(lo, hi))])
+        assert ops.launches == before + 4   # two launches a call
+        data = np.zeros((30, 20, 10), np.uint8)
+        data[::2] = 9
+        distributed_write_cutout(shard, grid, (40, 50, 7), data)
+        vol[40:70, 50:70, 7:17] = data
+        got = distributed_cutout(shard, grid, (0, 0, 0), (96, 80, 24))
+        np.testing.assert_array_equal(got.cpu().numpy(), vol)
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------- attention kernels ----
 
 ATTN_SHAPES = [  # (B, Sq, Skv, H, K, D): tests/test_kernels.py:37, smollm
