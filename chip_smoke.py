@@ -219,6 +219,23 @@ Phases (any failure raises and the exit code is non-zero):
    of >= 20) beside its byte bound; and a 3-channel uint16 dataset of
    4,096 x 4,096 x 64 per channel (2 GiB each) written and read back per
    channel.
+23. The device store over the host tiers, after phase 22's state is freed,
+   counted as phase 21: a seeded uint8 image of 4,096 x 4,096 x 256 (16,384
+   cuboids of 128 x 128 x 16, 4 GiB) made on the card with phase 2's
+   generator and bulk-loaded, zlib on a thread per core, into a
+   `DirectoryBackend` read tier (fsync off) under `tempfile.mkdtemp()`,
+   opened with a `LogBackend` write tier (fsync on) by `tiered_store`; 64
+   cold reads of 512 x 512 x 64 tiles (each bit-equal to the host volume and
+   the plain gather; whole read, host fetch + decode and the copy to the
+   card timed, `CutoutStats` and `read_stats` reported), the same tiles
+   warm; one cold read's spans; 200 writes of an unaligned 96 x 96 x 12 box
+   (p50 and p99 ms; each readable at once from the card and from the tiers
+   by a host decode); a reopen whose log replay reads every write back
+   cold; `compact_store` beside a thread reading the written boxes (all
+   reads bit-equal, the log empty after); an annotation project with a log
+   write path (40 objects in one batch, `migrate`, each `object_cutout`
+   equal to its numpy oracle, resident and cold).  The free bytes of the
+   disk and the tiers' stored bytes are printed.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -232,13 +249,18 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import contextlib
+import dataclasses
 import json
+import os
 import pathlib
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 from types import SimpleNamespace
@@ -260,7 +282,10 @@ from repro_torch.core import morton  # noqa: E402
 from repro_torch.core.annotations import AnnotationProject  # noqa: E402
 from repro_torch.core.cuboid import (CuboidGrid, DatasetSpec,  # noqa: E402
                                      downsample_block)
-from repro_torch.core.store import DeviceCuboidStore  # noqa: E402
+from repro_torch.core.compact import compact_store  # noqa: E402
+from repro_torch.core.store import (CuboidStore, DeviceCuboidStore,  # noqa: E402
+                                    DirectoryBackend)
+from repro_torch.core.wal import LogBackend, TierPolicy, tiered_store  # noqa: E402
 from repro_torch.kernels import _bench, _build  # noqa: E402
 from repro_torch.kernels.cutout_gather import ops as gather_ops  # noqa: E402
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref  # noqa: E402
@@ -276,6 +301,8 @@ from repro_torch.kernels.morton_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_split_ref  # noqa: E402,E501
+from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.obs.registry import REGISTRY  # noqa: E402
 from repro_torch.data import DataPipeline, PipelineConfig  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -298,7 +325,7 @@ KERNELS = {
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
         ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training",
-                               "annotation", "timeseries")),
+                               "annotation", "timeseries", "tiered")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
@@ -343,6 +370,14 @@ TS_FULL = dict(volume=(2048, 2048, 64, 16), slab=256,
 TS_TINY = dict(volume=(64, 64, 32, 8), slab=16,
                box=((0, 0, 0, 0), (32, 32, 16, 8)),
                ch_volume=(64, 64, 32), channels=3)
+# phase 23: a uint8 image on the host tiers (default cuboids 128 x 128 x 16),
+# made with phase 2's generator (blobs at level ``r``'s density)
+TIER_FULL = dict(volume=(4096, 4096, 256), r=2, n_blobs=12288, slab=256,
+                 tile=(512, 512, 64), reads=64, writes=200, wbox=(96, 96, 12),
+                 objects=40, obj=(8, 40))
+TIER_TINY = dict(volume=(256, 256, 32), r=2, n_blobs=12, slab=128,
+                 tile=(64, 64, 16), reads=4, writes=6, wbox=(24, 24, 6),
+                 objects=6, obj=(4, 12))
 
 # the serving paths: smollm-135m and mamba2-370m at full width (bf16), and
 # tiny rehearsals; ``key`` names the path's entry in the report
@@ -1111,6 +1146,284 @@ def timeseries_and_channels(tc, dev, report, peak, counts):
     log(f"time series {tuple(v)} uint8 ({ts['packed_bytes'] / 2 ** 30:.2f} GiB) and "
         f"{tc['channels']} channels of {cv} uint16: kernel == plain == host slice; times (s) "
         + ", ".join(f"{k} {t:.4f}" for k, t in times.items()))
+
+
+# ------------------------------------------------ tiered storage, phase 23 ----
+
+def dir_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def host_cutout(backing, grid, lo, hi):
+    """The box decoded on the host from the backing `CuboidStore` alone."""
+    gshape, cells, alo = gather_ops.build_plan(grid, lo, hi)
+    cs = grid.cuboid_shape
+    buf = np.zeros([g * c for g, c in zip(gshape, cs)], np.dtype(backing.spec.dtype))
+    for pos, m in zip(np.ndindex(*gshape), cells.tolist()):
+        buf[tuple(slice(p * c, (p + 1) * c) for p, c in zip(pos, cs))] = \
+            backing.read_cuboid(0, m)
+    return buf[tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, alo))]
+
+
+def box_of(box):
+    lo, hi = box
+    return tuple(slice(l, h) for l, h in zip(lo, hi))
+
+
+def load_tiers(tc, dev, spec, root, report):
+    """Make the image on the device slab by slab (phase 2's generator),
+    bring each slab to the host and bulk-load it into the read tier's
+    directory through a `CuboidStore` over that path alone (zlib on a
+    thread per core, fsync off, as a dump-and-restore would)."""
+    grid = spec.grid(0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    centres = make_blobs(tc, gen, dev)
+    host = np.empty(tc["volume"], np.uint8)
+    loader = CuboidStore(spec, backend=DirectoryBackend(os.path.join(root, "read")))
+    cs = grid.cuboid_shape
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for x0 in range(0, tc["volume"][0], tc["slab"]):
+            slab = make_slab(tc, x0, centres, gen, dev)
+            lo, hi = (x0, 0, 0), (x0 + slab.shape[0],) + tuple(tc["volume"][1:])
+            gshape, cells, _ = gather_ops.build_plan(grid, lo, hi)
+            blocks = dist_mod.split_blocks(slab, gshape, cs).cpu().numpy()
+            host[x0:x0 + slab.shape[0]] = slab.cpu().numpy()
+            step = 64
+            list(pool.map(lambda i: loader.store_cuboids(0, {
+                int(m): blocks[j] for j, m in enumerate(cells[i:i + step].tolist(), i)}),
+                range(0, len(cells), step)))
+    report["load_s"] = time.perf_counter() - t0
+    report["raw_bytes"] = host.nbytes
+    report["read_tier_bytes"] = dir_bytes(os.path.join(root, "read"))
+    report["cuboids"] = loader.write_stats.writes
+    return host
+
+
+def check_objects(proj, ids, objs, dev, counts):
+    """`object_cutout` of every object equals its numpy oracle: the
+    objects painted in write order (the later wins, as ``overwrite``),
+    other ids cleared, over the index's bounding box."""
+    for ann_id in ids:
+        (lo, dense), _ = drive(counts, dev, lambda: proj.object_cutout(ann_id, 0))
+        want = np.zeros(dense.shape, np.uint32)
+        for j, (olo, mask) in enumerate(objs):
+            a = [max(l, o) for l, o in zip(lo, olo)]
+            b = [min(l + s, o + m) for l, s, o, m in zip(lo, dense.shape, olo, mask.shape)]
+            if any(x >= y for x, y in zip(a, b)):
+                continue
+            sub = mask[tuple(slice(x - o, y - o) for x, y, o in zip(a, b, olo))]
+            dst = want[tuple(slice(x - l, y - l) for x, y, l in zip(a, b, lo))]
+            dst[sub != 0] = ids[j]
+        want[want != ann_id] = 0
+        if not np.array_equal(uint_ids(dense).cpu().numpy().astype(np.uint32), want):
+            raise RuntimeError(f"object {ann_id}: object_cutout != its numpy oracle")
+
+
+def tiered_storage(tc, dev, report, counts):
+    """Phase 23: the device store over the host tiers (a read tier of
+    zlib cuboids in a directory, a log write tier with fsync on): cold and
+    warm reads, small random writes acknowledged by the log, a reopen that
+    replays it, compaction under readers, and an annotation project with a
+    log write path."""
+    t_phase = time.perf_counter()
+    out = {}
+    spec = DatasetSpec("tiered", tc["volume"], dtype="uint8")
+    grid = spec.grid(0)
+    root = tempfile.mkdtemp(prefix="ocp-tiers-")
+    try:
+        out["disk_free_bytes"] = shutil.disk_usage(root).free
+        log(f"tiers under {root}: {out['disk_free_bytes'] / 2 ** 30:.1f} GiB free on that disk")
+        host = load_tiers(tc, dev, spec, root, out)
+        policy = TierPolicy(write_tier="log", fsync=True)
+        backing = tiered_store(spec, root=root, policy=policy)
+        log(f"bulk load of {out['cuboids']} cuboids ({out['raw_bytes'] / 2 ** 30:.2f} GiB raw) "
+            f"in {out['load_s']:.2f} s; read tier {out['read_tier_bytes'] / 2 ** 30:.3f} GiB")
+
+        # cold reads, then the same tiles warm
+        store = DeviceCuboidStore(spec, device=dev, backing=backing)
+        store.copy_events = []
+        tiles = sd.tiling(grid.volume_shape, tc["tile"])
+        pick = np.random.default_rng(23).permutation(len(tiles))[:tc["reads"]]
+        tiles = [tiles[i] for i in sorted(pick)]
+        stats = cut.CutoutStats()
+        cold, host_ms, copy_ms = [], [], []
+        for lo, hi in tiles:
+            before = store.load_stats.host_s
+            store.copy_events.clear()
+            got, t = drive(counts, dev, lambda: cut.cutout(store, 0, lo, hi, stats=stats))
+            cold.append(t * 1e3)
+            host_ms.append((store.load_stats.host_s - before) * 1e3)
+            if dev.type == "cuda":
+                copy_ms.append(sum(a.elapsed_time(b) for a, b in store.copy_events))
+            want = plain_cutout(store.peek(0), grid, lo, hi, dev)
+            if not torch.equal(got, want) or not np.array_equal(got.cpu().numpy(),
+                                                                host[box_of((lo, hi))]):
+                raise RuntimeError(f"cold read {lo}: kernel, plain and host volume differ")
+        store.copy_events = None
+        warm = []
+        for lo, hi in tiles:
+            got, t = drive(counts, dev, lambda: cut.cutout(store, 0, lo, hi))
+            warm.append(t * 1e3)
+            if not np.array_equal(got.cpu().numpy(), host[box_of((lo, hi))]):
+                raise RuntimeError(f"warm read {lo} differs from the host volume")
+        gather_ms = None
+        if dev.type == "cuda":  # the kernel alone on the first tile (not counted)
+            args = gather_case(store.peek(0), grid, *tiles[0], dev)
+            gather_ms = event_times(dev, lambda i=0: gather_ops.cutout_gather_cuda(*args))
+        med = statistics.median
+        out["cold_read"] = dict(
+            tiles=len(tiles), tile=list(tc["tile"]), ms_median=med(cold), ms_max=max(cold),
+            host_fetch_decode_ms_median=med(host_ms),
+            h2d_copy_ms_median=med(copy_ms) if copy_ms else None,
+            warm_ms_median=med(warm), gather_ms=gather_ms,
+            decode_chunks_per_tile=-(-stats.cuboids_read // len(tiles)
+                                     // backing.decode_policy.chunk),
+            decode_workers=backing.decode_policy.workers,
+            cutout_stats=dataclasses.asdict(stats),
+            read_stats=dataclasses.asdict(backing.read_stats),
+            load_stats=dataclasses.asdict(store.load_stats))
+        log(f"{len(tiles)} cold reads of {tc['tile']}: median {med(cold):.2f} ms (host fetch + "
+            f"decode {med(host_ms):.2f} ms, copy to the card "
+            f"{med(copy_ms) if copy_ms else float('nan'):.3f} ms), warm {med(warm):.4f} ms "
+            f"(the gather alone {gather_ms} ms, CUDA events, median of 25); "
+            f"{dataclasses.asdict(stats)}; read_stats {dataclasses.asdict(backing.read_stats)}")
+
+        # the spans of one cold read of a tile not yet resident
+        fresh = DeviceCuboidStore(spec, device=dev, backing=backing)
+        ring = obs_trace.SpanRing(1024)
+        with obs_trace.activate(obs_trace.TraceContext("coldread", ring)):
+            drive(counts, dev, lambda: cut.cutout(fresh, 0, *tiles[0]))
+        spans = [(s["name"], round(s["dur_s"] * 1e3, 3))
+                 for s in sorted(ring.spans_for("coldread"), key=lambda s: s["t0"])]
+        out["cold_read_spans_ms"] = spans
+        log(f"one cold read's spans (ms): {spans}")
+        names = {n for n, _ in spans}
+        if not {"plan", "assemble", "store.fetch", "decode"} <= names:
+            raise RuntimeError(f"cold read spans {sorted(names)} miss the reference's")
+        del fresh
+
+        # small random writes (paper Fig. 13), each acknowledged by the log
+        rng = np.random.default_rng(13)
+        wb = tc["wbox"]
+        writes, times = [], []
+        for _ in range(tc["writes"]):
+            lo = [int(rng.integers(0, v - w)) for v, w in zip(tc["volume"], wb)]
+            hi = [l + w for l, w in zip(lo, wb)]
+            data = rng.integers(1, 256, size=wb, dtype=np.uint8)
+            _, t = drive(counts, dev, lambda: cut.write_cutout(store, 0, lo, data))
+            times.append(t * 1e3)
+            host[box_of((lo, hi))] = data
+            got = cut.cutout(store, 0, lo, hi).cpu().numpy()
+            if not np.array_equal(got, data) or not np.array_equal(
+                    host_cutout(backing, grid, lo, hi), data):
+                raise RuntimeError(f"write {lo}: not readable at once from the card and the tiers")
+            writes.append((lo, hi))
+        log_stats = backing.write_backend.stats()
+        out["writes"] = dict(n=len(writes), box=list(wb), p50_ms=float(np.percentile(times, 50)),
+                             p99_ms=float(np.percentile(times, 99)), max_ms=max(times),
+                             log=log_stats, write_stats=dataclasses.asdict(backing.write_stats))
+        log(f"{len(writes)} writes of {wb}: p50 {out['writes']['p50_ms']:.3f} ms, p99 "
+            f"{out['writes']['p99_ms']:.3f} ms; log {log_stats}")
+        del store
+
+        # reopen: a new stack over the same directories replays the log
+        t0 = time.perf_counter()
+        reopened = tiered_store(spec, root=root, policy=policy)
+        out["reopen_s"] = time.perf_counter() - t0
+        again = DeviceCuboidStore(spec, device=dev, backing=reopened)
+        for box in writes:
+            got = drive(counts, dev, lambda: cut.cutout(again, 0, *box))[0]
+            if not np.array_equal(got.cpu().numpy(), host[box_of(box)]):
+                raise RuntimeError(f"after reopen, write {box[0]} reads otherwise")
+        backing.close()
+        del again
+        log(f"reopened in {out['reopen_s']:.3f} s; all {len(writes)} writes read back cold")
+
+        # compaction while a thread reads the written boxes
+        errors, passes = [], [0]
+        done = threading.Event()
+
+        def reader():
+            try:
+                while not done.is_set() or passes[0] == 0:
+                    reads = DeviceCuboidStore(spec, device=dev, backing=reopened)
+                    for box in writes:
+                        got = cut.cutout(reads, 0, *box).cpu().numpy()
+                        if not np.array_equal(got, host[box_of(box)]):
+                            raise RuntimeError(f"read of {box[0]} during compaction differs")
+                    passes[0] += 1
+            except Exception as e:  # surfaced on the main thread
+                errors.append(e)
+
+        th = threading.Thread(target=reader, name="compaction-reader")
+        reset_launches()
+        th.start()
+        cstats = compact_store(reopened)
+        done.set()
+        th.join(timeout=600)
+        counts["cutout_gather"] = counts.get("cutout_gather", 0) + gather_ops.launches
+        if th.is_alive() or errors:
+            raise RuntimeError(f"reads during compaction failed: {errors}")
+        after = DeviceCuboidStore(spec, device=dev, backing=reopened)
+        for box in writes:
+            got = drive(counts, dev, lambda: cut.cutout(after, 0, *box))[0]
+            if not np.array_equal(got.cpu().numpy(), host[box_of(box)]):
+                raise RuntimeError(f"after compaction, write {box[0]} reads otherwise")
+        lstats = reopened.write_backend.stats()
+        if lstats["live_keys"] or lstats["tombstones"] or lstats["log_bytes"]:
+            raise RuntimeError(f"the log is not empty after compaction: {lstats}")
+        out["compaction"] = dict(cstats.asdict(), reader_passes=passes[0], log_after=lstats)
+        comp_lines = [ln for ln in REGISTRY.prometheus_text().splitlines()
+                      if "compaction" in ln and not ln.startswith("#")
+                      and not ln.split("{")[0].endswith("_bucket")]
+        out["compaction_metrics"] = comp_lines
+        log(f"compaction {cstats.asdict()} beside {passes[0]} reader passes; log after {lstats}; "
+            f"metrics {comp_lines}")
+        del after
+        reopened.close()
+        out["tier_bytes"] = dict(read=dir_bytes(os.path.join(root, "read")),
+                                 wal=dir_bytes(os.path.join(root, "wal")))
+        log(f"tiers' stored bytes: {out['tier_bytes']}")
+        del host
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # annotations with a log write path
+        aroot = os.path.join(root, "anno")
+        proj = AnnotationProject("synapses", spec, device=dev,
+                                 backend=DirectoryBackend(os.path.join(aroot, "read")),
+                                 write_path_backend=LogBackend(os.path.join(aroot, "wal")))
+        rng = np.random.default_rng(17)
+        objs = []
+        for _ in range(tc["objects"]):
+            size = [int(rng.integers(*tc["obj"])) for _ in range(3)]
+            lo = [int(rng.integers(0, v - s)) for v, s in zip(tc["volume"], size)]
+            objs.append((lo, (rng.random(size) < 0.5).astype(np.uint32)))
+        ids, t_batch = drive(counts, dev, lambda: proj.batch_write_objects(
+            0, [(None, lo, m) for lo, m in objs]))
+        n_migrated, t_migrate = timed(dev, lambda: proj.store.backing.migrate())
+        check_objects(proj, ids, objs, dev, counts)
+        abacking, index = proj.store.backing, proj.index
+        wstats = dataclasses.asdict(abacking.write_stats)
+        del proj
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cold_proj = AnnotationProject("cold", spec, device=dev, store_factory=lambda s: (
+            DeviceCuboidStore(s, device=dev, backing=abacking)))
+        cold_proj.index = index
+        check_objects(cold_proj, ids, objs, dev, counts)
+        out["annotations"] = dict(objects=len(ids), batch_write_s=t_batch, migrate_s=t_migrate,
+                                  migrated=n_migrated, write_stats=wstats)
+        log(f"annotations: {len(ids)} objects written in {t_batch:.4f} s, migrate of "
+            f"{n_migrated} cuboids {t_migrate:.4f} s, object_cutout == oracle (resident and cold)")
+        del cold_proj
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["tiered"] = out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------- serving path ----
@@ -2603,6 +2916,7 @@ def rehearse():
     annotation_service(TINY, dev, spec, store, proj, report, {})
     del spec, store, proj
     timeseries_and_channels(TS_TINY, dev, report, None, {})
+    tiered_storage(TIER_TINY, dev, report, {})
     for sc in (SERVE_TINY, SSM_TINY, MOE_TINY):
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
@@ -2695,6 +3009,13 @@ def main(argv=None) -> int:
     log(f"launches on the timeseries path: {by_path['timeseries']}; phase "
         f"{report['timeseries']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
+
+    # the device store over the host tiers (phase 23)
+    counts = {}
+    tiered_storage(TIER_FULL, dev, report, counts)
+    by_path["tiered"] = read_launches("tiered", counts)
+    log(f"launches on the tiered path: {by_path['tiered']}; phase "
+        f"{report['tiered']['phase_s']:.1f} s")
 
     # the serving path
     cfg, model = serving_model(SERVE_FULL, dev)

@@ -6,6 +6,12 @@ reference's dense levels come from its own ``cutout(store, r, 0, shape,
 channel)``); `store_to_numpy` is the inverse and hands label datasets back
 as uint32 (`labels_to_numpy` does so for one label tensor).
 
+A host tier is a set of ``(key, blob)`` pairs of zlib-compressed cuboids,
+in the same format in both packages: `backend_items` reads them from any
+backend of either package and `backend_from_items` puts them into a
+backend (a new port `MemoryBackend` by default), so both sides can start
+from one tier's contents.
+
 An annotation project's state is its label levels, metadata rows, object
 index, exception lists, auto-id counter and dirty levels.
 `project_to_numpy` gives it as plain Python and numpy (levels as uint32
@@ -31,7 +37,7 @@ into the live tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +46,7 @@ from .core.annotations import Annotation, AnnotationProject
 from .core.cuboid import DatasetSpec
 from .core.distributed import (as_device_tensor, pack_to_cuboids, signed_view,
                                unpack_from_cuboids)
-from .core.store import DeviceCuboidStore
+from .core.store import Backend, DeviceCuboidStore, Key, MemoryBackend
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
 from .models.lm import LM, lm_specs
@@ -68,11 +74,13 @@ def labels_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def store_to_numpy(store: DeviceCuboidStore, channel: int = 0) -> Dict[int, np.ndarray]:
     """Dense numpy volume of every level of ``channel`` (unwritten levels
-    are zeros)."""
+    are zeros; over a backing, every cuboid is loaded first)."""
     out = {}
     dtype = np.dtype(store.spec.dtype)
     for r in range(store.spec.n_resolutions):
         grid = store.spec.grid(r)
+        if store.backing is not None:
+            store.ensure_resident(r, channel, np.arange(grid.n_cells))
         packed = store.peek(r, channel)
         if packed is None:
             out[r] = np.zeros(grid.volume_shape, dtype=dtype)
@@ -80,6 +88,20 @@ def store_to_numpy(store: DeviceCuboidStore, channel: int = 0) -> Dict[int, np.n
         dense = signed_view(unpack_from_cuboids(packed, grid)).cpu()
         out[r] = dense.numpy().view(dtype)
     return out
+
+
+def backend_items(backend) -> List[Tuple[Key, bytes]]:
+    """A backend's stored ``(key, blob)`` pairs, sorted by key (a log
+    tier's tombstones are absences, as they read)."""
+    return sorted((k, backend.get(k)) for k in backend.keys())
+
+
+def backend_from_items(items: Sequence[Tuple[Key, bytes]],
+                       backend: Optional[Backend] = None) -> Backend:
+    """``backend`` (a new `MemoryBackend` by default) holding ``items``."""
+    backend = MemoryBackend() if backend is None else backend
+    backend.put_many([(tuple(int(x) for x in k), bytes(b)) for k, b in items])
+    return backend
 
 
 def project_to_numpy(proj: AnnotationProject) -> Dict[str, Any]:

@@ -21,13 +21,19 @@ and otherwise the first object wins.  Under ``exception`` (or on a
 readonly project) it writes object by object through `write`, as the
 reference does, so a later object's conflicts with an earlier one are
 listed.
+
+With a ``backend`` or ``write_path_backend`` the label store is a
+`DeviceCuboidStore` over a host `CuboidStore` of those backends, as the
+reference keeps its labels: reads load cuboids on first touch and every
+write (the batch scatter included, object box by object box as the
+reference writes them) goes through to the backing before it returns.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,10 +41,11 @@ import torch
 from ..device import DeviceLike
 from . import morton
 from .cuboid import DatasetSpec
+from ..kernels.cutout_gather.ops import build_plan
 from .cutout import as_device_tensor, build_hierarchy, cutout, write_cutout
 from .distributed import signed_view
 from .spatial_index import ObjectIndex
-from .store import DeviceCuboidStore
+from .store import Backend, CuboidStore, DeviceCuboidStore
 
 RAMON_TYPES = ("generic", "seed", "synapse", "segment", "neuron", "organelle")
 
@@ -151,16 +158,29 @@ class AnnotationProject:
     ``enable_exceptions`` lets writes use the ``exception`` discipline,
     which keeps the stored label and lists each conflicting new label per
     cuboid (`exceptions_at`, `voxel_labels`); ``readonly`` refuses writes.
+    ``backend`` and ``write_path_backend`` put the labels on a host
+    `CuboidStore` of those backends (zlib level 1) under the device store;
+    ``store_factory(spec)`` builds the store instead.
     """
 
     def __init__(self, name: str, image_spec: DatasetSpec,
                  enable_exceptions: bool = False, readonly: bool = False,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 backend: Optional[Backend] = None,
+                 write_path_backend: Optional[Backend] = None,
+                 store_factory: Optional[Callable[[DatasetSpec], Any]] = None):
         self.name = name
         self.spec = dataclasses.replace(
             image_spec, name=f"{image_spec.name}/{name}", dtype="uint32",
             n_channels=1)
-        self.store = DeviceCuboidStore(self.spec, device=device)
+        if store_factory is not None:
+            self.store = store_factory(self.spec)
+        elif backend is not None or write_path_backend is not None:
+            self.store = DeviceCuboidStore(self.spec, device=device, backing=CuboidStore(
+                self.spec, backend=backend, write_path_backend=write_path_backend,
+                compression_level=1))
+        else:
+            self.store = DeviceCuboidStore(self.spec, device=device)
         self.meta = MetadataTable()
         self.index = ObjectIndex()
         self.enable_exceptions = enable_exceptions
@@ -272,14 +292,37 @@ class AnnotationProject:
         keep = self._in_volume(r, coords_t)
         coords_t, order_t = coords_t[keep], order_t[keep]
         ids_t = torch.from_numpy(np.asarray(ids, dtype=np.uint32).view(np.int32)).to(dev)
-        self._scatter_labels(r, coords_t, order_t, ids_t, discipline)
+        boxes = (self._box_cells(r, los, shapes) if self.store.backing is not None
+                 else [])
+        self._scatter_labels(r, coords_t, order_t, ids_t, discipline, boxes)
         self._index_voxels(r, coords_t, ids_t[order_t])
         return ids
 
+    def _box_cells(self, r: int, los, shapes) -> List[np.ndarray]:
+        """Each object's clamped box as Morton cells (none outside the
+        volume): the cuboids the reference writes for it."""
+        grid = self.spec.grid(r)
+        out = []
+        for lo, shape in zip(los, shapes):
+            clo, chi = grid.clamp_box(lo, [l + s for l, s in zip(lo, shape)])
+            out.append(build_plan(grid, clo, chi)[1].astype(np.int64)
+                       if all(l < h for l, h in zip(clo, chi))
+                       else np.zeros(0, np.int64))
+        return out
+
     def _scatter_labels(self, r: int, coords: torch.Tensor,
                         order: torch.Tensor, ids: torch.Tensor,
-                        discipline: str) -> None:
+                        discipline: str, boxes: List[np.ndarray]) -> None:
+        """One voxel scatter of the batch; over a backing the objects'
+        box cuboids are loaded first and written through after, object by
+        object, so the backing holds and counts what the reference's
+        per-object writes leave."""
+        if boxes:
+            self.store.ensure_resident(r, 0, np.concatenate(boxes))
         if coords.shape[0] == 0:
+            with self.store.write_guard:
+                for cells in boxes:
+                    self.store.write_through(r, 0, cells)
             return
         grid = self.spec.grid(r)
         cs = torch.tensor(grid.cuboid_shape, device=coords.device)
@@ -301,6 +344,8 @@ class AnnotationProject:
                 old = flat[ukey]
                 val = torch.where(old != 0, old, val)
             flat[ukey] = val
+            for cells in boxes:
+                self.store.write_through(r, 0, cells)
 
     # -- read ---------------------------------------------------------------
     def read(self, r: int, lo: Sequence[int], hi: Sequence[int],
@@ -319,6 +364,8 @@ class AnnotationProject:
         grid = self.spec.grid(r)
         m = grid.cuboid_of_voxel(voxel)
         local = tuple(int(v) - o for v, o in zip(voxel, grid.cuboid_origin(m)))
+        if self.store.backing is not None:
+            self.store.ensure_resident(r, 0, [m])
         packed = self.store.peek(r)
         primary = 0 if packed is None else int(packed[(m,) + local]) & 0xFFFFFFFF
         labels = [primary] if primary else []
@@ -359,6 +406,8 @@ class AnnotationProject:
         curve order and C order within each cuboid (paper Fig 9)."""
         grid = self.spec.grid(r)
         cells = self.index.cuboids(ann_id)
+        if cells and self.store.backing is not None:
+            self.store.ensure_resident(r, 0, cells)
         packed = self.store.peek(r)
         if not cells or packed is None:
             return torch.zeros((0, grid.rank), dtype=torch.int64,

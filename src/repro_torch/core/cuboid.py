@@ -93,6 +93,7 @@ class DatasetSpec:
     # dims that downscale per level (X,Y for EM; never Z/T):
     scaled_dims: Tuple[int, ...] = (0, 1)
     base_cuboid: Tuple[int, ...] | None = None  # default: auto per level
+    compress_level: int = 1  # zlib level of the host tiers' cuboids
 
     @property
     def spatial_rank(self) -> int:

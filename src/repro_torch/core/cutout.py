@@ -19,15 +19,26 @@ values to the host in one transfer.
 `project` reduces a cutout along one axis (a tile, a MIP rendering, paper
 §3.3) and `batch_cutout` cuts many boxes, one gather each.  Grids of rank
 1-4 (a time series is rank 4) go through the same kernel.
+
+Over a store with a host backing (`DeviceCuboidStore`), a cutout first
+makes the cuboids of its Morton runs resident (``max_runs`` coarsens the
+runs, which changes only which cuboids are loaded), and a write loads the
+cuboids it touches, merges on the device and writes the merged cuboids
+through to the backing before it returns.  `CutoutStats` counts as the
+reference's, and the reference's spans (``plan``, ``assemble``,
+``write.fetch``, ``write.store``) are opened around the same stages.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels.cutout_gather.ops import build_plan, cutout_gather
+from ..kernels.cutout_gather.ops import build_plan, planned_gather
+from ..obs import trace
+from . import morton
 from .cuboid import CuboidGrid, downsample_block, downsample_labels
 from .distributed import as_device_tensor, pad_to_grid, signed_view, split_blocks
 from .store import DeviceCuboidStore
@@ -42,16 +53,62 @@ DISCIPLINES = ("overwrite", "preserve", "exception")
 ConflictSink = Callable[[int, Tuple[int, ...], np.ndarray, np.ndarray], None]
 
 
+@dataclasses.dataclass
+class CutoutStats:
+    cuboids_read: int = 0
+    runs: int = 0
+    bytes_assembled: int = 0
+    bytes_discarded: int = 0   # read-and-discarded due to misalignment
+    zero_copy: int = 0         # aligned requests returned without a copy
+
+
+def _count(stats: CutoutStats, grid: CuboidGrid, lo, hi, gshape, alo,
+           n_runs: int, itemsize: int) -> None:
+    """Add one cutout to ``stats`` as the reference counts it: its buffer
+    is the cuboid-aligned box cut at the grid's edge."""
+    cs = grid.cuboid_shape
+    buf = [min((a // c + g) * c, n * c) - a
+           for a, c, g, n in zip(alo, cs, gshape, grid.grid_shape)]
+    out = [h - l for l, h in zip(lo, hi)]
+    stats.cuboids_read += int(np.prod(gshape))
+    stats.runs += n_runs
+    stats.bytes_assembled += int(np.prod(out)) * itemsize
+    stats.bytes_discarded += (int(np.prod(buf)) - int(np.prod(out))) * itemsize
+    stats.zero_copy += int(list(lo) == list(alo) and buf == out)
+
+
 def cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
-           hi: Sequence[int], channel: int = 0) -> torch.Tensor:
-    """Dense sub-volume [lo, hi) at resolution ``r``, on the store's device."""
+           hi: Sequence[int], channel: int = 0,
+           stats: Optional[CutoutStats] = None,
+           max_runs: Optional[int] = None) -> torch.Tensor:
+    """Dense sub-volume [lo, hi) at resolution ``r``, on the store's device.
+
+    Over a backing, the cuboids of the box's Morton runs (coarsened to at
+    most ``max_runs``) are made resident first; the answer does not depend
+    on ``max_runs``."""
     grid = store.spec.grid(r)
     lo, hi = grid.clamp_box(lo, hi)
     shape = [max(0, h - l) for l, h in zip(lo, hi)]
-    packed = store.peek(r, channel)
-    if packed is None or 0 in shape:
+    if 0 in shape:
         return torch.zeros(shape, dtype=store.dtype, device=store.device)
-    return cutout_gather(packed, grid, lo, hi)
+    backed = store.backing is not None
+    with trace.span("plan", r=r):
+        runs = (grid.box_to_runs(lo, hi, max_runs=max_runs)
+                if backed or stats is not None else None)
+        gshape, cells, alo = build_plan(grid, lo, hi)
+    if stats is not None:
+        _count(stats, grid, lo, hi, gshape, alo, len(runs),
+               np.dtype(store.spec.dtype).itemsize)
+    with trace.span("assemble", cuboids=len(cells), runs=len(runs or ())):
+        if backed:
+            packed = store.ensure_resident(r, channel, morton.runs_to_indices(runs))
+        else:
+            packed = store.peek(r, channel)
+            if packed is None:
+                return torch.zeros(shape, dtype=store.dtype, device=store.device)
+        plan = torch.from_numpy(cells).to(packed.device)
+        return planned_gather(packed, plan, gshape, [l - a for l, a in zip(lo, alo)],
+                              shape)
 
 
 def _merge_rows(packed: torch.Tensor, cells: torch.Tensor,
@@ -133,7 +190,10 @@ def write_cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
     ``preserve``, and ``exception``, which merges as ``preserve`` and calls
     ``on_conflict`` for each cuboid where labels collide (module
     docstring); the calls happen inside the store's write guard, so the
-    order of reports follows the order of merges.
+    order of reports follows the order of merges.  Over a backing, the
+    touched cuboids are loaded before the guard is taken, and each slab's
+    merged cuboids are written through before the next slab: when this
+    returns, the backing's write path holds the write.
     """
     if discipline not in DISCIPLINES:
         raise ValueError(f"unknown discipline {discipline!r}")
@@ -148,6 +208,10 @@ def write_cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
                          zip(clo[1:], chi[1:], cs[1:])])) * grid.cuboid_voxels
     report = discipline == "exception" and on_conflict is not None
     found = []
+    if store.backing is not None:
+        cells = build_plan(grid, clo, chi)[1]
+        with trace.span("write.fetch", cuboids=len(cells)):
+            store.ensure_resident(r, channel, cells)
     with store.write_guard:
         packed = store.level(r, channel)
         for g0, g1 in _slabs(clo[0] // cs[0], -(-chi[0] // cs[0]), plane):
@@ -155,9 +219,10 @@ def write_cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
             shi = [min(chi[0], g1 * cs[0])] + chi[1:]
             src = data[tuple(slice(a - l, b - l)
                              for a, b, l in zip(slo, shi, lo))]
-            part = _write_box(packed, grid, slo, shi,
-                              as_device_tensor(src, store.device), discipline,
-                              report=report)
+            cells, part = _write_box(packed, grid, slo, shi,
+                                     as_device_tensor(src, store.device), discipline,
+                                     report=report)
+            store.write_through(r, channel, cells)
             if part is not None and part.numel():
                 found.append(part)
         if found:
@@ -168,10 +233,11 @@ def write_cutout(store: DeviceCuboidStore, r: int, lo: Sequence[int],
 def _write_box(packed: torch.Tensor, grid: CuboidGrid, lo, hi,
                data: torch.Tensor, discipline: str,
                keep: Optional[torch.Tensor] = None,
-               report: bool = False) -> Optional[torch.Tensor]:
+               report: bool = False) -> Tuple[np.ndarray, Optional[torch.Tensor]]:
     """Merge ``data`` (exactly the box [lo, hi)) into the packed level;
-    ``keep`` (bool per box-grid cell, row-major) restricts the cells;
-    ``report`` returns the conflicts (`_merge_rows`)."""
+    ``keep`` (bool per box-grid cell, row-major) restricts the cells.
+    Returns the merged cells (Morton indices) and, with ``report``, the
+    conflicts (`_merge_rows`)."""
     gshape, cells, alo = build_plan(grid, lo, hi)
     cs = grid.cuboid_shape
     rel = [l - a for l, a in zip(lo, alo)]
@@ -180,10 +246,12 @@ def _write_box(packed: torch.Tensor, grid: CuboidGrid, lo, hi,
                           dtype=data.dtype, device=data.device)
     aligned[tuple(slice(a, a + s) for a, s in zip(rel, data.shape))] = data
     blocks = split_blocks(aligned, gshape, cs)
-    cells_t = torch.from_numpy(cells.astype(np.int64)).to(packed.device)
+    cells = cells.astype(np.int64)
     if keep is not None:
-        cells_t, blocks = cells_t[keep], blocks[keep]
-    return _merge_rows(packed, cells_t, blocks, discipline, report=report)
+        cells = cells[keep.cpu().numpy()]
+        blocks = blocks[keep]
+    cells_t = torch.from_numpy(cells).to(packed.device)
+    return cells, _merge_rows(packed, cells_t, blocks, discipline, report=report)
 
 
 def project(store: DeviceCuboidStore, r: int, lo: Sequence[int],
@@ -243,12 +311,13 @@ def build_hierarchy(store: DeviceCuboidStore, channel: int = 0,
     identifiers survive.  Vectorised over destination cuboids, one slab of
     cuboid planes at a time: the source region of the slab is one cutout,
     and a destination cuboid whose source region is all zero is skipped
-    (not written), as the reference skips it.
+    (not written), as the reference skips it.  Over a backing the written
+    cuboids are loaded first and written through, as `write_cutout` does.
     """
     spec = store.spec
     f = [2 if d in spec.scaled_dims else 1 for d in range(spec.spatial_rank)]
     for r in range(spec.n_resolutions - 1):
-        if store.peek(r, channel) is None:
+        if store.backing is None and store.peek(r, channel) is None:
             continue  # nothing stored at r: every destination is skipped
         dst = spec.grid(r + 1)
         cs = dst.cuboid_shape
@@ -270,7 +339,11 @@ def build_hierarchy(store: DeviceCuboidStore, channel: int = 0,
                     else downsample_block(block, spec.scaled_dims))
             if 0 in down.shape:
                 continue
+            dhi = [l + s for l, s in zip(dlo, down.shape)]
+            if store.backing is not None:
+                cells = build_plan(dst, dlo, dhi)[1][nonzero.cpu().numpy()]
+                store.ensure_resident(r + 1, channel, cells)
             with store.write_guard:
-                _write_box(store.level(r + 1, channel), dst, dlo,
-                           [l + s for l, s in zip(dlo, down.shape)], down,
-                           "overwrite", keep=nonzero)
+                cells, _ = _write_box(store.level(r + 1, channel), dst, dlo, dhi, down,
+                                      "overwrite", keep=nonzero)
+                store.write_through(r + 1, channel, cells)

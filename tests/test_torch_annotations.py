@@ -1,10 +1,11 @@
 """Port parity: the annotation project and the object index.
 
-Every case of tests/test_annotations.py (but the write-path backend, which
-waits for the host storage tiers) and of tests/test_spatial_index.py runs
-on the reference (`repro`) and on the port (`repro_torch`, on the CPU) with
-the same seeded inputs; labels, ids, coordinates, index contents and
-exception lists must be equal, and `distance` exactly equal.
+Every case of tests/test_annotations.py and of tests/test_spatial_index.py
+runs on the reference (`repro`) and on the port (`repro_torch`, on the CPU)
+with the same seeded inputs; labels, ids, coordinates, index contents and
+exception lists must be equal, and `distance` exactly equal.  Projects over
+host backends (``backend``, ``write_path_backend``, ``store_factory``)
+must also leave the reference's keys, cuboids and write counts there.
 """
 import itertools
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from hypothesis_compat import given, settings, st
+from torch_witness import port_witness  # noqa: F401
 
 from repro.core import cutout as jcut
 from repro.core.annotations import Annotation as JAnn
@@ -20,6 +22,7 @@ from repro.core.annotations import MetadataTable as JTable
 from repro.core.cuboid import CuboidGrid as JGrid
 from repro.core.cuboid import DatasetSpec as JSpec
 from repro.core.spatial_index import ObjectIndex as JIndex
+from repro.core.store import MemoryBackend as JMemory
 from repro_torch import carry
 from repro_torch.core import cutout as tcut
 from repro_torch.core.annotations import Annotation as TAnn
@@ -28,6 +31,9 @@ from repro_torch.core.annotations import MetadataTable as TTable
 from repro_torch.core.cuboid import CuboidGrid as TGrid
 from repro_torch.core.cuboid import DatasetSpec as TSpec
 from repro_torch.core.spatial_index import ObjectIndex as TIndex
+from repro_torch.core.store import CuboidStore as TStore
+from repro_torch.core.store import DeviceCuboidStore
+from repro_torch.core.store import MemoryBackend as TMemory
 
 BIG = 3_000_000_000  # past 2^31: a negative int32 on the device
 
@@ -527,3 +533,94 @@ def test_project_state_round_trip_and_continues_like_jax():
     assert_same_state(jp2, tp2, r=1)
     assert_same_state(jp2, tp2, r=0)
     assert carry.project_to_numpy(tp2)["rows"][-1]["ann_id"] == 41
+
+
+# -- projects over host backends ------------------------------------------
+
+def _decoded_items(store):
+    """Each stored key's decompressed cuboid (uint32 labels)."""
+    return {k: store.read_cuboid(k[0], k[2], k[1]) for k in store.stored_keys()}
+
+
+def _same_backends(jstore, tstore):
+    jitems, titems = _decoded_items(jstore), _decoded_items(tstore)
+    assert sorted(titems) == sorted(jitems)
+    for k in jitems:
+        np.testing.assert_array_equal(titems[k], jitems[k])
+    assert tstore.write_stats.writes == jstore.write_stats.writes
+
+
+def test_write_path_backend_for_annotations():
+    """tests/test_annotations.py's case: writes land on the write path,
+    `migrate` moves them to the read path, reads see them throughout."""
+    jp = JProject("ssd", JSpec(**image_kw()), write_path_backend=JMemory())
+    tp = TProject("ssd", TSpec(**image_kw()), device="cpu", write_path_backend=TMemory())
+    host = tp.store.backing
+    for p in (jp, tp):
+        a = p.meta.create()
+        p.write(0, (0, 0, 0), blob(a.ann_id))
+    assert len(list(host.write_backend.keys())) == len(list(jp.store.write_backend.keys())) > 0
+    assert len(list(host.read_backend.keys())) == 0
+    assert carry.backend_items(host.write_backend) == carry.backend_items(
+        jp.store.write_backend)
+    host.migrate()
+    jp.store.migrate()
+    assert len(list(host.write_backend.keys())) == 0
+    assert (labels(tp.read(0, (0, 0, 0), (2, 2, 2))) == a.ann_id).all()
+    assert carry.backend_items(host.read_backend) == carry.backend_items(jp.store.read_backend)
+
+
+@pytest.mark.parametrize("discipline", ["overwrite", "preserve", "exception"])
+def test_backed_batch_write_leaves_the_reference_backend(discipline):
+    """40 seeded objects (ids past 2^31, overlapping, some over the volume's
+    edge) in one batch, then `propagate`: the labels, exception lists,
+    index and the backends' keys, cuboids and write counts equal the
+    reference's; a project over the same backends reads them cold."""
+    jp = JProject("anno", JSpec(**image_kw(n_res=2)), enable_exceptions=True,
+                  backend=JMemory(), write_path_backend=JMemory())
+    tp = TProject("anno", TSpec(**image_kw(n_res=2)), device="cpu", enable_exceptions=True,
+                  backend=TMemory(), write_path_backend=TMemory())
+    rng = np.random.default_rng(7)
+    shape = jp.spec.grid(0).volume_shape
+    objs = []
+    for i in range(40):
+        lo = [int(rng.integers(-3, s - 2)) for s in shape]
+        vol = (rng.random([int(rng.integers(1, 12)) for _ in shape]) < 0.6).astype(np.uint32)
+        objs.append((BIG + i if i % 4 == 0 else 0, lo, vol))
+    for p, ann in ((jp, JAnn), (tp, TAnn)):
+        p.write(0, (4, 4, 4), blob(5, (20, 20, 10)))
+        p.batch_write_objects(0, [(ann(ann_id=i), lo, vol) for i, lo, vol in objs],
+                              discipline=discipline)
+        p.propagate()
+    assert_same_state(jp, tp)
+    _same_backends(jp.store, tp.store.backing)
+    for r in range(2):
+        vshape = jp.spec.grid(r).volume_shape
+        cold = DeviceCuboidStore(tp.spec, device="cpu", backing=tp.store.backing)
+        np.testing.assert_array_equal(labels(tcut.cutout(cold, r, (0, 0, 0), vshape)),
+                                      jcut.cutout(jp.store, r, (0, 0, 0), vshape))
+    fresh = TProject("anno", TSpec(**image_kw(n_res=2)), device="cpu",
+                     store_factory=lambda s: DeviceCuboidStore(s, device="cpu",
+                                                               backing=tp.store.backing))
+    fresh.index = tp.index
+    ids = jp.index.ids()
+    for i in ids[:6]:
+        np.testing.assert_array_equal(fresh.voxel_list(i, 0), jp.voxel_list(i, 0))
+        v = tuple(int(x) for x in jp.voxel_list(i, 0)[0])
+        assert fresh.voxel_labels(0, v)[:1] == jp.voxel_labels(0, v)[:1]
+    assert fresh.distance(ids[0], ids[1], 0) == jp.distance(ids[0], ids[1], 0)
+
+
+def test_store_factory_builds_the_store():
+    made = []
+
+    def factory(spec):
+        made.append(spec)
+        return DeviceCuboidStore(spec, device="cpu", backing=TStore(spec))
+
+    tp = TProject("f", TSpec(**image_kw()), device="cpu", store_factory=factory)
+    assert made == [tp.spec] and tp.store.backing is not None
+    a = tp.meta.create()
+    tp.write(0, (1, 2, 3), blob(a.ann_id))
+    assert len(tp.store.backing.stored_keys()) == 2  # z 3-8 spans two cuboids
+    assert TProject("n", TSpec(**image_kw()), device="cpu").store.backing is None

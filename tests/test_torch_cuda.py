@@ -1017,3 +1017,82 @@ def test_morton_matmul_tile_order_is_built_once_on_the_card(cuda):
     a = mm_ops.tile_order(47, 79, "hilbert", cuda)
     assert a.is_cuda and a is mm_ops.tile_order(47, 79, "hilbert", "cuda")
     assert 1 <= mm_ops.blocks_per_sm(torch.bfloat16) <= 8
+
+
+# -- the device store over the host tiers ------------------------------------
+
+def _backed(device, items, kw, workers=4, backing=None):
+    from repro_torch import carry
+    from repro_torch.core.store import CuboidStore, DecodePolicy
+
+    host = backing or CuboidStore(DatasetSpec(**kw), backend=carry.backend_from_items(items),
+                                  decode_policy=DecodePolicy(workers=workers, chunk=4))
+    return DeviceCuboidStore(host.spec, device=device, backing=host)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "uint32"])
+def test_cold_read_over_a_backing_equals_the_cpu_path(cuda, dtype):
+    """The tiers' cuboids loaded through pinned staging onto the card and
+    gathered by the kernel equal the CPU path's read, bit for bit; every
+    read launched `cutout_gather`."""
+    from repro_torch import carry
+    from repro_torch.core.store import CuboidStore, host_view
+
+    kw = dict(name="cold", volume_shape=(200, 150, 40), dtype=dtype, base_cuboid=(64, 64, 16))
+    rng = np.random.default_rng(3)
+    info = np.iinfo(np.dtype(dtype))
+    vol = rng.integers(0, info.max, size=kw["volume_shape"], dtype=np.uint64).astype(dtype)
+    vol[:64, :64, :16] = 0  # a lazy cuboid
+    writer = _backed("cpu", [], kw, backing=CuboidStore(DatasetSpec(**kw)))
+    tcut.ingest(writer, 0, vol)
+    items = carry.backend_items(writer.backing.read_backend)
+    card, cpu = _backed(cuda, items, kw), _backed("cpu", items, kw)
+    ops.reset_launches()
+    boxes = [((0, 0, 0), kw["volume_shape"]), ((5, 3, 2), (190, 141, 33)),
+             ((199, 149, 39), (200, 150, 40)), ((64, 0, 16), (192, 128, 32))]
+    for lo, hi in boxes:
+        got = tcut.cutout(card, 0, lo, hi)
+        assert got.is_cuda
+        want = tcut.cutout(cpu, 0, lo, hi)
+        np.testing.assert_array_equal(host_view(got.cpu(), dtype), host_view(want, dtype))
+        np.testing.assert_array_equal(host_view(want, dtype),
+                                      vol[tuple(slice(l, h) for l, h in zip(lo, hi))])
+    assert ops.launches == len(boxes)
+    assert card.resident_count(0) == cpu.resident_count(0) == int(np.prod(
+        card.spec.grid(0).grid_shape))  # every cuboid in the volume, once
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint32"])
+def test_write_through_from_the_card_equals_the_cpu_path(cuda, dtype):
+    """The same writes (every discipline), ingest and hierarchy build from
+    the card and from the CPU leave equal keys, blobs and write counts on
+    the host tiers."""
+    from repro_torch import carry
+    from repro_torch.core.store import CuboidStore
+
+    kw = dict(name="wt", volume_shape=(96, 80, 24), dtype=dtype, base_cuboid=(32, 32, 8),
+              n_resolutions=2)
+    rng = np.random.default_rng(4)
+    stores = [_backed(d, [], kw, backing=CuboidStore(DatasetSpec(**kw)))
+              for d in (cuda, "cpu")]
+    base = rng.integers(0, 3, size=kw["volume_shape"]).astype(dtype)
+    writes = []
+    for i in range(8):
+        lo = [int(rng.integers(0, s - 2)) for s in kw["volume_shape"]]
+        data = rng.integers(0, 4, size=[int(rng.integers(1, 40)) for _ in lo]).astype(dtype)
+        if dtype == "uint32":
+            data = data * np.uint32(1_000_000_000)
+        writes.append((lo, data, ("overwrite", "preserve", "exception")[i % 3]))
+    conflicts = []
+    for s in stores:
+        got = []
+        tcut.ingest(s, 0, base)
+        for lo, data, disc in writes:
+            tcut.write_cutout(s, 0, lo, data, discipline=disc,
+                              on_conflict=lambda m, o, a, b: got.append((m, a.sum(), b.sum())))
+        tcut.build_hierarchy(s, labels=dtype == "uint32")
+        conflicts.append(got)
+    assert conflicts[0] == conflicts[1]
+    card, cpu = (s.backing for s in stores)
+    assert carry.backend_items(card.read_backend) == carry.backend_items(cpu.read_backend)
+    assert card.write_stats.writes == cpu.write_stats.writes > 0
