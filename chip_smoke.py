@@ -236,6 +236,27 @@ Phases (any failure raises and the exit code is non-zero):
    write path (40 objects in one batch, `migrate`, each `object_cutout`
    equal to its numpy oracle, resident and cold).  The free bytes of the
    disk and the tiers' stored bytes are printed.
+24. The cluster and the front door, counted as phase 21: a seeded uint8
+   image of 4,096 x 4,096 x 128 (8,192 cuboids, 2 GiB) made with phase 2's
+   generator and bulk-loaded (zlib level 1, a thread a core) into a
+   `ClusterStore` of 4 in-memory nodes, replication 2, a 64 MiB cache a
+   node and write-behind on, under a `DeviceCuboidStore` registered with a
+   `VolumeService` and served by `FrontDoor` on 127.0.0.1: 64 cold then 64
+   warm GETs of 512 x 512 x 64 tiles (8 of them also zlib), beside the same
+   read in-process (each bit-equal to the host volume and the plain
+   gather; a cold read split into host fetch + decode, the copy, the
+   gather, and encode + send); 200 unaligned 96 x 96 x 12 PUTs with
+   ``sync`` (p50, p99), each read back at once over HTTP, then ``POST
+   /flush``; a ``POST /batch/cutout`` of 40 boxes up to the tile; 16 client
+   threads of 64 x 64 x 16 GETs for 10 s (requests/s, coalesced batches,
+   deduped, shed); ``POST /em/nodes`` (4 -> 5) then ``DELETE /em/nodes/0``
+   under 8 readers of 256 x 256 x 32 and a writer (``lost_reads`` must be
+   0; the topology before and after); a fresh device store over the moved
+   cluster reads the whole image and every acknowledged write; an
+   annotation project of 40 objects on its own cluster behind the same
+   service (``GET /objects/<id>/boundingbox`` equal to the index,
+   ``/cutout`` to numpy); ``GET /em/stats`` and ``/metrics``.  Each stage's
+   wall time is printed.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -249,6 +270,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import base64
 import concurrent.futures as cf
 import contextlib
 import dataclasses
@@ -262,6 +284,9 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 from types import SimpleNamespace
 
@@ -276,6 +301,7 @@ from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,  # noqa
                                train_state_from_tree, train_state_to_tree)
 from repro_torch.ckpt import restore_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.cluster import ClusterStore, VolumeService  # noqa: E402
 from repro_torch.core import cutout as cut  # noqa: E402
 from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core import morton  # noqa: E402
@@ -315,7 +341,7 @@ from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.models.attention import attention, qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
 from repro_torch.models.ssm import ssm_inputs, ssm_output  # noqa: E402
-from repro_torch.serve import (ContinuousBatcher, Request,  # noqa: E402
+from repro_torch.serve import (ContinuousBatcher, FrontDoor, Request,  # noqa: E402
                                make_prefill_step, make_serve_step)
 from repro_torch.vision import synapse_detector as sd  # noqa: E402
 
@@ -325,7 +351,7 @@ KERNELS = {
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
         ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training",
-                               "annotation", "timeseries", "tiered")),
+                               "annotation", "timeseries", "tiered", "cluster")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
@@ -378,6 +404,20 @@ TIER_FULL = dict(volume=(4096, 4096, 256), r=2, n_blobs=12288, slab=256,
 TIER_TINY = dict(volume=(256, 256, 32), r=2, n_blobs=12, slab=128,
                  tile=(64, 64, 16), reads=4, writes=6, wbox=(24, 24, 6),
                  objects=6, obj=(4, 12))
+# phase 24: a uint8 image on a cluster of in-memory nodes (cuboids 128 x 128
+# x 16) served over HTTP: ``cache`` bytes a node, ``clients`` load threads
+# for ``load_s`` seconds, ``readers`` threads during the moves; zlib on
+# ``zlib_reads`` of the warm tiles (its encode runs at tens of MB/s a core)
+CLUSTER_FULL = dict(volume=(4096, 4096, 128), r=2, n_blobs=6144, slab=256, nodes=4,
+                    replication=2, cache=64 << 20, tile=(512, 512, 64), reads=64,
+                    zlib_reads=8, writes=200,
+                    wbox=(96, 96, 12), batch=40, small=(64, 64, 16), clients=16, load_s=10.0,
+                    live_box=(256, 256, 32), readers=8, objects=40, obj=(8, 40))
+CLUSTER_TINY = dict(volume=(256, 256, 32), r=2, n_blobs=12, slab=128, nodes=4, replication=2,
+                    cache=1 << 20, tile=(64, 64, 16), reads=4, zlib_reads=2, writes=6,
+                    wbox=(24, 24, 6),
+                    batch=4, small=(16, 16, 8), clients=4, load_s=1.0, live_box=(32, 32, 8),
+                    readers=2, objects=6, obj=(4, 12))
 
 # the serving paths: smollm-135m and mamba2-370m at full width (bf16), and
 # tiny rehearsals; ``key`` names the path's entry in the report
@@ -1424,6 +1464,424 @@ def tiered_storage(tc, dev, report, counts):
     report["tiered"] = out
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+# ------------------------------------ cluster and front door, phase 24 ----
+
+def http(method, url, body=None):
+    """One HTTP round trip on loopback -> (status, headers, payload)."""
+    req = urllib.request.Request(url, data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def box_path(ds, lo, hi, verb="cutout"):
+    return f"/{ds}/{verb}/0/" + "/".join(f"{a},{b}" for a, b in zip(lo, hi))
+
+
+def wire_volume(status, headers, payload, what):
+    """The volume of a 200 octet-stream answer (zlib decoded)."""
+    if status != 200:
+        raise RuntimeError(f"{what}: HTTP {status}: {payload[:200]!r}")
+    if headers.get("X-Encode") == "zlib":
+        payload = zlib.decompress(payload)
+    shape = tuple(int(s) for s in headers["X-Shape"].split(","))
+    return np.frombuffer(payload, dtype=headers["X-Dtype"]).reshape(shape)
+
+
+def random_box(rng, volume, size, lo_max=None):
+    hi_lim = [v - s for v, s in zip(lo_max or volume, size)]
+    lo = [int(rng.integers(0, max(1, h + 1))) for h in hi_lim]
+    return lo, [l + s for l, s in zip(lo, size)]
+
+
+def load_cluster(cc, dev, spec, cluster, out):
+    """Make the image on the card slab by slab (phase 2's generator), bring
+    each slab to the host and bulk-load it into the cluster: chunks of 64
+    cuboids through `ClusterStore.store_cuboids` from a thread a core, so
+    each replica's zlib runs on the cluster's node pool in parallel; then
+    flush."""
+    grid = spec.grid(0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    centres = make_blobs(cc, gen, dev)
+    host = np.empty(cc["volume"], np.uint8)
+    cs = grid.cuboid_shape
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for x0 in range(0, cc["volume"][0], cc["slab"]):
+            slab = make_slab(cc, x0, centres, gen, dev)
+            lo, hi = (x0, 0, 0), (x0 + slab.shape[0],) + tuple(cc["volume"][1:])
+            gshape, cells, _ = gather_ops.build_plan(grid, lo, hi)
+            blocks = dist_mod.split_blocks(slab, gshape, cs).cpu().numpy()
+            host[x0:x0 + slab.shape[0]] = slab.cpu().numpy()
+            list(pool.map(lambda i: cluster.store_cuboids(0, {
+                int(m): blocks[j] for j, m in enumerate(cells[i:i + 64].tolist(), i)}),
+                range(0, len(cells), 64)))
+    out["ingest_flushed"] = cluster.flush()
+    out["ingest_s"] = time.perf_counter() - t0
+    out["stored_bytes"] = cluster.storage_bytes()
+    out["keys_per_node"] = cluster.keys_per_node()
+    return host
+
+
+def cluster_front_door(cc, dev, report, counts):
+    """Phase 24: a dataset on a replicated 4-node cluster under the device
+    store, served over HTTP on 127.0.0.1 by `FrontDoor`: cold and warm
+    reads, acknowledged writes, a batch, load with shedding, a grow and a
+    decommission under readers and a writer, a fresh device store over the
+    moved cluster, an annotation project, and the stats routes."""
+    t_phase = time.perf_counter()
+    out, stages = {}, {}
+    spec = DatasetSpec("em", cc["volume"], dtype="uint8")
+    grid = spec.grid(0)
+    cluster = ClusterStore(spec, n_nodes=cc["nodes"], replication=cc["replication"],
+                           cache_bytes=cc["cache"] * cc["nodes"], write_behind=True,
+                           max_workers=max(cc["nodes"], os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    host = load_cluster(cc, dev, spec, cluster, out)
+    stages["ingest_s"] = time.perf_counter() - t0
+    log(f"cluster of {cc['nodes']} nodes, replication {cc['replication']}: ingest of "
+        f"{grid.n_cells} cuboids ({host.nbytes / 2 ** 30:.2f} GiB raw) in {out['ingest_s']:.2f} s, "
+        f"{out['stored_bytes'] / 2 ** 30:.3f} GiB stored, keys per node {out['keys_per_node']}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    store = DeviceCuboidStore(spec, device=dev, backing=cluster)
+    service = VolumeService()
+    service.add_dataset("em", store)
+    door = FrontDoor(service)
+    door.start()
+    try:
+        url = door.url
+
+        # 1. cold, then warm reads of tiles, raw and zlib, beside in-process reads
+        t0 = time.perf_counter()
+        tiles = sd.tiling(grid.volume_shape, cc["tile"])
+        pick = np.random.default_rng(24).permutation(len(tiles))[:cc["reads"]]
+        tiles = [tiles[i] for i in sorted(pick)]
+        store.copy_events = []
+        cold, host_ms, copy_ms = [], [], []
+        for lo, hi in tiles:
+            before = store.load_stats.host_s
+            store.copy_events.clear()
+            (st, hd, pl), t = drive(counts, dev, lambda: http("GET", url + box_path("em", lo, hi)))
+            got = wire_volume(st, hd, pl, f"cold GET {lo}")
+            cold.append(t * 1e3)
+            host_ms.append((store.load_stats.host_s - before) * 1e3)
+            if dev.type == "cuda":
+                copy_ms.append(sum(a.elapsed_time(b) for a, b in store.copy_events))
+            want = host[box_of((lo, hi))]
+            plain = plain_cutout(store.peek(0), grid, lo, hi, dev).cpu().numpy()
+            if not np.array_equal(got, want) or not np.array_equal(plain, want):
+                raise RuntimeError(f"cold GET {lo}: the wire, the plain gather and the host "
+                                   f"volume differ")
+        store.copy_events = None
+        warm, warm_zlib, inproc = [], [], []
+        for lo, hi in tiles:
+            want = host[box_of((lo, hi))]
+            (st, hd, pl), t = drive(counts, dev, lambda: http("GET", url + box_path("em", lo, hi)))
+            warm.append(t * 1e3)
+            if not np.array_equal(wire_volume(st, hd, pl, f"warm GET {lo}"), want):
+                raise RuntimeError(f"warm GET {lo} differs from the host volume")
+            if len(warm_zlib) < cc["zlib_reads"]:
+                (st, hd, pl), t = drive(counts, dev, lambda: http(
+                    "GET", url + box_path("em", lo, hi) + "?encode=zlib"))
+                warm_zlib.append(t * 1e3)
+                if not np.array_equal(wire_volume(st, hd, pl, f"zlib GET {lo}"), want):
+                    raise RuntimeError(f"zlib GET {lo} differs from the host volume")
+            got, t = drive(counts, dev, lambda: cut.cutout(store, 0, lo, hi).cpu())
+            inproc.append(t * 1e3)
+            if not np.array_equal(got.numpy(), want):
+                raise RuntimeError(f"in-process read {lo} differs from the host volume")
+        gather_ms = None
+        if dev.type == "cuda":  # the kernel alone on the first tile (not counted)
+            args = gather_case(store.peek(0), grid, *tiles[0], dev)
+            gather_ms = event_times(dev, lambda i=0: gather_ops.cutout_gather_cuda(*args))
+        med = statistics.median
+        out["reads"] = dict(
+            tiles=len(tiles), tile=list(cc["tile"]), cold_ms_median=med(cold),
+            cold_ms_max=max(cold), host_fetch_decode_ms_median=med(host_ms),
+            h2d_copy_ms_median=med(copy_ms) if copy_ms else None, gather_ms=gather_ms,
+            warm_ms_median=med(warm), zlib_reads=len(warm_zlib),
+            warm_zlib_ms_median=med(warm_zlib),
+            in_process_ms_median=med(inproc),
+            wire_ms_median=med(warm) - med(inproc),
+            load_stats=dataclasses.asdict(store.load_stats))
+        stages["reads_s"] = time.perf_counter() - t0
+        log(f"{len(tiles)} cold GETs of {cc['tile']}: median {med(cold):.2f} ms (host fetch + "
+            f"decode {med(host_ms):.2f} ms, copy to the card "
+            f"{med(copy_ms) if copy_ms else float('nan'):.3f} ms, the gather {gather_ms} ms, "
+            f"encode and send {med(cold) - med(host_ms) - (med(copy_ms) if copy_ms else 0):.2f} "
+            f"ms); warm raw {med(warm):.3f} ms, warm zlib {med(warm_zlib):.3f} ms "
+            f"({len(warm_zlib)} tiles), in-process "
+            f"{med(inproc):.3f} ms (the wire {med(warm) - med(inproc):.3f} ms)")
+
+        # 2. writes acknowledged with {"sync": true}, each read back at once
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(124)
+        wb, put_ms, writes = cc["wbox"], [], []
+        for _ in range(cc["writes"]):
+            lo, hi = random_box(rng, cc["volume"], wb)
+            data = rng.integers(1, 256, size=wb, dtype=np.uint8)
+            (st, _, pl), t = drive(counts, dev, lambda: http(
+                "PUT", url + box_path("em", lo, hi) + "?sync=1", data.tobytes()))
+            if st != 200:
+                raise RuntimeError(f"PUT {lo}: HTTP {st}: {pl[:200]!r}")
+            put_ms.append(t * 1e3)
+            host[box_of((lo, hi))] = data
+            got = wire_volume(*drive(counts, dev, lambda: http(
+                "GET", url + box_path("em", lo, hi)))[0], f"read-back {lo}")
+            if not np.array_equal(got, data):
+                raise RuntimeError(f"PUT {lo} not read back at once over HTTP")
+            writes.append((lo, hi))
+        st, _, pl = http("POST", url + "/em/flush")
+        if st != 200:
+            raise RuntimeError(f"POST /flush: HTTP {st}")
+        out["writes"] = dict(n=len(writes), box=list(wb), p50_ms=float(np.percentile(put_ms, 50)),
+                             p99_ms=float(np.percentile(put_ms, 99)), max_ms=max(put_ms),
+                             flush=json.loads(pl))
+        stages["writes_s"] = time.perf_counter() - t0
+        log(f"{len(writes)} PUTs of {wb} with sync: p50 {out['writes']['p50_ms']:.3f} ms, p99 "
+            f"{out['writes']['p99_ms']:.3f} ms; each read back at once; POST /flush "
+            f"{out['writes']['flush']}")
+
+        # 3. a batch of boxes up to the tile
+        t0 = time.perf_counter()
+        boxes = [random_box(rng, cc["volume"], [int(rng.integers(1, t + 1)) for t in cc["tile"]])
+                 for _ in range(cc["batch"])]
+        body = json.dumps({"boxes": [[lo, hi] for lo, hi in boxes]}).encode()
+        (st, _, pl), t_batch = drive(counts, dev, lambda: http(
+            "POST", url + "/em/batch/cutout", body))
+        env = json.loads(pl)
+        if st != 200 or env["n"] != len(boxes):
+            raise RuntimeError(f"POST /batch/cutout: HTTP {st}")
+        for (lo, hi), res in zip(boxes, env["results"]):
+            got = np.frombuffer(base64.b64decode(res["data"]), np.uint8).reshape(res["shape"])
+            if not np.array_equal(got, host[box_of((lo, hi))]):
+                raise RuntimeError(f"batch box {lo} differs from the host volume")
+        out["batch"] = dict(boxes=len(boxes), s=t_batch,
+                            voxels=int(sum(np.prod([h - l for l, h in zip(*b)]) for b in boxes)))
+        stages["batch_s"] = time.perf_counter() - t0
+        log(f"POST /batch/cutout of {len(boxes)} boxes ({out['batch']['voxels']} voxels) in "
+            f"{t_batch:.3f} s, each equal to the host volume")
+
+        # 4. load: small GETs from many client threads, shedding allowed
+        t0 = time.perf_counter()
+        before, loads = door.counters(), dataclasses.asdict(store.load_stats)
+        answered, shed_seen, bad = [0] * cc["clients"], [0] * cc["clients"], []
+        stop = threading.Event()
+
+        def client(tid):
+            crng = np.random.default_rng(1000 + tid)
+            try:
+                while not stop.is_set():
+                    lo, hi = random_box(crng, cc["volume"], cc["small"])
+                    st, hd, pl = http("GET", url + box_path("em", lo, hi))
+                    if st == 503:
+                        shed_seen[tid] += 1
+                        continue
+                    if not np.array_equal(wire_volume(st, hd, pl, f"load GET {lo}"),
+                                          host[box_of((lo, hi))]):
+                        raise RuntimeError(f"load GET {lo} differs from the host volume")
+                    answered[tid] += 1
+            except Exception as e:  # surfaced below
+                bad.append(e)
+
+        def load():
+            threads = [threading.Thread(target=client, args=(t,)) for t in range(cc["clients"])]
+            for th in threads:
+                th.start()
+            time.sleep(cc["load_s"])
+            stop.set()
+            for th in threads:
+                th.join(timeout=120)
+
+        _, t_load = drive(counts, dev, load)
+        if bad:
+            raise RuntimeError(f"load: {bad[:3]}")
+        after = door.counters()
+        delta = {k: after[k] - before.get(k, 0) for k in after}
+        loads = {k: v - loads[k] for k, v in dataclasses.asdict(store.load_stats).items()}
+        out["load"] = dict(clients=cc["clients"], box=list(cc["small"]), s=t_load,
+                           answered=sum(answered), shed=sum(shed_seen),
+                           requests_per_s=sum(answered) / t_load, front_door=delta,
+                           admit_limit=door.admit_limit, cold_loads=loads)
+        stages["load_s"] = time.perf_counter() - t0
+        log(f"load: {cc['clients']} clients for {t_load:.2f} s: {sum(answered)} answered "
+            f"({sum(answered) / t_load:.1f} requests/s), {sum(shed_seen)} shed (503, admit "
+            f"limit {door.admit_limit}); front door {delta}; cold loads during it {loads}")
+
+        # 5. grow and decommission under readers and a writer
+        t0 = time.perf_counter()
+        topo_before = json.loads(http("GET", url + "/em/topology")[2])
+        lost, bad, acked = [], [], []
+        stop = threading.Event()
+        reserve = cc["volume"][0] - 2 * cc["wbox"][0]  # the writer's rows, no reader's
+
+        def reader(tid):
+            rrng = np.random.default_rng(2000 + tid)
+            try:
+                while not stop.is_set():
+                    lo, hi = random_box(rrng, cc["volume"], cc["live_box"],
+                                        lo_max=[reserve] + list(cc["volume"][1:]))
+                    st, hd, pl = http("GET", url + box_path("em", lo, hi))
+                    if st != 200 or not np.array_equal(
+                            wire_volume(st, hd, pl, "live GET"), host[box_of((lo, hi))]):
+                        lost.append((lo, st))
+            except Exception as e:  # surfaced below
+                bad.append(e)
+
+        def writer():
+            wrng = np.random.default_rng(3000)
+            try:
+                while not stop.is_set():
+                    lo, hi = random_box(wrng, cc["volume"], wb)
+                    lo[0] = reserve + int(wrng.integers(0, cc["volume"][0] - reserve - wb[0] + 1))
+                    hi[0] = lo[0] + wb[0]
+                    data = wrng.integers(1, 256, size=wb, dtype=np.uint8)
+                    st, _, pl = http("PUT", url + box_path("em", lo, hi), data.tobytes())
+                    if st != 200:
+                        lost.append((lo, st))
+                        continue
+                    host[box_of((lo, hi))] = data
+                    acked.append((lo, hi))
+            except Exception as e:  # surfaced below
+                bad.append(e)
+
+        def moves():
+            threads = [threading.Thread(target=reader, args=(t,)) for t in range(cc["readers"])]
+            threads.append(threading.Thread(target=writer))
+            for th in threads:
+                th.start()
+            try:
+                time.sleep(0.5)
+                grow = timed(dev, lambda: json.loads(http("POST", url + "/em/nodes")[2]))
+                time.sleep(0.5)
+                drop = timed(dev, lambda: json.loads(http("DELETE", url + "/em/nodes/0")[2]))
+                time.sleep(0.5)
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=120)
+            return grow, drop
+
+        ((grow, t_grow), (drop, t_drop)), t_moves = drive(counts, dev, moves)
+        topo_after = json.loads(http("GET", url + "/em/topology")[2])
+        if bad or grow.get("status") != 200 or drop.get("status") != 200:
+            raise RuntimeError(f"topology changes: {bad[:3]} {grow.get('error')} "
+                               f"{drop.get('error')}")
+        if lost:
+            raise RuntimeError(f"lost_reads {len(lost)} during the moves: {lost[:5]}")
+        if topo_after["n_nodes"] != cc["nodes"]:
+            raise RuntimeError(f"{topo_after['n_nodes']} nodes after the grow and the drop")
+        out["moves"] = dict(s=t_moves, lost_reads=0, writes_acked=len(acked),
+                            grow_s=t_grow,
+                            grow_new_node_keys=grow["topology"]["keys_per_node"][-1],
+                            decommission_s=drop["seconds"], decommission_http_s=t_drop,
+                            decommission_moved_keys=drop["moved_keys"],
+                            topology_before=topo_summary(topo_before),
+                            topology_after=topo_summary(topo_after))
+        stages["moves_s"] = time.perf_counter() - t0
+        log(f"grow {cc['nodes']} -> {cc['nodes'] + 1} and decommission of node 0 under "
+            f"{cc['readers']} readers and a writer ({len(acked)} PUTs acknowledged): lost_reads 0; "
+            f"topology before {out['moves']['topology_before']}, after "
+            f"{out['moves']['topology_after']}; grow (POST /em/nodes) {t_grow:.3f} s, the new "
+            f"node took {out['moves']['grow_new_node_keys']} keys; decommission "
+            f"{drop['seconds']:.3f} s, {drop['moved_keys']} keys moved")
+
+        # 6. a fresh device store over the moved cluster reads everything
+        t0 = time.perf_counter()
+        if http("POST", url + "/flush")[0] != 200:
+            raise RuntimeError("POST /flush after the moves failed")
+        after_store = DeviceCuboidStore(spec, device=dev, backing=cluster)
+        step = cc["slab"]
+        for x0 in range(0, cc["volume"][0], step):
+            lo, hi = (x0, 0, 0), (min(x0 + step, cc["volume"][0]),) + tuple(cc["volume"][1:])
+            got = drive(counts, dev, lambda: cut.cutout(after_store, 0, lo, hi))[0]
+            if not np.array_equal(got.cpu().numpy(), host[box_of((lo, hi))]):
+                raise RuntimeError(f"a fresh store over the moved cluster reads slab {x0} "
+                                   f"otherwise")
+        out["fresh_read_s"] = time.perf_counter() - t0
+        stages["fresh_s"] = out["fresh_read_s"]
+        log(f"a fresh device store read the whole image and all {len(writes) + len(acked)} "
+            f"acknowledged writes bit-equal in {out['fresh_read_s']:.2f} s")
+        del after_store
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 7. an annotation project behind the same service
+        t0 = time.perf_counter()
+        proj = AnnotationProject("anno", spec, device=dev, store_factory=lambda s: (
+            DeviceCuboidStore(s, device=dev, backing=ClusterStore(
+                s, n_nodes=cc["nodes"], replication=cc["replication"]))))
+        service.add_project("anno", proj)
+        orng = np.random.default_rng(17)
+        objs = []
+        for _ in range(cc["objects"]):
+            size = [int(orng.integers(*cc["obj"])) for _ in range(3)]
+            lo = [int(orng.integers(0, v - s)) for v, s in zip(cc["volume"], size)]
+            objs.append((lo, (orng.random(size) < 0.5).astype(np.uint32)))
+        ids = drive(counts, dev, lambda: proj.batch_write_objects(
+            0, [(None, lo, m) for lo, m in objs]))[0]
+        for ann_id in ids:
+            st, _, pl = http("GET", url + f"/anno/objects/{ann_id}/boundingbox")
+            bbox = json.loads(pl)
+            if st != 200 or (bbox["lo"], bbox["hi"]) != tuple(
+                    list(b) for b in proj.bounding_box(ann_id, 0)):
+                raise RuntimeError(f"object {ann_id}: boundingbox {bbox} != the index's")
+            (st, hd, pl), _ = drive(counts, dev, lambda: http(
+                "GET", url + f"/anno/objects/{ann_id}/cutout"))
+            dense = wire_volume(st, hd, pl, f"object {ann_id}")
+            olo = [int(v) for v in hd["X-Lo"].split(",")]
+            if not np.array_equal(dense, object_oracle(olo, dense.shape, objs, ids, ann_id)):
+                raise RuntimeError(f"object {ann_id}: GET cutout != its numpy oracle")
+        out["annotations"] = dict(objects=len(ids))
+        stages["annotations_s"] = time.perf_counter() - t0
+        log(f"annotations: {len(ids)} objects; GET boundingbox == the index and GET cutout == "
+            f"numpy for each")
+
+        # 8. the stats routes
+        for path in ("/em/stats", "/metrics"):
+            st, _, pl = http("GET", url + path)
+            if st != 200:
+                raise RuntimeError(f"GET {path}: HTTP {st}")
+        stats = json.loads(http("GET", url + "/em/stats")[2])
+        out["stats"] = dict(cache=stats["cache"], queue=stats["queue"],
+                            health=[h["state"] for h in stats["health"]])
+        out["front_door"] = door.counters()
+        log(f"GET /em/stats and /metrics 200; cache {stats['cache']}; front door "
+            f"{out['front_door']}")
+    finally:
+        door.close()
+        cluster.close()
+    out["stages"] = stages
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 24 stages (s): {stages}")
+    report["cluster"] = out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def topo_summary(topo):
+    return dict(n_nodes=topo["n_nodes"], replication=topo["replication"],
+                keys_per_node=topo["keys_per_node"], health=topo["health"])
+
+
+def object_oracle(lo, shape, objs, ids, ann_id):
+    """The numpy oracle of one object's cutout (as `check_objects`)."""
+    want = np.zeros(shape, np.uint32)
+    for j, (olo, mask) in enumerate(objs):
+        a = [max(l, o) for l, o in zip(lo, olo)]
+        b = [min(l + s, o + m) for l, s, o, m in zip(lo, shape, olo, mask.shape)]
+        if any(x >= y for x, y in zip(a, b)):
+            continue
+        sub = mask[tuple(slice(x - o, y - o) for x, y, o in zip(a, b, olo))]
+        dst = want[tuple(slice(x - l, y - l) for x, y, l in zip(a, b, lo))]
+        dst[sub != 0] = ids[j]
+    want[want != ann_id] = 0
+    return want
 
 
 # -------------------------------------------------------- serving path ----
@@ -2917,6 +3375,7 @@ def rehearse():
     del spec, store, proj
     timeseries_and_channels(TS_TINY, dev, report, None, {})
     tiered_storage(TIER_TINY, dev, report, {})
+    cluster_front_door(CLUSTER_TINY, dev, report, {})
     for sc in (SERVE_TINY, SSM_TINY, MOE_TINY):
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
@@ -3016,6 +3475,15 @@ def main(argv=None) -> int:
     by_path["tiered"] = read_launches("tiered", counts)
     log(f"launches on the tiered path: {by_path['tiered']}; phase "
         f"{report['tiered']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the cluster under the device store, served over HTTP (phase 24)
+    counts = {}
+    cluster_front_door(CLUSTER_FULL, dev, report, counts)
+    by_path["cluster"] = read_launches("cluster", counts)
+    log(f"launches on the cluster path: {by_path['cluster']}; phase "
+        f"{report['cluster']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
 
     # the serving path
     cfg, model = serving_model(SERVE_FULL, dev)

@@ -30,16 +30,26 @@ The global rank order (must match the `ordered_lock` call sites):
 ====  ======================  ==================================
 rank  name                    lock
 ====  ======================  ==================================
+ 10   cluster.admin           ``ClusterStore._admin_lock``
+ 20   cluster.move            ``ClusterStore._move_lock``
  20   device.write            ``DeviceCuboidStore.write_guard``
                               (held over a write's merge and its
-                              write-through to the backing store)
+                              write-through to the backing store;
+                              a cluster backing fans it out to its
+                              node pool, which never takes it:
+                              ``ClusterStore.allow_submit_under``)
+ 22   cluster.health          ``ClusterStore._health_lock``
+ 24   cluster.repair          ``ClusterStore._repair_lock``
  30   store.order             ``CuboidStore._order_lock``
  40   store.data              ``CuboidStore._lock`` (also the
                               write-behind apply lock)
  50   wal.log                 ``LogBackend._lock``
  50   backend.memory          ``MemoryBackend._lock``
  60   cache.segments          ``CuboidCache._lock``
+ 65   frontdoor.coalesce      ``_CutoutCoalescer._lock``
  70   store.stats             ``CuboidStore._stats_lock``
+ 75   cluster.heat            ``ClusterStore._heat_lock``
+ 76   cluster.batch           ``ClusterStore._batch_lock``
  80   store.decode_pools      ``_DECODE_POOLS_LOCK``
  81   store.drain             cold-read drain ``todo_lock``
  84   device.alloc            ``DeviceCuboidStore._alloc_guard``
@@ -51,7 +61,7 @@ rank  name                    lock
  93   obs.log                 ``obs.log._handler_lock``
 ====  ======================  ==================================
 
-Conditions (the write-behind queue's ``_mu``) stay raw
+Conditions (`_OpGate._cond`, the write-behind queue's ``_mu``) stay raw
 ``threading.Condition`` objects: they are leaves that wrap their own
 private mutex and are never held across another ranked acquire.
 """

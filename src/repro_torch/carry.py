@@ -10,7 +10,11 @@ A host tier is a set of ``(key, blob)`` pairs of zlib-compressed cuboids,
 in the same format in both packages: `backend_items` reads them from any
 backend of either package and `backend_from_items` puts them into a
 backend (a new port `MemoryBackend` by default), so both sides can start
-from one tier's contents.
+from one tier's contents.  A cluster's state is its node count, its
+replication, each resolution's `Partition.bounds` and each node's backend
+items: `cluster_items` reads it from either package's `ClusterStore`, and
+`cluster_from_items` builds a port cluster holding it (or fills an empty
+cluster of either package), so both sides can start from one cluster.
 
 An annotation project's state is its label levels, metadata rows, object
 index, exception lists, auto-id counter and dirty levels.
@@ -102,6 +106,52 @@ def backend_from_items(items: Sequence[Tuple[Key, bytes]],
     backend = MemoryBackend() if backend is None else backend
     backend.put_many([(tuple(int(x) for x in k), bytes(b)) for k, b in items])
     return backend
+
+
+def cluster_items(cluster) -> Dict[str, Any]:
+    """A cluster's state (`ClusterStore` of either package) as numpy data
+    and bytes, taken after its flush barrier so no write is still queued:
+    ``n_nodes``, ``replication``, ``bounds`` ({r: int64 `Partition.bounds`})
+    and ``nodes`` (per node, the items of its ``read`` and ``write``
+    backends; ``write`` is None without a write path)."""
+    cluster.flush()
+    router = cluster.router
+    return {
+        "n_nodes": cluster.n_nodes,
+        "replication": int(cluster.replication),
+        "bounds": {r: np.asarray(router.partition(r).bounds, dtype=np.int64)
+                   for r in range(cluster.spec.n_resolutions)},
+        "nodes": [{"read": backend_items(node.read_backend),
+                   "write": (None if node.write_backend is None
+                             else backend_items(node.write_backend))}
+                  for node in cluster.nodes],
+    }
+
+
+def cluster_from_items(spec: DatasetSpec, items: Dict[str, Any], into=None, **kwargs):
+    """A cluster holding ``items`` (`cluster_items`): a new port
+    `ClusterStore` built with ``kwargs``, or ``into``, an empty cluster of
+    either package with as many nodes, whose router is replaced.  Each
+    node's backends get its blobs; its cache and queue start empty."""
+    from .cluster.store import ClusterStore
+
+    cluster = into if into is not None else ClusterStore(
+        spec, n_nodes=items["n_nodes"], replication=items["replication"], **kwargs)
+    nodes = cluster.nodes
+    if len(nodes) != items["n_nodes"]:
+        raise ValueError(f"cluster has {len(nodes)} nodes, the items {items['n_nodes']}")
+    router = cluster.router
+    part = type(router.partition(0))
+    bounds = items["bounds"]
+    cluster._swap_topo(type(cluster._topo)(tuple(nodes), type(router)(
+        cluster.spec, len(bounds[0]) - 1, {r: part(tuple(int(b) for b in bounds[r]))
+                                           for r in bounds},
+        items["replication"])))
+    for node, state in zip(nodes, items["nodes"]):
+        backend_from_items(state["read"], node.read_backend)
+        if state["write"] is not None:
+            backend_from_items(state["write"], node.write_backend)
+    return cluster
 
 
 def project_to_numpy(proj: AnnotationProject) -> Dict[str, Any]:

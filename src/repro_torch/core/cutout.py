@@ -31,6 +31,7 @@ reference's, and the reference's spans (``plan``, ``assemble``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -292,8 +293,14 @@ def project(store: DeviceCuboidStore, r: int, lo: Sequence[int],
 def batch_cutout(store: DeviceCuboidStore, r: int, boxes: Sequence[Box],
                  channel: int = 0) -> List[torch.Tensor]:
     """Cutouts of many boxes (paper §4.2's batch interface), in request
-    order, one gather each."""
-    return [cutout(store, r, lo, hi, channel) for lo, hi in boxes]
+    order, one gather each.  Over a cluster the boxes overlap on its
+    request-level pool (``run_batch``), so one box's cold loads pipeline
+    with another's; over any other store they run one after another."""
+    jobs = [functools.partial(cutout, store, r, lo, hi, channel) for lo, hi in boxes]
+    runner = getattr(store.backing, "run_batch", None)
+    if runner is None:
+        return [job() for job in jobs]
+    return list(runner(jobs))
 
 
 def ingest(store: DeviceCuboidStore, r: int, volume, channel: int = 0,

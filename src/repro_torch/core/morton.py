@@ -8,11 +8,13 @@ dimensions drop out of the interleave, so the index stays dense in
 before any device work, and only the resulting cell list moves to the card.
 `range_decompose` and the run helpers serve the object index and the
 cutout plan, the 2-d Hilbert decode serves `kernels/morton_matmul`'s tile
-orders, and `partition_curve` with `owner_of` cuts a curve into the ranks'
-or hosts' segments (`core.distributed`, `data.pipeline`).
+orders, `partition_curve` with `owner_of` cuts a curve into the ranks'
+or hosts' segments (`core.distributed`, `data.pipeline`), and `Partition`
+is the movable boundary list the cluster's `Router` owns by.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, Sequence, Tuple
 
@@ -212,13 +214,141 @@ def partition_curve(n_cells: int, n_parts: int) -> List[Tuple[int, int]]:
 
 def owner_of(idx, n_cells: int, n_parts: int):
     """Owning segment of morton index(es) under `partition_curve`; scalar
-    in, scalar out.  ``searchsorted(bounds, idx, 'right') - 1`` lands on
-    the last segment starting at or before ``idx``, which is the non-empty
-    one, so ownership stays total when ``n_parts > n_cells``."""
-    parts = partition_curve(n_cells, n_parts)
-    bounds = np.asarray([a for a, _ in parts] + [n_cells], dtype=np.int64)
-    arr = np.asarray(idx, dtype=np.int64)
-    if arr.size and (arr.min() < 0 or arr.max() >= max(n_cells, 1)):
-        raise ValueError(f"morton index out of range [0, {n_cells})")
-    owner = np.searchsorted(bounds, arr, side="right") - 1
-    return owner if arr.ndim else int(owner)
+    in, scalar out (`Partition.owner` of the even split, so ownership
+    stays total when ``n_parts > n_cells``)."""
+    return Partition.even(n_cells, n_parts).owner(idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """Explicit contiguous partition of the curve [0, n_cells).
+
+    ``bounds`` has ``n_parts + 1`` non-decreasing entries: part ``i`` owns
+    the half-open segment ``[bounds[i], bounds[i+1])``.  This is the
+    ownership function made *movable* (paper §6 "dynamically redistribute
+    data"): `partition_curve` is the even default, `balanced` re-cuts the
+    boundaries by occupancy, and `moves` diffs two partitions into the
+    segment migrations a rebalance must perform.  Empty segments (equal
+    adjacent bounds) are legal everywhere — a node may own nothing at a
+    resolution — and `owner`/`split` skip them.
+    """
+
+    bounds: Tuple[int, ...]
+
+    def __post_init__(self):
+        bounds = tuple(int(b) for b in self.bounds)
+        object.__setattr__(self, "bounds", bounds)
+        if len(bounds) < 2:
+            raise ValueError("bounds needs >= 2 entries (one segment)")
+        if bounds[0] != 0:
+            raise ValueError(f"bounds must start at 0, got {bounds[0]}")
+        if any(a > b for a, b in zip(bounds, bounds[1:])):
+            raise ValueError(f"bounds must be non-decreasing: {bounds}")
+        object.__setattr__(self, "_bounds_arr", np.asarray(bounds, dtype=np.int64))
+
+    @staticmethod
+    def even(n_cells: int, n_parts: int) -> "Partition":
+        """The `partition_curve` default as an explicit boundary list."""
+        return Partition.from_segments(partition_curve(n_cells, n_parts))
+
+    @staticmethod
+    def from_segments(segments: Sequence[Tuple[int, int]]) -> "Partition":
+        bounds = [0]
+        for a, b in segments:
+            if a != bounds[-1]:
+                raise ValueError(f"segments not contiguous at {a}")
+            bounds.append(b)
+        return Partition(tuple(bounds))
+
+    @staticmethod
+    def balanced(cells: Sequence[int], n_cells: int, n_parts: int) -> "Partition":
+        """Occupancy-balanced boundaries: ~equal key counts per part.
+
+        ``cells`` is the (multiset of) occupied morton indexes — one entry
+        per stored key, so multi-channel cells weigh more.  Boundaries are
+        quantile cuts of the sorted occupancy; an empty occupancy falls
+        back to the even split.
+        """
+        if n_parts <= 0:
+            raise ValueError("n_parts must be positive")
+        cells = np.sort(np.asarray(cells, dtype=np.int64))
+        if cells.size == 0:
+            return Partition.even(n_cells, n_parts)
+        if cells[0] < 0 or cells[-1] >= n_cells:
+            raise ValueError("occupied cell out of range")
+        cuts = []
+        for i in range(1, n_parts):
+            ideal = (i * cells.size) // n_parts
+            v = int(cells[ideal])
+            # A cut can only land on a cell boundary; duplicates (multi-
+            # channel keys) make the two candidate boundaries around the
+            # ideal count differ — take whichever splits closer to it.
+            below = int(np.searchsorted(cells, v, side="left"))
+            above = int(np.searchsorted(cells, v, side="right"))
+            cuts.append(v if ideal - below < above - ideal else v + 1)
+        cuts = np.minimum.accumulate(np.minimum(cuts, n_cells)[::-1])[::-1]
+        cuts = np.maximum.accumulate(cuts)  # keep bounds non-decreasing
+        return Partition((0, *(int(c) for c in cuts), int(n_cells)))
+
+    @property
+    def n_parts(self) -> int:
+        return len(self.bounds) - 1
+
+    @property
+    def n_cells(self) -> int:
+        return self.bounds[-1]
+
+    def segments(self) -> List[Tuple[int, int]]:
+        return list(zip(self.bounds[:-1], self.bounds[1:]))
+
+    def owner(self, idx):
+        """Owning part of morton index(es); scalar in, scalar out.
+
+        ``searchsorted(..., 'right') - 1`` lands on the *last* segment
+        whose start is <= idx, which is exactly the non-empty one — empty
+        segments (zero span) can never win, so ownership stays total even
+        when ``n_parts > n_cells`` or rebalanced bounds collapse a node's
+        segment to nothing.
+        """
+        arr = np.asarray(idx, dtype=np.int64)
+        if arr.size and (arr.min() < 0 or arr.max() >= max(self.n_cells, 1)):
+            raise ValueError(f"morton index out of range [0, {self.n_cells})")
+        owner = np.searchsorted(self._bounds_arr, arr, side="right") - 1
+        return owner if arr.ndim else int(owner)
+
+    def split(self, start: int, stop: int) -> List[Tuple[int, int, int]]:
+        """Split curve run [start, stop) at partition boundaries.
+
+        Returns [(part, start, stop), ...] in curve order; every piece is
+        non-empty and wholly owned.  Empty segments are skipped rather
+        than walked into (the historical ``node += 1`` scan emitted
+        zero-length pieces and could run off the segment list).
+        """
+        if not (0 <= start <= stop <= self.n_cells):
+            raise ValueError(f"run [{start},{stop}) outside [0, {self.n_cells})")
+        pieces: List[Tuple[int, int, int]] = []
+        while start < stop:
+            part = int(np.searchsorted(self._bounds_arr, start, side="right")) - 1
+            piece_stop = min(stop, self.bounds[part + 1])
+            pieces.append((part, start, piece_stop))
+            start = piece_stop
+        return pieces
+
+    def moves(self, new: "Partition") -> List[Tuple[int, int, int, int]]:
+        """Diff against ``new``: [(start, stop, src, dst), ...] runs whose
+        owner changes — the segment migrations a rebalance performs."""
+        if new.n_cells != self.n_cells:
+            raise ValueError("partitions cover different curves")
+        cuts = sorted(set(self.bounds) | set(new.bounds))
+        out: List[Tuple[int, int, int, int]] = []
+        for a, b in zip(cuts, cuts[1:]):
+            if a == b:
+                continue
+            src, dst = self.owner(a), new.owner(a)
+            if src == dst:
+                continue
+            if out and out[-1][1] == a and out[-1][2:] == (src, dst):
+                out[-1] = (out[-1][0], b, src, dst)
+            else:
+                out.append((a, b, src, dst))
+        return out

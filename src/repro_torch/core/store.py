@@ -22,9 +22,10 @@ writes are row scatters.  Channels are not in the Morton index: each
 channel has a packed tensor of its own, as the reference keeps separate
 cuboids per channel.  A (level, channel) is allocated (zero-filled) when
 it is first used; without a backing, reading one that was never written
-returns zeros, like the reference's lazy cuboids.  Over a backing
-`CuboidStore` the device store loads cuboids on first touch and writes
-every merged cuboid through (`DeviceCuboidStore`).
+returns zeros, like the reference's lazy cuboids.  Over a backing host
+store — a `CuboidStore`, or a `cluster.ClusterStore` of node stores — the
+device store loads cuboids on first touch and writes every merged cuboid
+through (`DeviceCuboidStore`).
 
 Label data (``dtype="uint32"``) is held as int32 on the device with the
 same bits: PyTorch's uint32 lacks ``index_select`` and ``max``.  Data
@@ -40,7 +41,7 @@ import os
 import threading
 import time
 import zlib
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -52,6 +53,9 @@ from ..obs import trace
 from . import morton
 from .cuboid import DatasetSpec
 from .distributed import signed_view
+
+if TYPE_CHECKING:
+    from ..cluster.store import ClusterStore
 
 Key = Tuple[int, int, int]  # (resolution, channel, morton index)
 
@@ -1322,19 +1326,24 @@ class LoadStats:
 
 class DeviceCuboidStore:
     """Packed ``(n_cells, *cuboid_shape)`` tensor per (level, channel), on
-    ``device``, optionally over a host `CuboidStore` (``backing``).
+    ``device``, optionally over a host store (``backing``): a single-node
+    `CuboidStore` or a `ClusterStore` of node stores, which have the same
+    storage interface.
 
     Without a backing the packed tensors are the only copy.  With one,
     every cuboid has a resident flag: `ensure_resident` loads the cuboids
     not yet resident through ``backing.fetch_blocks`` (a cuboid the
     backing lacks stays zero and counts as resident), and `write_through`
     hands merged rows to ``backing.store_cuboids``, so a write is
-    acknowledged only once the backing's write path holds it.  Levels stay
-    allocated whole; nothing is evicted.
+    acknowledged only once the backing's write path holds it (over a
+    cluster: every member of the cuboid's replica set).  A cluster's live
+    rebalance moves blobs between its nodes and changes no cuboid, so the
+    resident rows stay current through it.  Levels stay allocated whole;
+    nothing is evicted.
     """
 
     def __init__(self, spec: DatasetSpec, device: DeviceLike = "cuda",
-                 backing: Optional[CuboidStore] = None):
+                 backing: Optional[Union[CuboidStore, "ClusterStore"]] = None):
         if backing is not None and backing.spec.dtype != spec.dtype:
             raise ValueError(f"backing holds {backing.spec.dtype}, the store "
                              f"{spec.dtype}")
@@ -1350,6 +1359,10 @@ class DeviceCuboidStore:
         self._alloc_guard = ordered_lock("device.alloc", 84)
         # Writes are read-modify-write of whole cuboids: one writer at a time.
         self.write_guard = ordered_rlock("device.write", 20)
+        if hasattr(backing, "allow_submit_under"):
+            # a cluster fans the write-through out to its node pool under
+            # this guard; the node jobs never take it
+            backing.allow_submit_under(self.write_guard)
         # Residency: a flag per cuboid, and an event per cuboid being loaded.
         # Never held across a backing call (its decode pool takes submits).
         self._resident_lock = ordered_lock("device.resident", 85)

@@ -1096,3 +1096,108 @@ def test_write_through_from_the_card_equals_the_cpu_path(cuda, dtype):
     card, cpu = (s.backing for s in stores)
     assert carry.backend_items(card.read_backend) == carry.backend_items(cpu.read_backend)
     assert card.write_stats.writes == cpu.write_stats.writes > 0
+
+
+# -- the cluster under the device store, and the front door -------------------
+
+def _cluster_pair(cuda, kw, **cluster_kw):
+    from repro_torch.cluster import ClusterStore
+
+    return [DeviceCuboidStore(DatasetSpec(**kw), device=d, backing=ClusterStore(
+        DatasetSpec(**kw), **cluster_kw)) for d in (cuda, "cpu")]
+
+
+@pytest.mark.parametrize("replication", [1, 2])
+def test_cluster_backed_store_on_the_card_equals_the_cpu(cuda, replication):
+    """Ingest, writes, reads and a live grow-and-decommission through a
+    device store over a cluster, on the card and on the CPU: equal reads
+    (kernel launched for each card read), equal node blobs and topology,
+    and a fresh card store reads every acknowledged write."""
+    from repro_torch import carry
+    from repro_torch.core.store import host_view
+
+    kw = dict(name="cl", volume_shape=(200, 150, 40), dtype="uint8", base_cuboid=(64, 64, 16))
+    rng = np.random.default_rng(5)
+    vol = rng.integers(1, 255, size=kw["volume_shape"], dtype=np.uint8)
+    stores = _cluster_pair(cuda, kw, n_nodes=3, replication=replication, write_behind=True,
+                           cache_bytes=1 << 20)
+    writes = [([int(rng.integers(0, s - 30)) for s in kw["volume_shape"]],
+               rng.integers(1, 255, size=(30, 20, 9), dtype=np.uint8)) for _ in range(6)]
+    for s in stores:
+        tcut.ingest(s, 0, vol)
+        for lo, data in writes:
+            tcut.write_cutout(s, 0, lo, data)
+        s.backing.rebalance(target=4)
+        s.backing.remove_node(0)
+    want = vol.copy()
+    for lo, data in writes:
+        want[tuple(slice(l, l + n) for l, n in zip(lo, data.shape))] = data
+    card, cpu = stores
+    boxes = [((0, 0, 0), kw["volume_shape"]), ((5, 3, 2), (190, 141, 33)),
+             ((64, 0, 16), (192, 128, 32))]
+    ops.reset_launches()
+    for lo, hi in boxes:
+        sl = tuple(slice(l, h) for l, h in zip(lo, hi))
+        fresh = DeviceCuboidStore(card.spec, device=cuda, backing=card.backing)
+        for s in (card, fresh):
+            got = tcut.cutout(s, 0, lo, hi)
+            assert got.is_cuda
+            np.testing.assert_array_equal(host_view(got.cpu(), "uint8"), want[sl])
+        np.testing.assert_array_equal(host_view(tcut.cutout(cpu, 0, lo, hi), "uint8"),
+                                      want[sl])
+    assert ops.launches == 2 * len(boxes)
+    assert card.backing.topology() == cpu.backing.topology()
+    a, b = carry.cluster_items(card.backing), carry.cluster_items(cpu.backing)
+    assert [n["read"] for n in a["nodes"]] == [n["read"] for n in b["nodes"]]
+    assert [n["write"] for n in a["nodes"]] == [n["write"] for n in b["nodes"]]
+
+
+def test_front_door_on_the_card_answers_the_host_volume(cuda):
+    """Cutouts, projections, batches and writes over HTTP from a front door
+    whose dataset lives on the card answer bit-equal to the host volume,
+    through the kernel."""
+    import base64
+    import json
+    import urllib.request
+    import zlib
+
+    from repro_torch.cluster import ClusterStore, VolumeService
+    from repro_torch.serve import FrontDoor, RetryingClient
+
+    kw = dict(name="web", volume_shape=(160, 128, 32), dtype="uint8", base_cuboid=(32, 32, 8))
+    vol = np.random.default_rng(6).integers(1, 255, size=kw["volume_shape"], dtype=np.uint8)
+    spec = DatasetSpec(**kw)
+    store = DeviceCuboidStore(spec, device=cuda, backing=ClusterStore(
+        spec, n_nodes=3, replication=2, write_behind=True))
+    tcut.ingest(store, 0, vol)
+    service = VolumeService()
+    service.add_dataset("web", store)
+    ops.reset_launches()
+    with FrontDoor(service) as door:
+        client = RetryingClient(door.url)
+        for lo, hi, q in [((0, 0, 0), (160, 128, 32), ""), ((5, 3, 2), (150, 100, 31), ""),
+                          ((32, 32, 8), (96, 64, 16), "?encode=zlib")]:
+            path = "/web/cutout/0/" + "/".join(f"{a},{b}" for a, b in zip(lo, hi)) + q
+            status, headers, payload = client.get_raw(path)
+            assert status == 200
+            if q:
+                payload = zlib.decompress(payload)
+            got = np.frombuffer(payload, np.uint8).reshape([h - l for l, h in zip(lo, hi)])
+            np.testing.assert_array_equal(got, vol[tuple(slice(l, h) for l, h in zip(lo, hi))])
+        status, _, payload = client.get_raw("/web/xy/0/0,160/0,128/7,9")
+        np.testing.assert_array_equal(np.frombuffer(payload, np.uint8).reshape(160, 128),
+                                      vol[:, :, 7])
+        data = np.full((10, 10, 4), 9, np.uint8)
+        assert client.put_raw("/web/cutout/0/1,11/2,12/3,7?sync=1",
+                              data.tobytes())["status"] == 200
+        vol[1:11, 2:12, 3:7] = data
+        body = json.dumps({"boxes": [[[0, 0, 0], [20, 20, 8]]]}).encode()
+        req = urllib.request.Request(door.url + "/web/batch/cutout", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            env = json.loads(resp.read())
+        got = np.frombuffer(base64.b64decode(env["results"][0]["data"]), np.uint8)
+        np.testing.assert_array_equal(got.reshape(20, 20, 8), vol[:20, :20, :8])
+    assert ops.launches >= 5
+    fresh = DeviceCuboidStore(spec, device=cuda, backing=store.backing)
+    np.testing.assert_array_equal(tcut.cutout(fresh, 0, (0, 0, 0), (160, 128, 32)).cpu().numpy(),
+                                  vol)

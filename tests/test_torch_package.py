@@ -41,11 +41,14 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 46
+    assert len(MODULES) >= 53
     assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.train.train_step", "repro_torch.data.pipeline",
             "repro_torch.launch.train", "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-            "repro_torch.ft", "repro_torch.ft.supervisor"} <= set(MODULES)
+            "repro_torch.ft", "repro_torch.ft.supervisor", "repro_torch.cluster.router",
+            "repro_torch.cluster.deadline", "repro_torch.cluster.store",
+            "repro_torch.cluster.handlers", "repro_torch.cluster.api",
+            "repro_torch.serve.http_front", "repro_torch.serve.client"} <= set(MODULES)
 
 
 def test_store_defaults_to_the_card():
@@ -62,6 +65,27 @@ def test_store_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AnnotationProject("a", spec)
     assert DeviceCuboidStore(spec, device="cpu").device.type == "cpu"
+
+
+def test_front_door_defaults_to_the_card(monkeypatch, capsys):
+    """``python -m repro_torch.serve.http_front`` serves from the card
+    unless ``--device cpu`` is given; without a card it raises."""
+    from repro_torch.serve import http_front
+
+    if torch.cuda.is_available():
+        assert http_front.demo_service(size=32).datasets["demo"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        http_front.main(["--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        http_front.demo_service(size=32)
+
+    def interrupted():
+        raise KeyboardInterrupt  # what Ctrl-C does to the serving loop
+
+    monkeypatch.setattr(http_front, "_block_until_interrupted", interrupted)
+    http_front.main(["--port", "0", "--device", "cpu", "--deadline-ms", "500", "--nodes", "2"])
+    assert "dataset 'demo' on cpu" in capsys.readouterr().out
 
 
 def test_detect_synapses_defaults_to_the_card():
