@@ -257,6 +257,64 @@ Phases (any failure raises and the exit code is non-zero):
    service (``GET /objects/<id>/boundingbox`` equal to the index,
    ``/cutout`` to numpy); ``GET /em/stats`` and ``/metrics``.  Each stage's
    wall time is printed.
+25. Storage faults, counted as phase 21: a seeded uint8 image of 4,096 x
+   4,096 x 64 (4,096 cuboids, 1 GiB; phase 2's generator) on a
+   `ClusterStore` of 4 in-memory nodes at replication 2 (phase 24's
+   settings), every node a `FaultyNode` with a crash-only `FaultPlan`
+   (seeds 0-3), under a `DeviceCuboidStore` served by `FrontDoor` on
+   127.0.0.1, with the cluster's prober and a `StorageSupervisor`
+   (`ClusterWatch(dead_ticks=2)`, ticks of 0.25 s) running.  (a) 32 cold
+   GETs of 512 x 512 x 64 tiles and 100 synced PUTs of 96 x 96 x 12;
+   (b) 8 readers of cuboids never read before (every GET a cold load that
+   reaches the nodes) and a writer, node 1 crashed after 2 s, until the
+   supervisor has removed it and replication is back at target (30 s at
+   most); (c) node 0 crashed under the writer until it is seen dead, then
+   restarted before the failover's second tick, the supervisor's resync
+   draining its repair queue; (d) 32 cold and 32 warm GETs from a fresh
+   device store over the healed cluster, and 100 PUTs.  A writer retries
+   an unacknowledged PUT until it is acknowledged; each failed answer is
+   a client-visible error.  Per stage GET and PUT p50 / p99 and the error
+   count; the seconds from the crash to `dead`, to the failover and to
+   replication back at target; the keys moved, the supervisor's log and
+   each plan's counters.  Gates: every 200 equals the oracle (the host
+   volume with the acknowledged writes applied) and the plain gather;
+   `lost_reads` 0; replication healed with no operator call; no failover
+   and `repair_pending` 0 after the blip; every acknowledged PUT read
+   back over HTTP and a fresh device store's whole read equal to the
+   oracle.
+26. recurrentgemma-2b serving at full width in bf16 (26 layers, RRA, d
+   2,560, window 2,048; seeded weights), counted as phase 5: 32 prompts of
+   2,048 through `make_prefill_step` (one forward pass: windowed
+   `flash_attention` in the A units, the RG-LRU doubling scan in the R
+   units; cache 2,176, so the window holds 2,048) and 64 greedy steps,
+   each rotating the window (`flash_decode` with lengths min(index + 1,
+   2,048)).  `flash_attention` launches once an A unit, `flash_decode`
+   once an A unit and step.  TTFT, decode tokens/s, peak memory, profiles
+   of 8 decode steps and the prefill, and the RG-LRU scan alone at the
+   prefill's shape (CUDA events).  Checks: the first A unit's
+   `flash_attention` at 2 x 4,096 with window 2,048 and `flash_decode`
+   over the path's window cache with per-sequence lengths around 2,048
+   (the plan's splits and 8), bf16 and fp32, against the plain versions
+   at phase 6's tolerances, then timed beside the bound, the plain
+   version and SDPA with the band mask; 2 RRA units at the smoke widths
+   in fp32: the one-pass prefill's cache equals stepping the prompt
+   through `decode_step` on the card; a 4-layer fp32 model serves the
+   same tokens on the card and on the CPU, batched and through the
+   batcher.
+27. seamless-m4t-medium serving at full width in bf16 (12 + 12 layers, d
+   1,024, MHA 16), counted as phase 5: `make_prefill_step` encodes 32 x
+   2,048 seeded frames (non-causal `flash_attention`) and builds the cross
+   K/V beside a self cache of 2,176, then one BOS token and 64 greedy
+   steps (`flash_decode` for the self-attention, lengths index + 1, and
+   the cross-attention, lengths 2,048).  TTFT (encode, cross K/V and the
+   first token), decode tokens/s, peak memory and a profile of 8 decode
+   steps.  Checks: encoder layer 0's `flash_attention` on the path's
+   frames, and with 4 times more queries than keys (unmasked attention
+   reads no offset, so the wrapper takes Sq > Skv), decoder layer 0's two
+   `flash_decode` calls, bf16 and fp32, against the plain versions, then
+   timed beside the bound, the plain version and SDPA; a 2 + 2-layer fp32
+   model gives the same tokens on the card and on the CPU, and
+   teacher-forced logits within 1e-4.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -330,12 +388,15 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_split_ref  #
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.obs.registry import REGISTRY  # noqa: E402
 from repro_torch.data import DataPipeline, PipelineConfig  # noqa: E402
+from repro_torch.ft import (ClusterWatch, FaultPlan, StorageSupervisor,  # noqa: E402
+                           faulty_factory)
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model, count_params  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.lm import lm_specs  # noqa: E402
-from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.lm import hybrid_layout, lm_specs  # noqa: E402
+from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.rglru import rglru_scan  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.models.attention import attention, qkv  # noqa: E402
@@ -351,18 +412,19 @@ KERNELS = {
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
         ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training",
-                               "annotation", "timeseries", "tiered", "cluster")),
+                               "annotation", "timeseries", "tiered", "cluster", "faults")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
         ops=fa_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
-                           "training", "moe_training")),
+                           "training", "moe_training", "hybrid_serving", "encdec_serving")),
     "flash_decode": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
         replaces="src/repro/kernels/flash_decode/kernel.py:66",
-        ops=fd_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving")),
+        ops=fd_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
+                           "hybrid_serving", "encdec_serving")),
     "ssd_scan": dict(
         route="cuda",
         source="src/repro_torch/kernels/ssd_scan/kernel.cu",
@@ -418,6 +480,31 @@ CLUSTER_TINY = dict(volume=(256, 256, 32), r=2, n_blobs=12, slab=128, nodes=4, r
                     wbox=(24, 24, 6),
                     batch=4, small=(16, 16, 8), clients=4, load_s=1.0, live_box=(32, 32, 8),
                     readers=2, objects=6, obj=(4, 12))
+
+# phase 25: a uint8 image on 4 faulty in-memory nodes (cuboids 128 x 128 x
+# 16), phase 24's cluster settings; ``readers`` cold readers and a writer
+# while node 1 is crashed ``kill_after_s`` into stage (b); the supervisor
+# ticks every ``interval`` s and fails a node over after ``dead_ticks``
+# dead samples; stage (c) holds node 0 down until it is seen dead (at
+# most ``blip_max_s``)
+FAULT_FULL = dict(volume=(4096, 4096, 64), r=2, n_blobs=3072, slab=256, nodes=4, replication=2,
+                  cache=64 << 20, tile=(512, 512, 64), reads=32, writes=100,
+                  wbox=(96, 96, 12), readers=8, kill_after_s=2.0, heal_limit_s=30.0,
+                  interval=0.25, dead_ticks=2, blip_max_s=2.0)
+FAULT_TINY = FAULT_FULL | dict(volume=(256, 256, 32), cuboid=(32, 32, 8), n_blobs=12, slab=128,
+                               cache=1 << 20, tile=(64, 64, 32), reads=4, writes=6,
+                               wbox=(24, 24, 6), readers=2, kill_after_s=0.5)
+# phases 26-27: recurrentgemma-2b (a cache of 2,176, so the window is
+# 2,048; the first A unit's kernels checked at ``check_B`` x ``check_S``
+# with the window binding) and seamless-m4t-medium (``frames`` per
+# sequence, a self cache of 2,176) at full width, bf16
+HYBRID_FULL = dict(arch="recurrentgemma-2b", key="hybrid_serving", smoke=False, batch=32,
+                   prompt=2048, cache=2176, steps=64, check_B=2, check_S=4096)
+HYBRID_TINY = HYBRID_FULL | dict(smoke=True, batch=2, prompt=40, cache=48, steps=4, check_B=1,
+                                 check_S=64)
+ENCDEC_FULL = dict(arch="seamless-m4t-medium", key="encdec_serving", smoke=False, batch=32,
+                   frames=2048, cache=2176, steps=64)
+ENCDEC_TINY = ENCDEC_FULL | dict(smoke=True, batch=2, frames=24, cache=16, steps=4)
 
 # the serving paths: smollm-135m and mamba2-370m at full width (bf16), and
 # tiny rehearsals; ``key`` names the path's entry in the report
@@ -1884,6 +1971,409 @@ def object_oracle(lo, shape, objs, ids, ann_id):
     return want
 
 
+# ------------------------------------------------ storage faults, phase 25 ----
+
+def pcts(ms):
+    """(p50, p99) of a list of ms, or (None, None) for none."""
+    if not ms:
+        return None, None
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def stage_summary(gets, puts, errors):
+    g50, g99 = pcts(gets)
+    p50, p99 = pcts(puts)
+    return dict(gets=len(gets), get_p50_ms=g50, get_p99_ms=g99, puts=len(puts),
+                put_p50_ms=p50, put_p99_ms=p99, client_errors=errors)
+
+
+def fmt_stage(name, s):
+    def f(x):
+        return "-" if x is None else f"{x:.3f}"
+    return (f"{name}: {s['gets']} GETs p50 {f(s['get_p50_ms'])} / p99 {f(s['get_p99_ms'])} ms, "
+            f"{s['puts']} PUTs p50 {f(s['put_p50_ms'])} / p99 {f(s['put_p99_ms'])} ms, "
+            f"{s['client_errors']} client-visible errors")
+
+
+class Oracle:
+    """The host volume with every acknowledged write applied, under a lock
+    (the writer thread applies, the checks read)."""
+
+    def __init__(self, host):
+        self.host = host
+        self.lock = threading.Lock()
+        self.acked = []
+
+    def apply(self, lo, hi, data):
+        with self.lock:
+            self.host[box_of((lo, hi))] = data
+            self.acked.append((list(lo), list(hi)))
+
+    def box(self, lo, hi):
+        with self.lock:
+            return self.host[box_of((lo, hi))].copy()
+
+
+def put_until_acked(url, ds, lo, hi, data, oracle, errors, put_ms, attempts=500):
+    """PUT with ``sync`` until it answers 200 (a client retrying its
+    unacknowledged write); each failed answer counts as a client-visible
+    error, and the acknowledged data goes into the oracle."""
+    for _ in range(attempts):
+        t0 = time.perf_counter()
+        st, _, pl = http("PUT", url + box_path(ds, lo, hi) + "?sync=1", data.tobytes())
+        if st == 200:
+            put_ms.append((time.perf_counter() - t0) * 1e3)
+            oracle.apply(lo, hi, data)
+            return
+        errors.append((list(lo), st, pl[:120]))
+        time.sleep(0.01)
+    raise RuntimeError(f"PUT {lo} never acknowledged after {attempts} attempts: {errors[-1]}")
+
+
+def get_checked(url, ds, lo, hi, oracle, errors, get_ms, what):
+    """GET a box, retrying a 503 (shed); a 200 must equal the oracle.
+    Returns whether it answered 200 (other answers count as errors)."""
+    for _ in range(200):
+        t0 = time.perf_counter()
+        st, hd, pl = http("GET", url + box_path(ds, lo, hi))
+        if st == 503:
+            time.sleep(0.005)
+            continue
+        if st != 200:
+            errors.append((list(lo), st, pl[:120]))
+            return False
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(wire_volume(st, hd, pl, what), oracle.box(lo, hi)):
+            raise RuntimeError(f"{what} {lo}: differs from the oracle")
+        return True
+    raise RuntimeError(f"{what} {lo}: shed 200 times")
+
+
+def fault_regions(fc, spec):
+    """The stages' disjoint regions along x: stage (a)'s tiles and PUTs
+    below X/2; the readers' never-read cuboids from X/2 up to the
+    writer's rows; the writer's rows, the last 2 x wbox[0]."""
+    X = fc["volume"][0]
+    cs = spec.grid(0).cuboid_shape
+    writer_lo = X - 2 * fc["wbox"][0]
+    reader_hi = writer_lo // cs[0] * cs[0]
+    if reader_hi <= X // 2:
+        raise RuntimeError("phase 25's regions overlap")
+    boxes = [((x, y, z), (x + cs[0], y + cs[1], z + cs[2]))
+             for x in range(X // 2, reader_hi, cs[0])
+             for y in range(0, fc["volume"][1], cs[1])
+             for z in range(0, fc["volume"][2], cs[2])]
+    order = np.random.default_rng(25).permutation(len(boxes))
+    return X // 2, [boxes[i] for i in order], writer_lo
+
+
+def storage_faults(fc, dev, report, counts):
+    """Phase 25: the cluster under the device store and the front door,
+    every node a `FaultyNode` with a crash-only plan, a `StorageSupervisor`
+    and the cluster's prober running: (a) healthy cold GETs and synced
+    PUTs; (b) a node crashed under 8 cold readers and a writer until the
+    supervisor has removed it and replication is back at target; (c) a
+    short crash of another node under the writer, healed by resync; (d)
+    cold and warm GETs from a fresh device store over the healed cluster,
+    and PUTs.  Every 200 equals the oracle (the host volume with the
+    acknowledged writes applied) and the plain gather; afterwards every
+    acknowledged write reads back over HTTP and from a fresh store."""
+    t_phase = time.perf_counter()
+    out, stages = {}, {}
+    spec = DatasetSpec("em", fc["volume"], dtype="uint8", base_cuboid=fc.get("cuboid"))
+    grid = spec.grid(0)
+    fac = faulty_factory(plans={i: FaultPlan(seed=i) for i in range(fc["nodes"])})
+    cluster = ClusterStore(spec, n_nodes=fc["nodes"], replication=fc["replication"],
+                           node_factory=fac, cache_bytes=fc["cache"] * fc["nodes"],
+                           write_behind=True,
+                           max_workers=max(fc["nodes"], os.cpu_count() or 1))
+    removals, rereplications = [], []
+    remove_node, re_replicate = cluster.remove_node, cluster.re_replicate
+
+    def recording_remove(*a, **kw):  # the supervisor's failover, with its report
+        res = remove_node(*a, **kw)
+        removals.append(res)
+        return res
+
+    def recording_re_replicate(*a, **kw):
+        res = re_replicate(*a, **kw)
+        rereplications.append(res)
+        return res
+
+    cluster.remove_node, cluster.re_replicate = recording_remove, recording_re_replicate
+    t0 = time.perf_counter()
+    oracle = Oracle(load_cluster(fc, dev, spec, cluster, out))
+    stages["ingest_s"] = time.perf_counter() - t0
+    log(f"phase 25: {fc['nodes']} faulty nodes (crash-only plans, seeds 0-{fc['nodes'] - 1}), "
+        f"replication {fc['replication']}: ingest of {grid.n_cells} cuboids in "
+        f"{out['ingest_s']:.2f} s, keys per node {out['keys_per_node']}")
+    store = DeviceCuboidStore(spec, device=dev, backing=cluster)
+    service = VolumeService()
+    service.add_dataset("em", store)
+    door = FrontDoor(service)
+    door.start()
+    sup = StorageSupervisor(cluster, watch=ClusterWatch(cluster, dead_ticks=fc["dead_ticks"]),
+                            interval=fc["interval"])
+    cluster.start_prober(interval=fc["interval"])
+    sup.start()
+    half, reader_pool, writer_lo = fault_regions(fc, spec)
+    url, wb = door.url, fc["wbox"]
+    rng = np.random.default_rng(125)
+    read_boxes = []
+    try:
+        # (a) healthy: cold tile GETs below X/2, then synced PUTs there
+        t0 = time.perf_counter()
+        tiles = [t for t in sd.tiling(grid.volume_shape, fc["tile"]) if t[1][0] <= half]
+        tiles = [tiles[i] for i in sorted(np.random.default_rng(26).permutation(
+            len(tiles))[:fc["reads"]])]
+        gets, puts, errors = [], [], []
+
+        def healthy():
+            for lo, hi in tiles:
+                if not get_checked(url, "em", lo, hi, oracle, errors, gets, "cold GET"):
+                    raise RuntimeError(f"healthy cold GET {lo}: {errors[-1]}")
+                read_boxes.append((lo, hi))
+            for _ in range(fc["writes"]):
+                lo, hi = random_box(rng, fc["volume"], wb, lo_max=[half] + list(fc["volume"][1:]))
+                data = rng.integers(1, 256, size=wb, dtype=np.uint8)
+                put_until_acked(url, "em", lo, hi, data, oracle, errors, puts)
+
+        drive(counts, dev, healthy)
+        out["healthy"] = stage_summary(gets, puts, len(errors))
+        stages["healthy_s"] = time.perf_counter() - t0
+        log(fmt_stage("(a) healthy", out["healthy"]))
+
+        # (b) kill node 1 under cold readers and a writer
+        t0 = time.perf_counter()
+        pool_lock, lost, bad = threading.Lock(), [], []
+        gets, puts, errors, wr_errors = [], [], [], []
+        stop = threading.Event()
+        reader_boxes = list(reader_pool)
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    with pool_lock:
+                        if not reader_boxes:
+                            return
+                        lo, hi = reader_boxes.pop()
+                    if get_checked(url, "em", lo, hi, oracle, errors, gets, "cold GET (b)"):
+                        read_boxes.append((lo, hi))
+                    else:
+                        lost.append((lo, errors[-1]))
+            except Exception as e:  # surfaced below
+                bad.append(e)
+
+        def writer(wrng, stop_ev, errs, put_list):
+            try:
+                while not stop_ev.is_set():
+                    lo, hi = random_box(wrng, fc["volume"], wb)
+                    lo[0] = writer_lo + int(wrng.integers(0, fc["volume"][0] - writer_lo - wb[0] + 1))
+                    hi[0] = lo[0] + wb[0]
+                    data = wrng.integers(1, 256, size=wb, dtype=np.uint8)
+                    put_until_acked(url, "em", lo, hi, data, oracle, errs, put_list)
+            except Exception as e:  # surfaced below
+                bad.append(e)
+
+        def kill():
+            threads = [threading.Thread(target=reader) for _ in range(fc["readers"])]
+            threads.append(threading.Thread(target=writer, args=(
+                np.random.default_rng(3000), stop, wr_errors, puts)))
+            for th in threads:
+                th.start()
+            marks = {}
+            try:
+                time.sleep(fc["kill_after_s"])
+                victim = fac.built[1]
+                t_crash = time.perf_counter()
+                victim.crash()
+                deadline_t = t_crash + fc["heal_limit_s"]
+                while time.perf_counter() < deadline_t:
+                    topo = cluster.topology()
+                    now = time.perf_counter() - t_crash
+                    if "dead" not in marks and topo["n_nodes"] == fc["nodes"] \
+                            and topo["health"][1] == "dead":
+                        marks["dead"] = now
+                    if "failover_started" not in marks and topo["rebalancing"]:
+                        marks["failover_started"] = now
+                    if "failover" not in marks and topo["n_nodes"] == fc["nodes"] - 1:
+                        marks["failover"] = now
+                    if ("failover" in marks and not topo["rebalancing"]
+                            and topo["replication"] == topo["replication_target"]):
+                        marks["healed"] = now
+                        break
+                    time.sleep(0.005)
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=120)
+            return marks
+
+        marks, _ = drive(counts, dev, kill)
+        if bad:
+            raise RuntimeError(f"(b): {bad[:3]}")
+        if lost:
+            raise RuntimeError(f"lost_reads {len(lost)} during the crash: {lost[:5]}")
+        if "healed" not in marks:
+            raise RuntimeError(f"replication not back at target {fc['heal_limit_s']} s after "
+                               f"the crash: {marks}, topology {topo_summary(cluster.topology())}")
+        out["kill"] = stage_summary(gets, puts, len(errors) + len(wr_errors))
+        out["kill"].update(lost_reads=0, reader_errors=len(errors), writer_errors=len(wr_errors),
+                           crash_to_s=marks, removals=removals[:], keys_moved=sum(
+                               r["moved_keys"] for r in removals),
+                           topology=topo_summary(cluster.topology()),
+                           readers_left_unread=len(reader_boxes))
+        stages["kill_s"] = time.perf_counter() - t0
+        log(fmt_stage("(b) kill node 1", out["kill"]) + f"; lost_reads 0; crash to dead "
+            f"{marks.get('dead', float('nan')):.3f} s, to the failover (removal done) "
+            f"{marks['failover']:.3f} s (started {marks.get('failover_started', float('nan')):.3f}"
+            f" s), to replication back at target {marks['healed']:.3f} s; "
+            f"{out['kill']['keys_moved']} keys moved; topology {out['kill']['topology']}")
+
+        # (c) a blip of node 0, shorter than the failover's debounce
+        t0 = time.perf_counter()
+        gets, puts, errors = [], [], []
+        stop_c = threading.Event()
+        log_before = len(sup.log)
+
+        def blip():
+            th = threading.Thread(target=writer, args=(np.random.default_rng(3001), stop_c,
+                                                       errors, puts))
+            th.start()
+            res = {}
+            try:
+                time.sleep(0.3)
+                victim = fac.built[0]
+                t_c = time.perf_counter()
+                victim.crash()
+                while time.perf_counter() - t_c < fc["blip_max_s"]:
+                    if cluster.topology()["health"][0] == "dead":
+                        break
+                    time.sleep(0.002)
+                res["state_reached"] = cluster.topology()["health"][0]
+                victim.restart()
+                res["crashed_s"] = time.perf_counter() - t_c
+                peak = 0
+                while time.perf_counter() - t_c < fc["heal_limit_s"]:
+                    topo = cluster.topology()
+                    peak = max(peak, topo["repair_pending"])
+                    if topo["health"] == ["alive"] * topo["n_nodes"] and \
+                            topo["repair_pending"] == 0 and time.perf_counter() - t_c > 0.5:
+                        break
+                    time.sleep(0.005)
+                res["repair_peak"] = peak
+                res["healed_s"] = time.perf_counter() - t_c
+            finally:
+                stop_c.set()
+                th.join(timeout=120)
+            return res
+
+        blip_res, _ = drive(counts, dev, blip)
+        if bad:
+            raise RuntimeError(f"(c): {bad[:3]}")
+        topo = cluster.topology()
+        actions = [a["action"] for a in sup.log[log_before:]]
+        if topo["n_nodes"] != fc["nodes"] - 1 or "failover" in actions:
+            raise RuntimeError(f"the blip failed a node over: {topo_summary(topo)}, {actions}")
+        if topo["repair_pending"] != 0 or topo["health"] != ["alive"] * topo["n_nodes"]:
+            raise RuntimeError(f"repair_pending {topo['repair_pending']}, health "
+                               f"{topo['health']} after the blip")
+        out["blip"] = stage_summary(gets, puts, len(errors))
+        out["blip"].update(blip_res, supervisor_actions=actions)
+        stages["blip_s"] = time.perf_counter() - t0
+        log(fmt_stage("(c) blip of node 0", out["blip"]) + f"; node 0 down "
+            f"{blip_res['crashed_s']:.3f} s (reached {blip_res['state_reached']!r}), repair "
+            f"queue peak {blip_res['repair_peak']}, healed {blip_res['healed_s']:.3f} s after the "
+            f"crash; supervisor {actions}")
+
+        # stage (a)'s and (b)'s answers against the plain gather of the first
+        # store (its rows are current: every write so far went through it)
+        packed = store.peek(0)
+        for lo, hi in read_boxes:
+            if not np.array_equal(plain_cutout(packed, grid, lo, hi, dev).cpu().numpy(),
+                                  oracle.box(lo, hi)):
+                raise RuntimeError(f"GET {lo}: the plain gather differs from the oracle")
+        del packed
+
+        # (d) after: a fresh device store over the healed cluster
+        t0 = time.perf_counter()
+        store2 = DeviceCuboidStore(spec, device=dev, backing=cluster)
+        service.add_dataset("em2", store2)
+        tiles = sd.tiling(grid.volume_shape, fc["tile"])
+        tiles = [tiles[i] for i in sorted(np.random.default_rng(27).permutation(
+            len(tiles))[:fc["reads"]])]
+        gets, warm, puts, errors = [], [], [], []
+
+        def after():
+            for lo, hi in tiles:
+                if not get_checked(url, "em2", lo, hi, oracle, errors, gets, "cold GET (d)"):
+                    raise RuntimeError(f"cold GET (d) {lo}: {errors[-1]}")
+                want = oracle.box(lo, hi)
+                if not np.array_equal(plain_cutout(store2.peek(0), grid, lo, hi, dev)
+                                      .cpu().numpy(), want):
+                    raise RuntimeError(f"cold GET (d) {lo}: the plain gather differs")
+            for lo, hi in tiles:
+                if not get_checked(url, "em2", lo, hi, oracle, errors, warm, "warm GET (d)"):
+                    raise RuntimeError(f"warm GET (d) {lo}: {errors[-1]}")
+            for _ in range(fc["writes"]):
+                lo, hi = random_box(rng, fc["volume"], wb)
+                data = rng.integers(1, 256, size=wb, dtype=np.uint8)
+                put_until_acked(url, "em2", lo, hi, data, oracle, errors, puts)
+
+        drive(counts, dev, after)
+        out["after"] = stage_summary(gets, puts, len(errors))
+        out["after"].update(warm_gets=len(warm), warm_p50_ms=pcts(warm)[0],
+                            warm_p99_ms=pcts(warm)[1])
+        stages["after_s"] = time.perf_counter() - t0
+        log(fmt_stage("(d) after, a fresh store", out["after"]) +
+            f"; warm p50 {out['after']['warm_p50_ms']:.3f} / p99 "
+            f"{out['after']['warm_p99_ms']:.3f} ms")
+
+        # the gates after the heal: every acknowledged PUT over HTTP, and
+        # the whole image from a fresh device store
+        t0 = time.perf_counter()
+        if http("POST", url + "/flush")[0] != 200:
+            raise RuntimeError("POST /flush after the stages failed")
+        readback, rb_err = [], []
+
+        def read_back():
+            for lo, hi in oracle.acked:
+                if not get_checked(url, "em2", lo, hi, oracle, rb_err, readback, "read-back"):
+                    raise RuntimeError(f"acknowledged PUT {lo} not read back: {rb_err[-1]}")
+            fresh_store = DeviceCuboidStore(spec, device=dev, backing=cluster)
+            step = fc["slab"]
+            for x0 in range(0, fc["volume"][0], step):
+                lo, hi = (x0, 0, 0), (min(x0 + step, fc["volume"][0]),) + tuple(fc["volume"][1:])
+                got = cut.cutout(fresh_store, 0, lo, hi).cpu().numpy()
+                if not np.array_equal(got, oracle.box(lo, hi)):
+                    raise RuntimeError(f"a fresh store over the healed cluster reads slab {x0} "
+                                       f"otherwise")
+
+        drive(counts, dev, read_back)
+        out["verify"] = dict(plain_checked=len(read_boxes), acked_puts=len(oracle.acked),
+                             s=time.perf_counter() - t0)
+        stages["verify_s"] = out["verify"]["s"]
+        out["plans"] = {i: n.plan.counters() for i, n in fac.built.items()}
+        out["supervisor_log"] = [{k: v for k, v in a.items() if k != "keys_per_node"}
+                                 for a in sup.log]
+        out["rereplications"] = rereplications
+        log(f"after the heal: {len(read_boxes)} GETs equal to the plain gather, all "
+            f"{len(oracle.acked)} acknowledged PUTs read back over HTTP, a fresh device store "
+            f"read the whole image bit-equal ({out['verify']['s']:.2f} s)")
+        log(f"supervisor log: {[(a['action'], a.get('node')) for a in sup.log]}")
+        log(f"plans' counters: {out['plans']}")
+    finally:
+        sup.stop()
+        door.close()
+        cluster.close()
+    out["stages"] = stages
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 25 stages (s): {stages}")
+    report["faults"] = out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------- serving path ----
 
 def serving_model(sc, dev):
@@ -1910,7 +2400,7 @@ def serving_path(sc, dev, cfg, model, report):
     prefill, step = make_prefill_step(model, cfg), make_serve_step(model, cfg)
 
     def first_token():
-        lg, cache = prefill(prompts, cache_len=P + steps)
+        lg, cache = prefill(prompts, cache_len=sc.get("cache", P + steps))
         return torch.argmax(lg[:, -1:], dim=-1).to(torch.int32), cache
 
     (nxt, cache), t_prefill = timed(dev, first_token)
@@ -2048,6 +2538,26 @@ def sliced(plain, n):
                                     for i in range(0, args[0].shape[0], n)])
 
 
+def attention_pair_checks(label, cases, errs, checks):
+    """Each case (name, kernel name, kernel, plain, args) in bf16 (atol a
+    share of the outputs' mean magnitude) and with the tensors taken to
+    fp32 (the fp32 tolerance)."""
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        for phase, kname, kernel, plain, args in cases:
+            args = [t.to(dt) for t in args]
+            got, want = kernel(*args), plain(*args)
+            mean_abs = float(want.float().abs().mean())
+            tol = (dict(atol=FULL_WIDTH_BF16_ATOL_SHARE * mean_abs, rtol=BF16_TOL["rtol"])
+                   if dt == torch.bfloat16 else FP32_TOL)
+            err = check_close(f"{label} {phase} {tag}", got, want, tol, errs[kname])
+            checks[f"{phase}_{tag}"] = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
+            log(f"{label} {phase}, {tag} [{kname}: {body(kname, dt)}]: max |kernel - plain| "
+                f"{err:.3g}, mean |out| {mean_abs:.3g}, within atol {tol['atol']:.3g} rtol "
+                f"{tol['rtol']:.3g}")
+            del got, want, args
+
+
 def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs):
     """Layer 0's attention at full width and at the path's own shapes:
     kernel vs plain version on the same card tensors, at the prefill of
@@ -2076,36 +2586,21 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
     splits = fd_ops.plan_for(qd, ck).nsplit
     most = fd_ops.MAX_SPLITS
 
+    cases = (
+        ("prefill", "flash_attention",
+         lambda a, b, c: fa_ops.flash_attention(a, b, c, causal=True, scale=scale),
+         sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale), 8),
+         (q, k, v)),
+        ("decode", "flash_decode",
+         lambda a, b, c: fd_ops.flash_decode(a, b, c, lens, scale=scale),
+         lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale),
+         (qd, ck, cv)),
+        (f"decode_{most}_splits", "flash_decode",
+         lambda a, b, c: fd_ops.flash_decode_cuda(a, b, c, lens, scale=scale, nsplit=most),
+         lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale),
+         (qd, ck, cv)))
     checks = {}
-    for dt in (torch.bfloat16, torch.float32):
-        tag = "bf16" if dt == torch.bfloat16 else "fp32"
-        cases = (
-            ("prefill", "flash_attention",
-             lambda a, b, c: fa_ops.flash_attention(a, b, c, causal=True, scale=scale),
-             sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale), 8),
-             (q, k, v)),
-            ("decode", "flash_decode",
-             lambda a, b, c: fd_ops.flash_decode(a, b, c, lens, scale=scale),
-             lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale),
-             (qd, ck, cv)),
-            (f"decode_{most}_splits", "flash_decode",
-             lambda a, b, c: fd_ops.flash_decode_cuda(a, b, c, lens, scale=scale, nsplit=most),
-             lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale),
-             (qd, ck, cv)))
-        for phase, kname, kernel, plain, args in cases:
-            args = [t.to(dt) for t in args]
-            got, want = kernel(*args), plain(*args)
-            mean_abs = float(want.float().abs().mean())
-            tol = (dict(atol=FULL_WIDTH_BF16_ATOL_SHARE * mean_abs, rtol=BF16_TOL["rtol"])
-                   if dt == torch.bfloat16 else FP32_TOL)
-            err = check_close(f"layer-0 {phase} attention {tag}", got, want, tol,
-                              errs[kname])
-            checks[f"{phase}_{tag}"] = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
-            log(f"layer-0 {phase} attention, {tag} [{kname}: {body(kname, dt)}], full width: "
-                f"max |kernel - plain| "
-                f"{err:.3g}, mean |out| {mean_abs:.3g}, within atol {tol['atol']:.3g} "
-                f"rtol {tol['rtol']:.3g}")
-            del got, want, args
+    attention_pair_checks(f"{cfg.name} layer-0 attention, full width,", cases, errs, checks)
     report[sc["key"]]["layer0_attention"] = dict(
         prefill_shape=list(q.shape), decode_cache=list(ck.shape),
         decode_lens=[int(lens.min()), int(lens.max())], decode_splits=splits, checks=checks)
@@ -2805,6 +3300,377 @@ def check_dense_launches(sc, cfg, counts):
         raise RuntimeError(f"{cfg.name}: launches {counts}, want {want}")
 
 
+# ------------------------------------- hybrid and encoder-decoder serving ----
+
+def count_units(cfg, kind):
+    """The hybrid units of ``kind`` ("R" or "A") in the whole model."""
+    n_rep, n_left = hybrid_layout(cfg)
+    return n_rep * cfg.hybrid_pattern.count(kind) + cfg.hybrid_pattern[:n_left].count(kind)
+
+
+def hybrid_path(hc, dev, report):
+    """Phase 26's run: recurrentgemma-2b (or its smoke widths) with seeded
+    weights, a warm-up, then the counted run through the serving steps:
+    32 prompts of 2,048 (cache 2,176, so the window is 2,048) and 64 greedy
+    steps, each rotating the window.  The caller reads the launches."""
+    t0 = time.perf_counter()
+    cfg, model = serving_model(hc, dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    serving_path(hc | dict(batch=2, prompt=64, cache=80, steps=2), dev, cfg, model, {})
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    prompts, generated, cache = serving_path(hc, dev, cfg, model, report)
+    wlen = min(cfg.local_window, hc["cache"])
+    report[hc["key"]].update(init_s=t_init, params=count_params(model.specs()), window=wlen,
+                             r_units=count_units(cfg, "R"), a_units=count_units(cfg, "A"))
+    if cache["blocks"]["c"]["k"].shape[2] != wlen:
+        raise RuntimeError(f"window cache of {cache['blocks']['c']['k'].shape[2]} positions")
+    log(f"{cfg.name}: {count_params(model.specs())} parameters drawn on the device in "
+        f"{t_init:.3f} s; {count_units(cfg, 'R')} RG-LRU and {count_units(cfg, 'A')} "
+        f"local-attention units, window {wlen}")
+    return cfg, model, prompts, generated, cache
+
+
+def check_hybrid_launches(hc, cfg, counts):
+    """One `flash_attention` launch an A unit for the prefill, one
+    `flash_decode` an A unit and step."""
+    n_a = count_units(cfg, "A")
+    want = dict(flash_attention=n_a, flash_decode=n_a * hc["steps"])
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"{cfg.name}: launches {counts}, want {want}")
+
+
+def hybrid_kernel_checks(hc, dev, cfg, model, cache, report, errs):
+    """The first A unit's weights at full width: `flash_attention` with the
+    window binding (S 4,096, window 2,048, D 256, 10 query heads over 1 kv
+    head) and `flash_decode` over the serving path's own window cache with
+    lengths min(index + 1, 2,048) for per-sequence positions around the
+    window's length, at the plan's splits and at 8, against the plain
+    versions on the same card tensors."""
+    unit = model.blocks[0]["c"]
+    W = min(cfg.local_window, hc["cache"])
+    gen = torch.Generator(device=dev).manual_seed(26)
+    Bc, S = hc["check_B"], hc["check_S"]
+    tok = torch.randint(0, cfg.vocab, (Bc, S), generator=gen, device=dev)
+    x = rms_norm(model.embed_tokens(tok), unit.ln1, cfg.norm_eps)
+    q, k, v = qkv(unit.temporal, cfg, x, torch.arange(S, device=dev).expand(Bc, -1))
+    del x
+    scale = cfg.head_dim ** -0.5
+    ck, cv = cache["blocks"]["c"]["k"][0], cache["blocks"]["c"]["v"][0]
+    B = ck.shape[0]
+    index = torch.randint(W - 64, W + 64, (B,), generator=gen, device=dev)
+    lens = torch.clamp(index + 1, max=W).to(torch.int32)
+    xd = rms_norm(model.embed_tokens(torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                                                   device=dev)), unit.ln1, cfg.norm_eps)
+    qd = rotary((xd @ unit.temporal.w_q).reshape(B, 1, cfg.n_heads, cfg.head_dim),
+                index[:, None], cfg.rope_theta)
+    most = fd_ops.MAX_SPLITS
+    cases = (
+        ("window prefill", "flash_attention",
+         lambda a, b, c: fa_ops.flash_attention(a, b, c, causal=True, scale=scale, window=W),
+         sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale,
+                                                    window=W), 1), (q, k, v)),
+        ("window decode", "flash_decode",
+         lambda a, b, c: fd_ops.flash_decode(a, b, c, lens, scale=scale),
+         lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale), (qd, ck, cv)),
+        (f"window decode {most} splits", "flash_decode",
+         lambda a, b, c: fd_ops.flash_decode_cuda(a, b, c, lens, scale=scale, nsplit=most),
+         lambda a, b, c: flash_decode_ref(a, b, c, lens, scale=scale), (qd, ck, cv)))
+    checks = {}
+    attention_pair_checks(f"{cfg.name} first A unit", cases, errs, checks)
+    report[hc["key"]]["kernel_checks"] = dict(
+        prefill_shape=list(q.shape), window=W, decode_cache=list(ck.shape),
+        decode_lens=[int(lens.min()), int(lens.max())], splits=fd_ops.plan_for(qd, ck).nsplit,
+        checks=checks)
+    return (q, k, v), (qd, ck, cv, lens)
+
+
+def attention_timing(dev, name, label, kernel, plain, library, ops_, bytes_, shape, **extra):
+    """One attention kernel at one shape: kernel, plain version and one
+    PyTorch call for the same function (CUDA events), beside the bound."""
+    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    ms = event_times(dev, lambda i=0: kernel())
+    plain_ms = event_times(dev, lambda i=0: plain())
+    lib = event_times(dev, lambda i=0: library())
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+             bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
+             operations=ops_, bytes=bytes_, shape=shape, **extra)
+    log(f"{label} {shape}: {ms:.4f} ms (plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{lib:.4f} ms), bound {bound:.4f} ms by {t['bound_by']} = {100 * bound / ms:.2f}% of "
+        f"the card's peak")
+    return t
+
+
+def hybrid_timings(dev, cfg, name, prefill_args, decode_args, W):
+    """B2 with the window binding and B3 at G 10, D 256 over the window
+    cache, at phase 26's shapes."""
+    q, k, v = (t.to(torch.bfloat16) for t in prefill_args)
+    qd, ck, cv, lens = decode_args
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    scale = D ** -0.5
+    pairs = sum(min(i + 1, W) for i in range(S))  # live (query, key) pairs
+    band = (torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :])
+    band = (band >= 0) & (band < W)
+    out = {"window_prefill": attention_timing(
+        dev, name, "flash_attention, window", lambda: fa_ops.flash_attention(
+            q, k, v, causal=True, scale=scale, window=W),
+        lambda: sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale,
+                                                           window=W), 1)(q, k, v),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=band,
+            scale=scale, enable_gqa=True),
+        4 * B * H * D * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()),
+        [B, S, S, H, K, D], window=W)}
+    B, Sc, K, D = ck.shape
+    H = qd.shape[2]
+    live = int(lens.sum())
+    mask = (torch.arange(Sc, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    out["window_decode"] = attention_timing(
+        dev, name, "flash_decode, window cache", lambda: fd_ops.flash_decode(
+            qd, ck, cv, lens, scale=scale),
+        lambda: flash_decode_ref(qd, ck, cv, lens, scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask,
+            scale=scale, enable_gqa=True),
+        4 * H * D * live, 2 * (2 * live * K * D + 2 * qd.numel()) + 4 * B,
+        [B, Sc, H, K, D], lens=[int(lens.min()), int(lens.max())],
+        splits=fd_ops.plan_for(qd, ck).nsplit)
+    return out
+
+
+def scan_timing(hc, dev, cfg, report):
+    """The RG-LRU scan alone at the prefill's shape (fp32 a and b of (B,
+    S, d_rnn)), CUDA events."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    shape = (hc["batch"], hc["prompt"], cfg.d_rnn)
+    a = torch.rand(shape, generator=gen, device=dev)
+    b = torch.randn(shape, generator=gen, device=dev)
+    ms = event_times(dev, lambda i=0: rglru_scan(a, b), reps=10)
+    steps = max(1, (hc["prompt"] - 1).bit_length())
+    report[hc["key"]]["rglru_scan"] = dict(ms=ms, shape=list(shape), doubling_steps=steps,
+                                           per_prefill_ms=ms * count_units(cfg, "R"))
+    log(f"RG-LRU scan at {shape} fp32 ({steps} doubling steps): {ms:.3f} ms a unit, "
+        f"{ms * count_units(cfg, 'R'):.1f} ms over the prefill's {count_units(cfg, 'R')} units")
+    del a, b
+
+
+def hybrid_prefill_vs_stepping(dev, report):
+    """Two RRA units (6 layers) at the smoke widths, fp32: the one-pass
+    prefill's cache and last logits against stepping the same prompt
+    through `decode_step`, on the same device (48 tokens over a window of
+    32, so the window has rotated)."""
+    cfg = get_smoke_config("recurrentgemma-2b").scaled(n_layers=6, dtype="float32")
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(3, 48)).astype(np.int32)).to(dev)
+    lg, cache = make_prefill_step(model, cfg)(tok, cache_len=56)
+    stepped = init_params(model.cache_specs(3, 56), None, device=dev)
+    for i in range(tok.shape[1]):
+        slg, stepped = model.decode_step(stepped, tok[:, i:i + 1], i)
+    worst = 0.0
+    for got, want in zip(tree_leaves(cache), tree_leaves(stepped)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        worst = max(worst, float((got - want).abs().max()))
+    torch.testing.assert_close(lg, slg, atol=1e-4, rtol=1e-4)
+    report["hybrid_prefill_vs_stepping"] = dict(leaves=len(tree_leaves(cache)),
+                                                max_abs_diff=worst)
+    log(f"recurrentgemma-2b, 2 RRA units fp32 on {dev.type}: the one-pass prefill's "
+        f"{len(tree_leaves(cache))} cache leaves equal stepping the prompt (max |diff| "
+        f"{worst:.3g}, within 1e-4), and its last logits")
+
+
+def encdec_path(ec, dev, report):
+    """Phase 27's run: seamless-m4t-medium (or its smoke widths), seeded
+    weights and frames, a warm-up, then the counted run: `make_prefill_step`
+    encodes 32 x 2,048 frames and builds the cross K/V beside a self cache
+    of 2,176, then one BOS token and 64 greedy steps."""
+    t0 = time.perf_counter()
+    cfg, model = serving_model(ec, dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    prefill, step = make_prefill_step(model, cfg), make_serve_step(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+
+    def run(B, T, cache_len, steps):
+        frames = torch.randn((B, T, cfg.d_model), generator=gen, device=dev).to(dtype)
+        bos = torch.ones((B, 1), dtype=torch.int32, device=dev)
+
+        def first_token():
+            _, cache = prefill(frames, cache_len=cache_len)
+            tok, _, cache = step(cache, bos, 0)
+            return tok, cache
+
+        (tok, cache), t_first = timed(dev, first_token)
+
+        def decode():
+            t, c, out = tok, cache, [tok]
+            for i in range(steps):
+                t, _, c = step(c, t, 1 + i)
+                out.append(t)
+            return torch.cat(out, 1)
+
+        generated, t_decode = timed(dev, decode)
+        return frames, generated, cache, t_first, t_decode
+
+    run(2, 64, 16, 2)  # warm-up
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    B, T, steps = ec["batch"], ec["frames"], ec["steps"]
+    frames, generated, cache, t_first, t_decode = run(B, T, ec["cache"], steps)
+    if generated.shape != (B, steps + 1):
+        raise RuntimeError("the encoder-decoder path returned the wrong number of tokens")
+    if not (0 <= int(generated.min()) and int(generated.max()) < cfg.vocab):
+        raise RuntimeError("the encoder-decoder path generated ids outside the vocabulary")
+    report[ec["key"]] = dict(
+        arch=cfg.name, batch=B, frames=T, self_cache=ec["cache"], decode_steps=steps,
+        init_s=t_init, params=count_params(model.specs()), time_to_first_token_s=t_first,
+        encoded_frames_per_s=B * T / t_first, decode_s=t_decode,
+        decode_tokens_per_s=B * steps / t_decode)
+    log(f"{cfg.name} serving (one run each): {count_params(model.specs())} parameters drawn "
+        f"in {t_init:.3f} s; encode {B} x {T} frames, the cross K/V and the first token "
+        f"{t_first:.4f} s (time to first token), {steps} decode steps {t_decode:.4f} s "
+        f"({B * steps / t_decode:.6g} tokens/s)")
+    return cfg, model, frames, generated, cache
+
+
+def check_encdec_launches(ec, cfg, counts):
+    """One `flash_attention` launch an encoder layer, two `flash_decode`
+    (self and cross) a decoder layer and token."""
+    want = dict(flash_attention=cfg.n_enc_layers,
+                flash_decode=2 * cfg.n_dec_layers * (ec["steps"] + 1))
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"{cfg.name}: launches {counts}, want {want}")
+
+
+def encdec_profile(ec, dev, cfg, model, cache, generated, report, n_steps=8):
+    step = make_serve_step(model, cfg)
+
+    def decode():
+        tok, c = generated[:, -1:], cache
+        for i in range(n_steps):  # rewrites the last positions, in range
+            tok, _, c = step(c, tok, ec["steps"] - n_steps + 1 + i)
+        return tok
+
+    _, prof = profile_window(dev, decode)
+    prof["device_ops_per_step"] = prof["device_ops"] / n_steps
+    report[ec["key"] + "_profile"] = dict(decode_steps=n_steps, decode=prof)
+    log_profile(f"{cfg.name}: {n_steps} decode steps at batch {ec['batch']} "
+                f"({prof['device_ops_per_step']:.0f} device ops per step)", prof)
+
+
+def encdec_kernel_checks(ec, dev, cfg, model, frames, cache, report, errs):
+    """Encoder layer 0 on the path's frames: the non-causal
+    `flash_attention` at 32 x 2,048, D 64, 16 heads, and with 4 times
+    more queries than keys (unmasked attention reads no offset); decoder
+    layer 0's `flash_decode` against the self cache with per-sequence
+    lengths and against the cross K/V with the memory's length; each
+    against the plain version on the same card tensors."""
+    p = model.encoder[0]
+    B, T, _ = frames.shape
+    x = rms_norm(frames, p.ln1, cfg.norm_eps)
+    q, k, v = qkv(p.attn, cfg, x, torch.arange(T, device=dev).expand(B, -1))
+    del x
+    scale = cfg.head_dim ** -0.5
+    c = cache["decoder"]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    lens = torch.randint(1, ec["steps"] + 2, (B,), generator=gen, device=dev, dtype=torch.int32)
+    qd = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen, device=dev)
+    kv_short = max(1, T // 4)
+    cases = (
+        ("encoder prefill", "flash_attention",
+         lambda a, b, cc: fa_ops.flash_attention(a, b, cc, causal=False, scale=scale),
+         sliced(lambda a, b, cc: flash_attention_ref(a, b, cc, causal=False, scale=scale), 4),
+         (q, k, v)),
+        (f"cross, {T} queries over {kv_short} keys", "flash_attention",
+         lambda a, b, cc: fa_ops.flash_attention(a, b[:, :kv_short], cc[:, :kv_short],
+                                                 causal=False, scale=scale),
+         sliced(lambda a, b, cc: flash_attention_ref(a, b[:, :kv_short], cc[:, :kv_short],
+                                                     causal=False, scale=scale), 4),
+         (q, k, v)),
+        ("self decode", "flash_decode",
+         lambda a, b, cc: fd_ops.flash_decode(a, b, cc, lens, scale=scale),
+         lambda a, b, cc: flash_decode_ref(a, b, cc, lens, scale=scale),
+         (qd, c["k"][0], c["v"][0])),
+        ("cross decode", "flash_decode",
+         lambda a, b, cc: fd_ops.flash_decode(a, b, cc, T, scale=scale),
+         lambda a, b, cc: flash_decode_ref(a, b, cc, T, scale=scale),
+         (qd, c["xk"][0], c["xv"][0])))
+    checks = {}
+    attention_pair_checks(f"{cfg.name} layer 0", cases, errs, checks)
+    report[ec["key"]]["kernel_checks"] = dict(
+        prefill_shape=list(q.shape), self_cache=list(c["k"][0].shape),
+        cross_cache=list(c["xk"][0].shape), self_lens=[int(lens.min()), int(lens.max())],
+        checks=checks)
+    return (q, k, v), (qd, c["xk"][0], c["xv"][0])
+
+
+def encdec_timings(dev, name, prefill_args, cross_args):
+    """The encoder's non-causal B2 and the cross-attention's B3 at phase
+    27's shapes."""
+    q, k, v = (t.to(torch.bfloat16) for t in prefill_args)
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    out = {"encoder_prefill": attention_timing(
+        dev, name, "flash_attention, non-causal", lambda: fa_ops.flash_attention(
+            q, k, v, causal=False, scale=scale),
+        lambda: sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=False,
+                                                           scale=scale), 4)(q, k, v),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale),
+        4 * B * H * D * S * S, 2 * (2 * q.numel() + k.numel() + v.numel()),
+        [B, S, S, H, k.shape[2], D])}
+    qd, xk, xv = (t.to(torch.bfloat16) for t in cross_args)
+    B, Sc, K, D = xk.shape
+    H = qd.shape[2]
+    out["cross_decode"] = attention_timing(
+        dev, name, "flash_decode, cross K/V", lambda: fd_ops.flash_decode(
+            qd, xk, xv, Sc, scale=scale),
+        lambda: flash_decode_ref(qd, xk, xv, Sc, scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), xk.transpose(1, 2), xv.transpose(1, 2), scale=scale),
+        4 * H * D * B * Sc, 2 * (2 * B * Sc * K * D + 2 * qd.numel()) + 4 * B,
+        [B, Sc, H, K, D], splits=fd_ops.plan_for(qd, xk).nsplit)
+    return out
+
+
+def encdec_small_vs_cpu(dev, report):
+    """seamless-m4t-medium at the smoke widths (2 + 2 layers), fp32, one
+    set of weights: the frames' prefill and 12 greedy steps from BOS give
+    the same tokens on the card and on the CPU, and the teacher-forced
+    logits (30 tokens over 24 frames: the cross-attention's queries
+    outnumber its keys) agree within 1e-4."""
+    cfg = get_smoke_config("seamless-m4t-medium").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), dev)
+    rng = np.random.default_rng(4)
+    fr = torch.from_numpy(rng.normal(size=(4, 24, cfg.d_model)).astype(np.float32))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 30)).astype(np.int32))
+    served, logits = {}, {}
+    for model in (card, cpu):
+        _, cache = make_prefill_step(model, cfg)(fr.to(model.device), cache_len=16)
+        nxt = torch.ones((4, 1), dtype=torch.int32, device=model.device)
+        step, out = make_serve_step(model, cfg), []
+        for i in range(12):
+            nxt, _, cache = step(cache, nxt, i)
+            out.append(nxt.cpu())
+        served[model.device.type] = torch.cat(out, 1)
+        logits[model.device.type] = model(tok.to(model.device), fr.to(model.device))[0].cpu()
+    if not torch.equal(served[dev.type], served["cpu"]):
+        raise RuntimeError("seamless smoke model: tokens differ between card and CPU")
+    torch.testing.assert_close(logits[dev.type], logits["cpu"], atol=1e-4, rtol=1e-4)
+    report["seamless-m4t-medium_small_vs_cpu"] = dict(
+        tokens=int(served["cpu"].numel()),
+        forward_max_abs_diff=float((logits[dev.type] - logits["cpu"]).abs().max()))
+    log(f"seamless-m4t-medium smoke model: {served['cpu'].numel()} greedy tokens, card == "
+        f"CPU; teacher-forced logits (30 tokens over 24 frames) within 1e-4")
+
+
 # -------------------------------------------------------------- training ----
 
 @contextlib.contextmanager
@@ -3376,12 +4242,16 @@ def rehearse():
     timeseries_and_channels(TS_TINY, dev, report, None, {})
     tiered_storage(TIER_TINY, dev, report, {})
     cluster_front_door(CLUSTER_TINY, dev, report, {})
+    storage_faults(FAULT_TINY, dev, report, {})
     for sc in (SERVE_TINY, SSM_TINY, MOE_TINY):
         cfg, model = serving_model(sc, dev)
         serving_path(sc, dev, cfg, model, report)
     morton_path(MM_TINY, dev, report)
     for sc in DENSE_TINY:
         dense_family_path(sc, dev, report)
+    hybrid_path(HYBRID_TINY, dev, report)
+    hybrid_prefill_vs_stepping(dev, report)
+    encdec_path(ENCDEC_TINY, dev, report)
     for tc in TRAINS_TINY:
         cfg, model, opt, pipe = training_state(tc, dev)
         training_batches_vs_cpu(tc, cfg, pipe, report)
@@ -3485,6 +4355,14 @@ def main(argv=None) -> int:
         f"{report['cluster']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # storage faults under the device store and the front door (phase 25)
+    counts = {}
+    storage_faults(FAULT_FULL, dev, report, counts)
+    by_path["faults"] = read_launches("faults", counts)
+    log(f"launches on the faults path: {by_path['faults']}; phase "
+        f"{report['faults']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # the serving path
     cfg, model = serving_model(SERVE_FULL, dev)
     serving_path(SERVE_TINY | dict(smoke=False), dev, cfg, model, {})  # warm-up
@@ -3585,6 +4463,47 @@ def main(argv=None) -> int:
     for arch in ("gemma-2b", "minitron-8b", "llama3-405b"):
         serving_small_vs_cpu(dev, report, arch)
 
+    # the hybrid family at full width (phase 26)
+    t0 = time.perf_counter()
+    cfg, model, prompts, generated, cache = hybrid_path(HYBRID_FULL, dev, report)
+    by_path["hybrid_serving"] = counts = read_launches("hybrid_serving")
+    check_hybrid_launches(HYBRID_FULL, cfg, counts)
+    report["hybrid_serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the hybrid_serving path: {counts}; max memory allocated "
+        f"{report['hybrid_serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    serving_profile(HYBRID_FULL, dev, cfg, model, prompts, cache, generated, report)
+    del prompts, generated
+    pre_args, dec_args = hybrid_kernel_checks(HYBRID_FULL, dev, cfg, model, cache, report, errs)
+    timings["hybrid"] = hybrid_timings(dev, cfg, name, pre_args, dec_args,
+                                       report["hybrid_serving"]["window"])
+    del pre_args, dec_args, cache
+    torch.cuda.empty_cache()
+    scan_timing(HYBRID_FULL, dev, cfg, report)
+    del model
+    torch.cuda.empty_cache()
+    hybrid_prefill_vs_stepping(dev, report)
+    serving_small_vs_cpu(dev, report, "recurrentgemma-2b")
+    report["hybrid_serving"]["phase_s"] = time.perf_counter() - t0
+    log(f"phase 26 {report['hybrid_serving']['phase_s']:.1f} s")
+
+    # the encoder-decoder family at full width (phase 27)
+    t0 = time.perf_counter()
+    cfg, model, frames, generated, cache = encdec_path(ENCDEC_FULL, dev, report)
+    by_path["encdec_serving"] = counts = read_launches("encdec_serving")
+    check_encdec_launches(ENCDEC_FULL, cfg, counts)
+    report["encdec_serving"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"launches on the encdec_serving path: {counts}; max memory allocated "
+        f"{report['encdec_serving']['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    encdec_profile(ENCDEC_FULL, dev, cfg, model, cache, generated, report)
+    pre_args, cross_args = encdec_kernel_checks(ENCDEC_FULL, dev, cfg, model, frames, cache,
+                                                report, errs)
+    timings["encdec"] = encdec_timings(dev, name, pre_args, cross_args)
+    del model, frames, generated, cache, pre_args, cross_args
+    torch.cuda.empty_cache()
+    encdec_small_vs_cpu(dev, report)
+    report["encdec_serving"]["phase_s"] = time.perf_counter() - t0
+    log(f"phase 27 {report['encdec_serving']['phase_s']:.1f} s")
+
     # training at full width: the dense, MoE and ssm families
     for tc in TRAINS_FULL:
         training_phase(tc, dev, name, report, by_path)
@@ -3602,11 +4521,20 @@ def main(argv=None) -> int:
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
                  bound_by="bytes", library_ms=None, rank4_ms=rank4["ms"],
                  rank4_plain_ms=rank4["plain_ms"], rank4_bound_ms=rank4["bound_ms"])]
+    new_shapes = {"flash_attention": {"window_prefill": timings["hybrid"]["window_prefill"],
+                                      "encoder_prefill": timings["encdec"]["encoder_prefill"]},
+                  "flash_decode": {"window_decode": timings["hybrid"]["window_decode"],
+                                   "cross_decode": timings["encdec"]["cross_decode"]}}
     for n in ("flash_attention", "flash_decode", "ssd_scan", "moe_gemm", "morton_matmul"):
         t = timings[n]
+        extra = {}
+        if n in new_shapes:
+            extra["new_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")}
+                                   for k, v in new_shapes[n].items()}
         rows.append(dict(name=n, max_abs_err=max(errs[n]), ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                         bound_by=t["bound_by"], library_ms=t["library_ms"]))
+                         bound_by=t["bound_by"], library_ms=t["library_ms"], **extra))
     rows = [dict(name=r["name"], route=KERNELS[r["name"]]["route"],
                  source=KERNELS[r["name"]]["source"],
                  replaces=KERNELS[r["name"]]["replaces"],

@@ -53,7 +53,9 @@ from .core.distributed import (as_device_tensor, pack_to_cuboids, signed_view,
 from .core.store import Backend, DeviceCuboidStore, Key, MemoryBackend
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
-from .models.lm import LM, lm_specs
+from .models import build_model, model_specs
+from .models.encdec import EncDecLM
+from .models.lm import LM
 from .models.params import DTYPES, ParamSpec, tree_map
 
 
@@ -205,11 +207,15 @@ def _tree_from_numpy(spec_tree, arr_tree, dev: torch.device, path: str = ""):
             for k in spec_tree}
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree, device: DeviceLike = "cuda") -> LM:
-    """The port's `LM` holding the JAX package's parameters ``tree`` (numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``)."""
+def lm_params_from_numpy(cfg: ModelConfig, tree, device: DeviceLike = "cuda"
+                         ) -> Union[LM, EncDecLM]:
+    """The port's model (`LM`, or `EncDecLM` for the encoder-decoder
+    family) holding the JAX package's parameters ``tree`` (numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``): the hybrid family's
+    ``blocks`` and ``tail``, the encoder-decoder's ``encoder`` and
+    ``decoder`` included."""
     dev = resolve_device(device)
-    return LM(cfg, _tree_from_numpy(lm_specs(cfg), tree, dev), device=dev)
+    return build_model(cfg, _tree_from_numpy(model_specs(cfg), tree, dev), device=dev)
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -219,7 +225,7 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def lm_params_to_numpy(model: LM):
+def lm_params_to_numpy(model: Union[LM, EncDecLM]):
     """The model's parameters as numpy arrays in the JAX package's
     structure; bfloat16 leaves as their uint16 bit patterns."""
     return tree_map(_leaf_to_numpy, model.param_tree())
@@ -231,7 +237,7 @@ def opt_state_from_numpy(cfg: ModelConfig, state, device: DeviceLike = "cuda") -
     as ml_dtypes' or as uint16 bits, else float32), ``master`` is fp32,
     ``step`` an int32 scalar."""
     dev = resolve_device(device)
-    specs = lm_specs(cfg)
+    specs = model_specs(cfg)
 
     def moments(tree):
         dtypes = tree_map(lambda a: "bfloat16" if np.asarray(a).dtype.name in (

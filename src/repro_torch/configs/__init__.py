@@ -25,15 +25,13 @@ ARCH_IDS: List[str] = [
 ]
 
 SUPPORTED = ("smollm_135m", "minitron_8b", "gemma_2b", "granite_moe_1b_a400m",
-             "mamba2_370m")
+             "mamba2_370m", "recurrentgemma_2b", "seamless_m4t_medium")
 SMOKE_ONLY = ("llama3_405b",)
 
 _LATER = {
     "llama3_405b": "ROADMAP A13 (sharded dense models)",
     "internvl2_76b": "ROADMAP A13 (sharded dense models, patch frontend)",
     "arctic_480b": "ROADMAP A13 (sharded MoE models: 480B does not fit one card)",
-    "recurrentgemma_2b": "ROADMAP A10 (hybrid family)",
-    "seamless_m4t_medium": "ROADMAP A10 (encoder-decoder family)",
 }
 
 

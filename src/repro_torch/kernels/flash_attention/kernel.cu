@@ -10,7 +10,8 @@
 //   out = softmax_j(q_i . k_j * scale  masked) . v_j   over kv head kh,
 // with query i at key position (Skv - Sq) + i; masked when j > that
 // position (causal), when position - j >= window (sliding window) and past
-// Skv.  The numerics are the TPU kernel's: fp32 scores; masked scores -1e30
+// Skv.  Without either mask nothing reads that position, and Sq may exceed
+// Skv (cross-attention).  The numerics are the TPU kernel's: fp32 scores; masked scores -1e30
 // (not -inf); an online softmax with fp32 running max m, sum l and
 // accumulator; p rounded to the input dtype before the PV product; out =
 // acc / max(l, 1e-30).
@@ -564,7 +565,9 @@ extern "C" int flash_attention_launch(
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
     int64_t osh, int64_t causal, int64_t window, float scale, int64_t dtype,
     void* stream) {
-  if (G < 1 || G > kRows || Sq > Skv) return cudaErrorInvalidValue;
+  // Sq > Skv places query 0 before key 0: only the causal and window masks
+  // read that offset, so unmasked (cross) attention takes any Sq
+  if (G < 1 || G > kRows || (Sq > Skv && (causal || window > 0))) return cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || K <= 0) return cudaSuccess;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};

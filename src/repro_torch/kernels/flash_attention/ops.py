@@ -114,7 +114,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if G > MAX_GROUP:
         raise ValueError(f"{G} query heads per kv head; at most {MAX_GROUP}")
-    if Sq > Skv:
+    if Sq > Skv and (causal or window is not None):
+        # the offset Skv - Sq places the queries only for the causal and
+        # window masks; unmasked (cross) attention takes any Sq
         raise ValueError(f"Sq {Sq} > Skv {Skv}: queries sit at the end of the keys")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")

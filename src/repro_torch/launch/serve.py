@@ -5,8 +5,12 @@
   python -m repro_torch.launch.serve --arch smollm-135m --smoke \\
       --device cpu                                    # plain path, CPU
 
-(with ``src`` on ``PYTHONPATH``).  Weights are drawn from seed 0; rates are
-printed with the device they were measured on.
+(with ``src`` on ``PYTHONPATH``; any arch of the port, recurrentgemma-2b
+and seamless-m4t-medium included).  Weights are drawn from seed 0; rates
+are printed with the device they were measured on.  The encoder-decoder
+steps its decoder over the prompt against an all-zero cross K/V, as the
+JAX package's driver does (`zero_cache`); its frames-to-cross-cache step
+is `serve.make_prefill_step`.
 """
 from __future__ import annotations
 
@@ -23,8 +27,15 @@ from ..serve import ContinuousBatcher, Request, make_serve_step
 
 
 def zero_cache(model, cfg, B: int, cache_len: int):
-    """A zero KV cache for ``B`` sequences on the model's device."""
-    return init_params(model.cache_specs(B, cache_len), None, device=model.device)
+    """A zero decode cache for ``B`` sequences on the model's device.  The
+    encoder-decoder's holds a zero cross K/V of ``cache_len`` memory
+    positions, as the JAX package's driver builds it: the driver steps the
+    decoder over the prompt tokens without encoding any frames."""
+    if cfg.family == "encdec":
+        specs = model.cache_specs(B, cache_len, enc_len=cache_len)
+    else:
+        specs = model.cache_specs(B, cache_len)
+    return init_params(specs, None, device=model.device)
 
 
 def device_name(dev: torch.device) -> str:

@@ -35,6 +35,10 @@ from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_init
 from ..train import make_train_step
 
+# families whose serving path the port runs and whose training it does not yet
+_LATER_FAMILIES = {"hybrid": "ROADMAP A10 (training half)",
+                   "encdec": "ROADMAP A10 (training half)"}
+
 
 def build_state(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda"):
     """(model, optimizer state): weights drawn from ``seed`` on the device,
@@ -84,6 +88,9 @@ def main(argv=None) -> Dict:
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in _LATER_FAMILIES:
+        raise NotImplementedError(f"{args.arch}: training of the {cfg.family} family is "
+                                  f"not in the port yet; see {_LATER_FAMILIES[cfg.family]}")
     model, opt = build_state(cfg, device=dev)
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=5, total_steps=args.steps,
                           grad_compression=args.grad_compression)

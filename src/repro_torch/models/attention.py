@@ -7,6 +7,8 @@ card, their plain versions for tensors on the CPU.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -40,14 +42,19 @@ def qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+              window: Optional[int] = None, causal: bool = True,
               return_kv: bool = False):
-    """Full-sequence (train/prefill) causal attention. x: (B, S, d).
+    """Full-sequence (train/prefill) attention. x: (B, S, d).  ``window``
+    is the sliding local attention width (a query sees its last
+    ``window`` positions), ``causal=False`` the encoder's unmasked
+    self-attention.
 
     ``return_kv=True`` also returns the (k, v) projections, so a prefill
     can build its decode cache without projecting K/V a second time."""
     B, S, _ = x.shape
     q, k, v = qkv(p, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, scale=cfg.head_dim ** -0.5)
+    out = flash_attention(q, k, v, causal=causal, scale=cfg.head_dim ** -0.5,
+                          window=window)
     out = out.reshape(B, S, -1) @ p.w_o
     if return_kv:
         return out, (k, v)

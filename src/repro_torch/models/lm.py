@@ -1,4 +1,5 @@
-"""Decoder-only LM (`repro.models.lm.LM`), dense, MoE and ssm families.
+"""Decoder-only LM (`repro.models.lm.LM`): dense, MoE, hybrid and ssm
+families.
 
 The module holds its parameters in the JAX package's tree: the token
 embedding, the final norm, an untied head where the config asks for one
@@ -19,6 +20,17 @@ The dense and MoE families' cache is the JAX tree ``{"blocks": {"k": (L,
 B, S, K, hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
 N) fp32, "conv": (L, B, conv_width - 1, d_inner + 2N)}}``, O(1) in the
 sequence.  `decode_step` writes either in place.
+
+The hybrid family (Griffin: RG-LRU recurrent units R and local-attention
+units A in ``hybrid_pattern``) stacks whole repeats of the pattern under
+``blocks``, each unit under its own key ("a", "b", ...), and the layers
+left over under ``tail`` (one repeat of the pattern's first units), as
+the JAX package does.  Its cache holds, per R unit, the fp32 state ``h``
+and the conv tail, and per A unit a rotating window of ``wlen =
+min(local_window, cache_len)`` keys and values, position p at slot p mod
+wlen.  `decode_step` attends to the window through `flash_decode` with
+lengths min(index + 1, wlen): every slot under that length holds one of
+the window's positions, and the softmax does not depend on their order.
 """
 from __future__ import annotations
 
@@ -31,16 +43,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..kernels.flash_decode.ops import flash_decode
+from ..kernels.flash_decode.ref import as_lens
 from .attention import attention, attention_decode, attention_specs, prefill_kv
 from .config import ModelConfig
-from .layers import mlp, mlp_specs, rms_norm, rms_norm_spec
+from .layers import (cache_insert, mlp, mlp_specs, per_seq_positions, rms_norm, rms_norm_spec,
+                     rotary)
 from .moe import moe, moe_specs
 from .params import ParamSpec, init_params, map_specs
+from .rglru import rglru_block, rglru_decode_step, rglru_specs
 from .ssm import ssm_block, ssm_decode_step, ssm_specs
 
 F32 = torch.float32
-
-_LATER_FAMILIES = {"hybrid": "ROADMAP A10 (hybrid family)"}
+UNIT_KEYS = "abcdefgh"  # the hybrid units' keys within a repeat of the pattern
 
 
 def stack_specs(tree, n: int):
@@ -62,13 +77,42 @@ def block_specs(cfg: ModelConfig) -> dict:
     return out
 
 
+def hybrid_unit_specs(cfg: ModelConfig, kind: str) -> dict:
+    """One hybrid unit: an RG-LRU (``"R"``) or local attention (``"A"``)
+    mixer and an MLP, both pre-norm residual."""
+    temporal = rglru_specs(cfg) if kind == "R" else attention_specs(cfg)
+    return {"ln1": rms_norm_spec(cfg.d_model), "temporal": temporal,
+            "ln2": rms_norm_spec(cfg.d_model), "mlp": mlp_specs(cfg)}
+
+
+def hybrid_layout(cfg: ModelConfig):
+    """(whole repeats of the pattern, layers left over for the tail)."""
+    plen = len(cfg.hybrid_pattern)
+    return cfg.n_layers // plen, cfg.n_layers % plen
+
+
+def _hybrid_stacks(cfg: ModelConfig, unit) -> dict:
+    """``{"blocks": repeats stacked, "tail": the leftover units}`` of
+    ``unit(kind)`` trees (no tail when the pattern divides the layers)."""
+    n_rep, n_left = hybrid_layout(cfg)
+    out = {"blocks": stack_specs({k: unit(kind) for k, kind in
+                                  zip(UNIT_KEYS, cfg.hybrid_pattern)}, n_rep)}
+    if n_left:
+        out["tail"] = stack_specs({k: unit(kind) for k, kind in
+                                   zip(UNIT_KEYS, cfg.hybrid_pattern[:n_left])}, 1)
+    return out
+
+
 def lm_specs(cfg: ModelConfig) -> dict:
     """The LM's parameters, layers stacked on a leading axis (the JAX
     package's `LM.specs`)."""
     out = {"embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                               dtype=cfg.dtype),
-           "final_norm": rms_norm_spec(cfg.d_model),
-           "blocks": stack_specs(block_specs(cfg), cfg.n_layers)}
+           "final_norm": rms_norm_spec(cfg.d_model)}
+    if cfg.family == "hybrid":
+        out.update(_hybrid_stacks(cfg, lambda kind: hybrid_unit_specs(cfg, kind)))
+    else:
+        out["blocks"] = stack_specs(block_specs(cfg), cfg.n_layers)
     if not cfg.tie_embeddings:
         out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                                    dtype=cfg.dtype)
@@ -112,6 +156,17 @@ def _layers(tree, n: int) -> list:
     return [Layer({k: v[i] for k, v in per.items()}) for i in range(n)]
 
 
+def stack_views(stack: "ParamTree", n: int, cache: Dict, key: str) -> list:
+    """The ``n`` `Layer`s of a stacked ``stack``, views of its tensors.
+    Taken anew while autograd records (so the layers' gradients reach the
+    stacked leaves), else once and kept in ``cache`` under ``key``."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in stack.parameters()):
+        return _layers(stack.tree(), n)
+    if key not in cache:
+        cache[key] = _layers(stack.tree(), n)
+    return cache[key]
+
+
 def _as_index(index):
     """A decode position as an int where it is one on the host, else a
     tensor (kept on its device: no sync)."""
@@ -125,8 +180,8 @@ def _as_index(index):
 
 
 class LM(nn.Module):
-    """Decoder-only language model over a ModelConfig (dense, MoE or ssm
-    family).
+    """Decoder-only language model over a ModelConfig (dense, MoE, hybrid
+    or ssm family).
 
     ``params`` is a tree in the JAX package's structure (blocks stacked on
     a leading layer axis); without it the parameters are drawn by
@@ -137,10 +192,7 @@ class LM(nn.Module):
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family in _LATER_FAMILIES:
-            raise NotImplementedError(f"family {cfg.family!r} is not in the port "
-                                      f"yet; see {_LATER_FAMILIES[cfg.family]}")
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise ValueError(f"LM does not handle family {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -148,10 +200,13 @@ class LM(nn.Module):
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             params = init_params(self.specs(), generator, device=self.device)
-        top = {k: v for k, v in params.items() if k != "blocks"}
+        top = {k: v for k, v in params.items() if k not in ("blocks", "tail")}
         self.top = ParamTree(top)
         self.stack = ParamTree(params["blocks"])
-        self._views = None
+        self.tail_stack = ParamTree(params["tail"]) if "tail" in params else None
+        self._n_stacked = (hybrid_layout(cfg)[0] if cfg.family == "hybrid"
+                           else cfg.n_layers)
+        self._views: Dict[str, list] = {}
 
     # ---------------------------------------------------------- specs ----
     def specs(self) -> dict:
@@ -162,18 +217,32 @@ class LM(nn.Module):
         not copied."""
         out = self.top.tree()
         out["blocks"] = self.stack.tree()
+        if self.tail_stack is not None:
+            out["tail"] = self.tail_stack.tree()
         return out
 
     @property
     def blocks(self) -> list:
-        """Each layer's parameters, views of the stacked ones.  Taken anew
-        while autograd records (so the layers' gradients reach the stacked
-        leaves), else once."""
-        if torch.is_grad_enabled() and any(p.requires_grad for p in self.stack.parameters()):
-            return _layers(self.stack.tree(), self.cfg.n_layers)
-        if self._views is None:
-            self._views = _layers(self.stack.tree(), self.cfg.n_layers)
-        return self._views
+        """Each layer's parameters (a repeat of the pattern's units in the
+        hybrid family), views of the stacked ones (`stack_views`)."""
+        return stack_views(self.stack, self._n_stacked, self._views, "blocks")
+
+    @property
+    def tail(self) -> list:
+        """The hybrid family's leftover units (one entry, or none)."""
+        if self.tail_stack is None:
+            return []
+        return stack_views(self.tail_stack, 1, self._views, "tail")
+
+    def _units(self):
+        """The hybrid units in order: (tree key, stacked index, unit key,
+        kind, parameters)."""
+        pattern = self.cfg.hybrid_pattern
+        for where, layers in (("blocks", self.blocks), ("tail", self.tail)):
+            for i, layer in enumerate(layers):
+                for key, kind in zip(UNIT_KEYS, pattern):
+                    if key in layer:
+                        yield where, i, key, kind, layer[key]
 
     # -------------------------------------------------------- forward ----
     def _ffn(self, p, x: torch.Tensor):
@@ -187,6 +256,25 @@ class LM(nn.Module):
         if cfg.moe_dense_residual:
             y = y + mlp(p.mlp, x, cfg.act)
         return y, aux
+
+    def _apply_unit(self, p, x: torch.Tensor, positions: torch.Tensor, kind: str,
+                    window: Optional[int] = None, return_cache: bool = False):
+        """One hybrid unit: the temporal mixer and the MLP, both pre-norm
+        residual.  ``window`` (default ``local_window``) bounds the A
+        unit's attention.  With ``return_cache`` also the unit's decode
+        state: (h, conv) for R, the (k, v) of every position for A."""
+        cfg = self.cfg
+        xin = rms_norm(x, p.ln1, cfg.norm_eps)
+        if kind == "R":
+            out = rglru_block(p.temporal, cfg, xin, return_cache=return_cache)
+            h, state = (out[0], out[1:]) if return_cache else (out, None)
+        else:
+            out = attention(p.temporal, cfg, xin, positions,
+                            window=window or cfg.local_window, return_kv=return_cache)
+            h, state = out if return_cache else (out, None)
+        x = x + h
+        x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+        return (x, state) if return_cache else x
 
     def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor):
         """One layer; returns (x, the MoE aux loss or None)."""
@@ -216,6 +304,10 @@ class LM(nn.Module):
         B, S, _ = x.shape
         positions = self._positions(B, S)
         aux = torch.zeros((), dtype=F32, device=self.device)
+        if self.cfg.family == "hybrid":
+            for _, _, _, kind, p in self._units():
+                x = self._apply_unit(p, x, positions, kind)
+            return self.logits(x), aux
         for p in self.blocks:
             x, a = self._block_fwd(p, x, positions)
             if a is not None:
@@ -225,8 +317,12 @@ class LM(nn.Module):
     # ---------------------------------------------------------- decode ----
     def cache_specs(self, B: int, cache_len: int) -> dict:
         """The decode cache: (L, B, cache_len, K, hd) K and V for the dense
-        and MoE families; for the ssm family O(1) states, whatever ``cache_len``."""
+        and MoE families; for the ssm family O(1) states, whatever
+        ``cache_len``; for the hybrid family O(1) states and a window of at
+        most ``local_window`` positions."""
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            return _hybrid_stacks(cfg, lambda kind: self._unit_cache_spec(kind, B, cache_len))
         if cfg.family == "ssm":
             st = {"state": ParamSpec((B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
                                      ("batch", "heads_cache", None, None),
@@ -239,6 +335,48 @@ class LM(nn.Module):
                        ("batch", "kv_len", "kv_heads_cache", None),
                        dtype=cfg.dtype, init="zeros")
         return {"blocks": stack_specs({"k": kv, "v": kv}, cfg.n_layers)}
+
+    def _unit_cache_spec(self, kind: str, B: int, cache_len: int) -> dict:
+        cfg = self.cfg
+        if kind == "R":
+            return {"h": ParamSpec((B, cfg.d_rnn), ("batch", "rnn"), dtype="float32",
+                                   init="zeros"),
+                    "conv": ParamSpec((B, cfg.conv_width - 1, cfg.d_rnn),
+                                      ("batch", None, "rnn"), dtype=cfg.dtype, init="zeros")}
+        kv = ParamSpec((B, min(cfg.local_window, cache_len), cfg.n_kv_heads, cfg.head_dim),
+                       ("batch", "kv_len", "kv_heads_cache", None), dtype=cfg.dtype,
+                       init="zeros")
+        return {"k": kv, "v": kv}
+
+    def _unit_decode(self, p, c: Dict, i: int, x: torch.Tensor, index, kind: str):
+        """One hybrid unit at one token; its cache ``c`` (the stacked
+        leaves, entry ``i``) is updated in place."""
+        cfg = self.cfg
+        xin = rms_norm(x, p.ln1, cfg.norm_eps)
+        if kind == "R":
+            h, hs, conv = rglru_decode_step(p.temporal, cfg, xin, c["h"][i], c["conv"][i])
+            c["h"][i].copy_(hs)
+            c["conv"][i].copy_(conv)
+        else:
+            # the rotating window: position p at slot p mod wlen
+            ck, cv = c["k"][i], c["v"][i]
+            B, wlen = x.shape[0], ck.shape[1]
+            H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            positions = per_seq_positions(index, B, x.device)
+            q = rotary((xin @ p.temporal.w_q).reshape(B, 1, H, hd), positions, cfg.rope_theta)
+            k = rotary((xin @ p.temporal.w_k).reshape(B, 1, K, hd), positions, cfg.rope_theta)
+            v = (xin @ p.temporal.w_v).reshape(B, 1, K, hd)
+            if isinstance(index, int):
+                slot, n_valid = index % wlen, min(index + 1, wlen)
+            else:
+                pos = as_lens(index, B, x.device)
+                slot, n_valid = pos % wlen, torch.clamp(pos + 1, max=wlen)
+            cache_insert(ck, k, slot)
+            cache_insert(cv, v, slot)
+            out = flash_decode(q, ck, cv, n_valid, scale=hd ** -0.5)
+            h = out.reshape(B, 1, -1) @ p.temporal.w_o
+        x = x + h
+        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
 
     def _block_decode(self, p, cache_k: torch.Tensor, cache_v: torch.Tensor,
                       x: torch.Tensor, index) -> torch.Tensor:
@@ -254,6 +392,11 @@ class LM(nn.Module):
         positions (continuous batching).  Returns (logits (B, 1, V), cache),
         the cache updated in place."""
         x = self.embed_tokens(token)
+        if self.cfg.family == "hybrid":
+            index = _as_index(index)
+            for where, i, key, kind, p in self._units():
+                x = self._unit_decode(p, cache[where][key], i, x, index, kind)
+            return self.logits(x), cache
         if self.cfg.family == "ssm":  # the recurrence has no positions
             st, conv = cache["blocks"]["state"], cache["blocks"]["conv"]
             for i, p in enumerate(self.blocks):
@@ -278,10 +421,13 @@ class LM(nn.Module):
         forward pass's final states and conv tails (`ssm_block` with
         ``return_cache``), where the JAX package steps the prompt through
         `decode_step` token by token; the two agree (the duality), and
-        ``cache_len`` does not size it."""
+        ``cache_len`` does not size it.  The hybrid family's is built the
+        same way, from one forward pass (`_hybrid_prefill`)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
+        if cfg.family == "hybrid":
+            return self._hybrid_prefill(x, cache_len)
         if cfg.family == "ssm":
             states, convs = [], []
             for p in self.blocks:
@@ -310,3 +456,30 @@ class LM(nn.Module):
                 ck[i].copy_(k)
                 cv[i].copy_(v)
         return self.logits(x[:, -1:]), {"blocks": {"k": ck, "v": cv}}
+
+    def _hybrid_prefill(self, x: torch.Tensor, cache_len: int):
+        """The hybrid prompt in one forward pass, and the cache stepping it
+        through `decode_step` would leave: each R unit's last h and conv
+        tail (`rglru_block` with ``return_cache``), each A unit's keys and
+        values of the last wlen positions at their slots.  The A units
+        attend within ``wlen = min(local_window, cache_len)``, the window
+        the decode steps see (``local_window`` itself once the cache is at
+        least that long)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        positions = self._positions(B, S)
+        wlen = min(cfg.local_window, cache_len)
+        cache = init_params(self.cache_specs(B, cache_len), None, device=self.device)
+        keep = torch.arange(max(S - wlen, 0), S, device=self.device)
+        for where, i, key, kind, p in self._units():
+            x, state = self._apply_unit(p, x, positions, kind, window=wlen,
+                                        return_cache=True)
+            c = cache[where][key]
+            if kind == "R":
+                c["h"][i].copy_(state[0])
+                c["conv"][i].copy_(state[1])
+            else:
+                k, v = state
+                c["k"][i][:, keep % wlen] = k[:, keep]
+                c["v"][i][:, keep % wlen] = v[:, keep]
+        return self.logits(x[:, -1:]), cache

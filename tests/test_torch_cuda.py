@@ -274,7 +274,9 @@ FD_SHAPES = [  # (B, S, H, K, D, cache_len): tests/test_kernels.py:262, smollm
     (16, 288, 16, 8, 64, 200),    # granite's 16-slot batcher (split kv axis)
     (2, 256, 10, 1, 64, 200),     # 10 query heads per kv head (recurrentgemma-2b)
     (1, 256, 16, 1, 128, 256),    # 16 per kv head (llama3-405b)
-    (2, 2176, 16, 1, 64, 2100)]   # 16 per kv head over a split kv axis
+    (2, 2176, 16, 1, 64, 2100),   # 16 per kv head over a split kv axis
+    (2, 2048, 10, 1, 256, 2048),  # recurrentgemma-2b's full window of 2,048
+    (3, 300, 10, 1, 256, 77)]     # and a window not yet full
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
@@ -442,6 +444,67 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa_ops.flash_attention(torch.zeros((1, 9, 4, 64), device=cuda),
                                torch.zeros((1, 8, 2, 64), device=cuda),
                                torch.zeros((1, 8, 2, 64), device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", [((2, 600, 600, 10, 1, 256), 200),
+                                          ((1, 300, 300, 10, 1, 256), 300)])
+def test_flash_attention_window_at_recurrentgemma_heads(cuda, dtype, shape, window):
+    """D 256 with 10 query heads over one kv head (6 queries a block and 4
+    padding rows), the sliding window binding and not."""
+    B, Sq, Skv, H, K, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(gen, s, dtype, cuda) for s in ((B, Sq, H, D), (B, Skv, K, D),
+                                                     (B, Skv, K, D)))
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    want = flash_attention_ref(q, k, v, causal=True, scale=D ** -0.5, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 96, 40, 16, 16, 64), (1, 300, 17, 4, 2, 128)])
+def test_flash_attention_unmasked_takes_more_queries_than_keys(cuda, dtype, shape):
+    """Cross-attention: ``causal=False`` with no window reads no offset, so
+    the wrapper takes Sq > Skv."""
+    B, Sq, Skv, H, K, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (_randn(gen, s, dtype, cuda) for s in ((B, Sq, H, D), (B, Skv, K, D),
+                                                     (B, Skv, K, D)))
+    got = fa_ops.flash_attention(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False, scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "seamless-m4t-medium"])
+def test_hybrid_and_encdec_smoke_models_serve_the_same_tokens_on_card_and_cpu(cuda, arch):
+    """fp32 smoke models, one set of weights: the prefill (the hybrid's
+    one-pass cache; the encoder-decoder's frames to cross cache) and
+    greedy steps give the same tokens on the card and on the CPU."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill_step, make_serve_step
+
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 40)).astype(np.int32))
+    fr = torch.from_numpy(rng.normal(size=(3, 40, cfg.d_model)).astype(np.float32))
+    served = {}
+    for model in (cpu, card):
+        if cfg.family == "encdec":
+            _, cache = make_prefill_step(model, cfg)(fr.to(model.device), cache_len=16)
+            nxt, start = torch.ones((3, 1), dtype=torch.int32, device=model.device), 0
+        else:
+            lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=56)
+            nxt, start = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32), 40
+        step, out = make_serve_step(model, cfg), [nxt.cpu()]
+        for i in range(12):
+            nxt, _, cache = step(cache, nxt, start + i)
+            out.append(nxt.cpu())
+        served[model.device.type] = torch.cat(out, 1)
+    assert torch.equal(served["cuda"], served["cpu"])
 
 
 def test_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):

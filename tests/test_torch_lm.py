@@ -88,7 +88,20 @@ SMOKE_WIDTHS = {  # the port's smoke() configs, as scalings of the JAX configs
     "granite_moe_1b_a400m": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                                  head_dim=16, d_ff=64, vocab=256, n_experts=8,
                                  top_k=4),
+    "recurrentgemma_2b": dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=1,
+                              head_dim=16, d_ff=128, vocab=256, d_rnn=64,
+                              local_window=32),
+    "seamless_m4t_medium": dict(n_layers=2, n_enc_layers=2, n_dec_layers=2,
+                                d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                                d_ff=128, vocab=256),
 }
+
+
+def spec_paths(tree, prefix=""):
+    """The key paths of a nested spec dict."""
+    if not isinstance(tree, dict):
+        return {prefix}
+    return set().union(*(spec_paths(v, f"{prefix}/{k}") for k, v in tree.items()))
 
 
 def test_specs_and_counts_match_jax():
@@ -103,7 +116,7 @@ def test_specs_and_counts_match_jax():
         j_specs = j_build_model(jcfg.scaled(**widths)).specs()
         assert count_params(tm_specs) == j_count_params(j_specs)
         assert set(tm_specs) == set(j_build_model(jcfg).specs())
-        assert set(tm_specs["blocks"]) == set(j_specs["blocks"])
+        assert spec_paths(tm_specs) == spec_paths(j_specs)
     for arch in ARCH_IDS:
         if arch not in SMOKE_WIDTHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -327,3 +327,45 @@ def test_device_store_locks_are_ranked_and_loads_submit_unlocked():
     tcut.write_cutout(dev, 0, (0, 0, 0), np.ones(SHAPE, np.uint8))
     fresh = DeviceCuboidStore(store.spec, device="cpu", backing=store)
     assert int(tcut.cutout(fresh, 0, (0, 0, 0), SHAPE).sum()) == int(np.prod(SHAPE))
+
+
+def test_cluster_watch_advises_from_gauges():
+    """`ClusterWatch` samples the cluster's gauges (occupancy, the
+    write-behind depth, health) and advises ``rebalance`` on skew and
+    ``flush`` on queue pressure, no longer once flushed; the reference's
+    watch over the same ingest gives the same snapshots and advice."""
+    from repro.cluster import ClusterStore as JClusterStore
+    from repro.ft import ClusterWatch as JClusterWatch
+    from repro_torch.cluster import ClusterStore
+    from repro_torch.ft import ClusterWatch
+
+    vol = np.random.default_rng(5).integers(1, 255, size=SHAPE, dtype=np.uint8)
+    seen = {}
+    for pkg in ("reference", "port"):
+        if pkg == "reference":
+            store = JClusterStore(JSpec(name="watch", volume_shape=SHAPE, dtype="uint8",
+                                        base_cuboid=CUBOID), n_nodes=2, write_behind=True,
+                                  cache_bytes=0, replication=1)
+            jcut.ingest(store, 0, vol)
+            watch = JClusterWatch(store, skew=1.01, max_queue_depth=0)
+        else:
+            spec = DatasetSpec(name="watch", volume_shape=SHAPE, dtype="uint8",
+                               base_cuboid=CUBOID)
+            store = ClusterStore(spec, n_nodes=2, write_behind=True)
+            tcut.ingest(DeviceCuboidStore(spec, device="cpu", backing=store), 0, vol)
+            watch = ClusterWatch(store, skew=1.01, max_queue_depth=0)
+        try:
+            actions = watch.step()
+            snap = dict(watch.history[-1])
+            assert snap["n_nodes"] == 2 and sum(snap["keys_per_node"]) > 0
+            if snap["queue_depth"] > 0:  # the ingest rode the write-behind queue
+                assert any(a["action"] == "flush" for a in actions)
+            store.flush()
+            after = watch.step()
+            assert all(a["action"] != "flush" for a in after)
+            keep = ("n_nodes", "keys_per_node", "replication", "replication_target",
+                    "health", "repair", "dead_streaks", "sealed_segments")
+            seen[pkg] = ({k: snap[k] for k in keep}, sorted(a["action"] for a in after))
+        finally:
+            store.close()
+    assert seen["port"] == seen["reference"]

@@ -661,3 +661,59 @@ def test_write_through_of_a_crashed_append_is_not_acknowledged(tmp_path, crash_a
     assert decompress(blob, CUBOID, np.uint8).shape == CUBOID
     reborn.close()
     sub.close()
+
+
+# ------------------------------------------- the storage supervisor --
+
+
+def test_supervisor_advises_and_executes_heal_and_compaction():
+    """`ClusterWatch` advises ``compact`` on sealed log segments and
+    `StorageSupervisor` executes it; after a removal and an add leave a
+    replication gap, the next tick heals it.  The reference's cluster over
+    its log tier takes the same steps to the same advice, the same
+    executed actions and the same data."""
+    from repro.cluster import ClusterStore as JClusterStore
+    from repro.ft import ClusterWatch as JClusterWatch
+    from repro.ft import StorageSupervisor as JStorageSupervisor
+    from repro_torch.cluster import ClusterStore
+    from repro_torch.ft import ClusterWatch, StorageSupervisor
+
+    vol = volume(17)
+    seen = {}
+    for pkg in ("reference", "port"):
+        if pkg == "reference":
+            sub = JClusterStore(jspec(), n_nodes=2, replication=2, cache_bytes=0,
+                                write_behind=False, node_factory=lambda i, s: jwal.tiered_store(
+                                    s, policy=jwal.TierPolicy(write_tier="log", fsync=False)))
+            jcut.write_cutout(sub, 0, (0, 0, 0), vol)
+            watch = JClusterWatch(sub, max_sealed_segments=1)
+            sup_cls = JStorageSupervisor
+        else:
+            sub = ClusterStore(spec(), n_nodes=2, replication=2,
+                               node_factory=lambda i, s: tiered_store(s, policy=log_policy()))
+            tcut.write_cutout(device(sub), 0, (0, 0, 0), vol)
+            watch = ClusterWatch(sub, max_sealed_segments=1)
+            sup_cls = StorageSupervisor
+        for node in sub.nodes:
+            node.write_backend.seal_active()
+        advice = sorted(a["action"] for a in watch.step())
+        sup = sup_cls(sub, watch=watch)
+        executed = sorted(a["action"] for a in sup.step())
+        sealed = sub.tier_counters()["sealed"]
+        sub.remove_node(0)
+        sub.add_node(rebalance=False)
+        gap = sub.topology()["replication"] < sub.topology()["replication_target"]
+        healed = sorted(a["action"] for a in sup.step())
+        read = (jcut.cutout(sub, 0, (0, 0, 0), SHAPE) if pkg == "reference"
+                else read_all(device(sub)))
+        np.testing.assert_array_equal(read, vol)
+        sub.remove_node(0)  # the heal is real: either node can now fail
+        read = (jcut.cutout(sub, 0, (0, 0, 0), SHAPE) if pkg == "reference"
+                else read_all(device(sub)))
+        np.testing.assert_array_equal(read, vol)
+        seen[pkg] = (advice, executed, sealed, gap, healed, sub.topology()["replication"])
+        sub.close()
+    assert seen["port"] == seen["reference"]
+    advice, executed, sealed, gap, healed, _ = seen["port"]
+    assert "compact" in advice and "compact" in executed and sealed == 0
+    assert gap and "re_replicate" in healed
