@@ -138,19 +138,22 @@ Phases (any failure raises and the exit code is non-zero):
    widths serve the same greedy tokens on the card and on the CPU.
 16. Dense training at smollm-135m's full width in bf16, through
    `launch.train`'s calls (`build_state`, `synthetic_corpus`, the Morton
-   `DataPipeline`, `make_train_step`): first the gradient check (phase 17),
-   then, with the launch counts set to 0, 20 steps of 16 x 2,048 tokens in
-   2 microbatches at lr 3e-3 (warm-up 5, cosine).  The loss must fall from
-   the first step to the last; `flash_attention` must have launched exactly
-   30 layers x 2 microbatches x 20 steps times (the forward; the backward
-   recomputes through the plain version) and `cutout_gather` at least once
-   a step (the pipeline's rows).  Median step time after 2 warm steps,
+   `DataPipeline`, `make_train_step`), every layer under the config's
+   activation recompute (``remat="block"``): first the gradient check
+   (phase 17), then, with the launch counts set to 0, 12 steps of 16 x
+   2,048 tokens in 2 microbatches at lr 3e-3 (warm-up 5, cosine).  The loss
+   must fall from the first step to the last; `flash_attention` must have
+   launched exactly 30 layers x 2 passes (the forward, and the recompute
+   of ``block``; `FlashAttention`'s backward differentiates the plain
+   version) x 2 microbatches x 12 steps times and `cutout_gather` at least
+   once a step (the pipeline's rows).  Median step time after 2 warm steps,
    tokens/s, peak memory, the device's idle share over 2 profiled steps
    and a step's split into forward, backward (and its attention recompute)
    and optimizer (the device time launched inside `make_train_step`'s
    profiler ranges), and model FLOP/s as a share of the bf16 peak
    (`train_flops`); then one step each with bf16 and int8 gradient
-   compression.
+   compression, and 2 steps each under ``remat="none"`` and ``"dots"``
+   (step time and peak memory beside ``block``'s).
 17. Training checks: the pipeline's batches of the first and last
    counted steps, read through `cutout_gather` at the path's shapes,
    equal to a CPU token store's (the plain gather) bit for bit.  On the
@@ -163,7 +166,7 @@ Phases (any failure raises and the exit code is non-zero):
    same weights and batches: losses and grad norms within rtol 1e-4, the
    parameters within 2 x the sum of the steps' lr.
 18. MoE training at granite-moe-1b-a400m's full width in bf16, as phases
-   16-17 (the same calls and batch, 12 steps, no compressed steps): first
+   16-17 (the same calls and batch, 6 steps, no compressed steps): first
    the gradient check on one sequence, every leaf through the kernel route
    (`moe_gemm` inside `MoeGemm`, `flash_attention` inside
    `FlashAttention`) against the plain route, bf16 (phase 17's criteria)
@@ -171,20 +174,23 @@ Phases (any failure raises and the exit code is non-zero):
    route taking the kernel route's top-k picks and the flips it would have
    made counted; then the counted run: the
    loss must fall, every step's gradient norm be finite, `moe_gemm` and
-   `flash_attention` launch exactly 24 layers x microbatches x steps times
+   `flash_attention` launch exactly 24 layers x 2 passes x microbatches x
+   steps times
    and `cutout_gather` at least once a step.  The split reads
    ``moe_gemm.recompute`` and ``flash_attention.recompute``.  Then a
    2-layer fp32 granite trains alike on card and CPU, with its routing
    flips reported.
 19. ssm training at mamba2-370m's full width in bf16, at its published
    chunk of 256 and with `build_state`'s init, as phase 18: `ssd_scan`
-   (inside `SsdScan`) launches exactly 48 x microbatches x steps times;
+   (inside `SsdScan`) launches exactly 48 x 2 passes x microbatches x
+   steps times (6 steps);
    the bf16 gradients are held to the plain route's by their distance
    from the fp32 ones (`bf16_holds`);
    the split reads ``ssd_scan.recompute``; the 2-layer fp32 model trains
    alike on card and CPU at chunk 256 over 256 steps, where the plain
    scan's decay overflowed exp before its repair.
-20. Checkpoint and restart on the card: each family's smoke model through
+20. Checkpoint and restart on the card: each family's smoke model (and
+   the patch frontend's, internvl2-76b) through
    `launch.train.main`, 10 steps with ``--ckpt-every 5
    --inject-failure-at 8`` against the same run without a failure: the
    recovery log shows the restore to step 5 and the replay, the replayed
@@ -315,6 +321,29 @@ Phases (any failure raises and the exit code is non-zero):
    timed beside the bound, the plain version and SDPA; a 2 + 2-layer fp32
    model gives the same tokens on the card and on the CPU, and
    teacher-forced logits within 1e-4.
+28. recurrentgemma-2b training at full width in bf16 (26 layers, RRA, d
+   2,560, window 2,048, 256,000 words), as phase 16 under ``block`` (each
+   layer's input kept, one repeat R, R, A recomputed at a time): 6 steps of
+   16 x 2,048 tokens in 16 microbatches of one sequence (the memory
+   reckoning at `HYBRID_TRAIN_FULL`) at a peak lr of 3e-4 (at 3e-3 its
+   loss rose), the profile over one step.  Before it, `flash_attention`'s
+   gradient where the window binds (2 x 4,096, H 10, K 1, D 256, window
+   2,048) and unmasked at Sq != Skv (2,048 over 512 and 512 over 2,048,
+   H 16, D 64), bf16 and fp32: the forward within phase 6's tolerances,
+   dq, dk and dv bit-equal to the plain route's.  The gradient check on one
+   sequence: fp32 at the dense family's tolerance, bf16 by the dense
+   family's criteria or the ssm family's (`bf16_holds`); the A units' w_q,
+   w_k, w_v nonzero; `flash_attention` launches 8 A units x 2 passes x 16
+   microbatches x steps times; the split reads ``flash_attention.recompute``;
+   the smoke model (4 layers, RRA and R, window 32 over 64 positions)
+   trains alike on card and CPU.
+29. seamless-m4t-medium training at full width in bf16 (12 + 12 layers, d
+   1,024, 256,206 words), as phase 28: each step's frames are the JAX
+   driver's draws (`launch.train.frontend_inputs`); 6 steps of 16 x 2,048
+   in 4 microbatches; `flash_attention` launches (12 encoder + 2 x 12
+   decoder calls) x 2 passes x 4 microbatches x steps times.  Then
+   internvl2-76b's smoke model with its patch embeddings trains alike on
+   card and CPU.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -329,6 +358,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import bisect
 import concurrent.futures as cf
 import contextlib
 import dataclasses
@@ -392,9 +422,9 @@ from repro_torch.ft import (ClusterWatch, FaultPlan, StorageSupervisor,  # noqa:
                            faulty_factory)
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
-from repro_torch.models import build_model, count_params  # noqa: E402
+from repro_torch.models import build_model, count_params, model_specs  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.lm import hybrid_layout, lm_specs  # noqa: E402
+from repro_torch.models.lm import hybrid_layout  # noqa: E402
 from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.rglru import rglru_scan  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
@@ -412,13 +442,15 @@ KERNELS = {
         source="src/repro_torch/kernels/cutout_gather/kernel.cu",
         replaces="src/repro/kernels/cutout_gather/kernel.py:30",
         ops=gather_ops, paths=("detection", "training", "moe_training", "ssm_training",
-                               "annotation", "timeseries", "tiered", "cluster", "faults")),
+                               "hybrid_training", "encdec_training", "annotation",
+                               "timeseries", "tiered", "cluster", "faults")),
     "flash_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_attention/kernel.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
         ops=fa_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
-                           "training", "moe_training", "hybrid_serving", "encdec_serving")),
+                           "training", "moe_training", "hybrid_serving", "encdec_serving",
+                           "hybrid_training", "encdec_training")),
     "flash_decode": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
@@ -531,21 +563,55 @@ DENSE_TINY = [d | dict(smoke=True, batch=2, prompt=16, steps=4) for d in DENSE_F
 # global batch of 16 in 2 microbatches, the JAX driver's learning rate
 # (3e-3, warm-up 5, cosine to 0 at the last step) on its synthetic corpus;
 # the gradient check takes the first batch's first ``check_seqs`` sequences
-# (the plain route keeps every layer's fp32 scores for its backward)
+# (the plain route keeps every layer's fp32 scores for its backward).  Every
+# training phase runs under the configs' ``remat`` of ``block``; smollm's
+# also times 2 steps under ``none`` and ``dots`` (``remat_variants``).  12
+# steps, so that the smoke with phases 28-29 stays inside its time limit
 TRAIN_FULL = dict(arch="smollm-135m", key="training", smoke=False, seq_len=2048, batch=16,
-                  microbatches=2, steps=20, warm=2, lr=3e-3, check_seqs=2, compressed=True)
-# the MoE and ssm families' training, the same batch and schedule over 12
-# steps, so that the smoke stays near half its time limit (the ssm at its
-# published chunk of 256 and with `build_state`'s init); the MoE's
-# gradient check takes one sequence: its plain route keeps 24 layers' (16,
-# 2,048, 2,048) fp32 attention scores, and two sequences ran out of memory
-# on the H100
+                  microbatches=2, steps=12, warm=2, lr=3e-3, check_seqs=2, compressed=True,
+                  remat_variants=("none", "dots"), profiled=2)
+# the MoE and ssm families' training, the same batch and schedule over 6
+# steps, so that the smoke stays inside its time limit (the ssm at its
+# published chunk of 256
+# and with `build_state`'s init); the MoE's gradient check takes one
+# sequence: its plain route keeps 24 layers' (16, 2,048, 2,048) fp32
+# attention scores, and two sequences ran out of memory on the H100
 MOE_TRAIN_FULL = TRAIN_FULL | dict(arch="granite-moe-1b-a400m", key="moe_training",
-                                   steps=12, compressed=False, check_seqs=1)
-SSM_TRAIN_FULL = TRAIN_FULL | dict(arch="mamba2-370m", key="ssm_training", steps=12,
-                                   compressed=False)
-TRAINS_FULL = (TRAIN_FULL, MOE_TRAIN_FULL, SSM_TRAIN_FULL)
-TRAINS_TINY = tuple(tc | dict(smoke=True, seq_len=32, batch=4, steps=8, warm=1)
+                                   steps=6, compressed=False, check_seqs=1, remat_variants=())
+SSM_TRAIN_FULL = TRAIN_FULL | dict(arch="mamba2-370m", key="ssm_training", steps=6,
+                                   compressed=False, remat_variants=())
+# phases 28-29: the hybrid and encoder-decoder families' training at full
+# width, the same corpus, schedule and global batch of 16 x 2,048.  The
+# microbatches are what the card holds (bf16 weights, fp32 masters and
+# moments, bf16 gradients, an fp32 accumulator):
+# - recurrentgemma-2b, 2.895e9 parameters: 5.8 GB of weights, 34.7 GB of
+#   master and moments, 5.8 GB of gradients, 11.6 GB of accumulator (58
+#   GB); the loss over one sequence holds (2,048, 256,000) logits, ~2 GB a
+#   copy in fp32 and ~4 copies; under ``block`` a layer keeps its input
+#   (10 MB a sequence) and one repeat (R, R, A) is recomputed at a time: 16
+#   microbatches of one sequence;
+# - seamless-m4t-medium, 7.15e8 parameters: ~14 GB of state; the logits of
+#   4 sequences over 256,206 words are 2.1e9 elements (8.4 GB a copy in
+#   fp32, ~4 copies): 4 microbatches of 4 sequences.
+# One sequence for the gradient check (its plain route and the fp32 copy).
+# The hybrid's profile takes one step: its steps launch ~2.2e5 device ops
+# each, and the profiler's events of two took minutes of host time to
+# read.
+# recurrentgemma-2b at a peak lr of 3e-4: at the driver's 3e-3 its loss
+# rose in the first run on the H100 ([12.96, 13.07, 13.03, 16.72, 14.68,
+# 20.66]).  Adam's first steps move every weight by about the lr, which at
+# width 2,560 moves a layer's output by about lr x 2,560 against the
+# initial 0.02 x sqrt(2,560): 1.5 x its size already at the first step's
+# 6e-4.
+HYBRID_TRAIN_FULL = TRAIN_FULL | dict(arch="recurrentgemma-2b", key="hybrid_training",
+                                      microbatches=16, steps=6, compressed=False,
+                                      check_seqs=1, remat_variants=(), lr=3e-4, profiled=1)
+ENCDEC_TRAIN_FULL = TRAIN_FULL | dict(arch="seamless-m4t-medium", key="encdec_training",
+                                      microbatches=4, steps=6, compressed=False,
+                                      check_seqs=1, remat_variants=())
+TRAINS_FULL = (TRAIN_FULL, MOE_TRAIN_FULL, SSM_TRAIN_FULL, HYBRID_TRAIN_FULL,
+               ENCDEC_TRAIN_FULL)
+TRAINS_TINY = tuple(tc | dict(smoke=True, seq_len=32, batch=4, microbatches=2, steps=8, warm=1)
                     for tc in TRAINS_FULL)
 # the tile-order study's products (M, N, K), and a tiny rehearsal of them
 MM_FULL = mm_bench.SHAPES
@@ -743,11 +809,14 @@ def check_results(cfg, dev, spec, store, proj, report):
         f"{n_dets} detections, identical to the stored labels")
 
 
-def profile_window(dev, fn, ranges=()):
+def profile_window(dev, fn, ranges=(), raw=False):
     """torch.profiler over one call of ``fn`` (after a warm-up call): the
     ops that take the host's and the device's time, the device's busy
     time over the window's wall time, and the device time launched inside
-    each profiler range named in ``ranges`` (`range_device_ms`)."""
+    each profiler range named in ``ranges`` (`range_device_ms`).  With
+    ``raw`` the profiler's raw events are read instead (`raw_profile`: no
+    host ops, the device's time and the ranges alike), for windows of
+    ~1e6 events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm the allocator and the kernels
@@ -757,6 +826,12 @@ def profile_window(dev, fn, ranges=()):
         out = fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+    if raw:
+        r = raw_profile(prof, ranges)
+        return out, dict(wall_s=wall, device_busy_s=r["device_busy_s"],
+                         device_idle_share=1 - r["device_busy_s"] / wall,
+                         device_ops=r["device_ops"], top_device=[], top_host=[],
+                         top_kernels=r["top_kernels"], ranges=r["ranges"])
     ops, kernels, busy = [], [], 0.0
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -781,6 +856,49 @@ def profile_window(dev, fn, ranges=()):
     return out, prof_report
 
 
+def raw_profile(prof, names):
+    """The device's work in the profiler's raw events, read without the
+    profiler's event tree (whose Python objects cost ~50 us an event to
+    build: minutes for a train step of ~1e6 events): the time of every
+    device op (kernels, copies and fills, not the device-side spans of
+    profiler ranges), the top kernels by name, and for each range in
+    ``names`` the device time of the ops launched inside it: an op goes to
+    the range occurrence whose host interval holds the start of the host
+    call that launched it (the two share a correlation id), so each op
+    counts once in disjoint ranges."""
+    spans = {n: [] for n in names}
+    launched_at, device = {}, []
+    for e in prof.profiler.kineto_results.events():
+        on_device = not str(e.device_type()).endswith("CPU")
+        if e.is_user_annotation():
+            if not on_device and e.name() in spans:
+                spans[e.name()].append((e.start_ns(), e.end_ns()))
+        elif on_device:
+            device.append((e.name(), e.duration_ns(), e.correlation_id()))
+        elif e.name().startswith("cu"):  # cudaLaunchKernel, cudaMemcpyAsync, ...
+            launched_at[e.correlation_id()] = e.start_ns()
+    by_name = {}
+    for n, d, _ in device:
+        c, t = by_name.get(n, (0, 0))
+        by_name[n] = (c + 1, t + d)
+    top = sorted(((n, c, 0, t / 1e3) for n, (c, t) in by_name.items()), key=lambda x: -x[3])
+    ranges = {}
+    for n, occ in spans.items():
+        occ.sort()
+        starts = [a for a, _ in occ]
+        ns = 0
+        for _, d, corr in device:
+            t = launched_at.get(corr)
+            if t is None:
+                continue
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= occ[i][1]:
+                ns += d
+        ranges[n] = dict(calls=len(occ), ms=ns / 1e6)
+    return dict(device_busy_s=sum(d for _, d, _ in device) / 1e9, device_ops=len(device),
+                top_kernels=top[:8], ranges=ranges)
+
+
 def range_device_ms(prof, names):
     """The device time of the work launched inside each named profiler
     range, summed over the range's occurrences: each op's own kernels go
@@ -792,9 +910,16 @@ def range_device_ms(prof, names):
                 if e.kernels]
     out = {}
     for n in names:
-        spans = [(e.time_range.start, e.time_range.end) for e in cpu if e.name == n]
-        out[n] = dict(calls=len(spans), ms=sum(us for t, us in launched
-                                                for a, b in spans if a <= t <= b) / 1e3)
+        # a range's occurrences do not overlap: each start finds the one
+        # span that may hold it by bisection (a train step launches ~2e5 ops)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in cpu if e.name == n)
+        starts = [a for a, _ in spans]
+        us = 0.0
+        for t, d in launched:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= spans[i][1]:
+                us += d
+        out[n] = dict(calls=len(spans), ms=us / 1e3)
     return out
 
 
@@ -804,6 +929,8 @@ def log_profile(label, p):
         f"{p['device_ops']} kernels, copies and fills on the device")
     for kind, top, col in (("device", p["top_device"], 3), ("host", p["top_host"], 2),
                            ("kernels'", p["top_kernels"], 3)):
+        if not top:
+            continue
         log(f"  top {kind} ops: " + "; ".join(
             f"{t[0][:48]} x{t[1]} {t[col] / 1e3:.1f} ms" for t in top))
 
@@ -3762,6 +3889,17 @@ def opt_config(tc, **kw):
     return AdamWConfig(lr_peak=tc["lr"], warmup_steps=5, total_steps=tc["steps"], **kw)
 
 
+def step_batch(cfg, pipe, step):
+    """The pipeline's batch of ``step`` with the driver's frontend inputs of
+    that step (`launch.train.frontend_inputs`: the encoder-decoder's
+    ``frames``, the patch frontend's ``embeds``) in the model's dtype."""
+    batch = pipe.get_batch(step)
+    dt = getattr(torch, cfg.dtype)
+    batch.update({k: v.to(dt) for k, v in
+                  train_mod.frontend_inputs(cfg, step, batch["tokens"]).items()})
+    return batch
+
+
 # The gradient check's tolerances.  fp32: phase 6's (atol and rtol 2e-5,
 # element by element) for the dense family; for the MoE and ssm families
 # rtol 1e-4 and 1e-4 of the leaf's max |g|, the fp32 tolerance of their
@@ -3778,8 +3916,9 @@ def opt_config(tc, **kw):
 # with the kernel route 7e-3 from the plain one in norm and each route
 # ~1e-2 from the fp32 gradients.  The 1% limit fails a fault confined to
 # a few tiles, which the norms would not see.
-# The MoE family is held to the same bf16 criteria.  The ssm family's bf16
-# check holds the kernel route to the plain route by their distances from
+# The MoE family is held to the same bf16 criteria.  The ssm, hybrid and
+# encoder-decoder families' bf16 checks hold the kernel route to the plain
+# route by their distances from
 # the fp32 gradients: in norm, and in the share of elements outside phase
 # 6's tolerance, the kernel route no farther than 1.25 x the plain route
 # (or 1% of the elements, the dense family's limit, where the plain
@@ -3788,11 +3927,27 @@ def opt_config(tc, **kw):
 # mamba2-370m on the H100 every leaf's two bf16 routes were 1.3-4.0% apart
 # in norm, with 2-8% of the elements outside phase 6's tolerance of each
 # other, and each route 3-8% from the fp32 gradients (blocks/ln: kernel
-# 7.77%, plain 7.71%), which the two fp32 routes matched to 2.3e-5.  A hole
-# or a fault in a few tiles moves the kernel route away from the fp32
-# gradients and not the plain route.
+# 7.77%, plain 7.71%), which the two fp32 routes matched to 2.3e-5.  In the
+# first full-width runs on the H100 (one sequence) the dense bf16 criteria
+# held for neither of the other two: recurrentgemma-2b's two bf16 routes
+# were 2.7-4.3% apart in norm, each 4.7-6.8% from the fp32 gradients (the
+# kernel route at most 1.03 x the plain route's distance), with 0.3-18.5%
+# of the elements outside phase 6's tolerance of each other;
+# seamless-m4t-medium's were 0.6-1.6% apart in norm but had up to 2.3% of
+# the elements outside that tolerance, the kernel route nearer the fp32
+# gradients than the plain route in 24 of 26 leaves.  Their fp32 routes
+# matched to 7.7e-6 and 2.6e-6 in norm, at the dense family's fp32
+# tolerance.  A leaf of theirs passes by either criterion: in that run
+# the hybrid's tail conv_b (2,560 elements) met the dense one (its two bf16
+# routes within phase 6's tolerance of each other everywhere) and missed
+# the other by 9 elements.  A hole or a fault in a few tiles moves the
+# kernel route away from the fp32 gradients and not the plain route.
 GRAD_FP32_TOL = FP32_TOL
 GRAD_FP32_REL = 1e-4  # the MoE and ssm families
+# the families held to the dense family's criteria in fp32 (phase 6's
+# tolerance): their kernel routes differ from the plain routes in the
+# attention forward alone
+DENSE_CRITERIA = ("dense", "hybrid", "encdec")
 GRAD_BF16_SHARE = 2e-2
 GRAD_BF16_VS_FP32 = 1.25
 GRAD_BF16_PHASE6_OUTSIDE = 1e-2
@@ -3803,7 +3958,11 @@ KERNEL_LEAVES = {
     "moe": ("blocks/attn/w_q", "blocks/attn/w_k", "blocks/attn/w_v", "blocks/moe/w_gate",
             "blocks/moe/w_up", "blocks/moe/w_down", "blocks/moe/w_router"),
     "ssm": ("blocks/ssm/w_dt", "blocks/ssm/dt_bias", "blocks/ssm/A_log",
-            "blocks/ssm/w_xBC", "blocks/ssm/conv_w")}
+            "blocks/ssm/w_xBC", "blocks/ssm/conv_w"),
+    # the A unit is the pattern RRA's third (key "c"); the tail holds R units
+    "hybrid": ("blocks/c/temporal/w_q", "blocks/c/temporal/w_k", "blocks/c/temporal/w_v"),
+    "encdec": tuple(f"{part}/w_{w}" for part in ("encoder/attn", "decoder/self_attn",
+                                                 "decoder/cross_attn") for w in "qkv")}
 
 
 def _rel(a, b):
@@ -3811,14 +3970,19 @@ def _rel(a, b):
 
 
 def bf16_holds(family, r):
-    """The bf16 criteria above for one leaf's row of `training_grad_check`."""
+    """The bf16 criteria above for one leaf's row of `training_grad_check`:
+    the dense ones for the dense and MoE families, the distances from the
+    fp32 gradients for the ssm family, and either for the hybrid and
+    encoder-decoder families."""
     nearer = r["bf16_kernel_vs_fp32"] <= GRAD_BF16_VS_FP32 * r["bf16_plain_vs_fp32"]
+    dense = (nearer and r["bf16_max_abs_err"] <= GRAD_BF16_SHARE * r["bf16_max_abs"]
+             and r["bf16_rel_norm"] <= GRAD_BF16_SHARE
+             and r["bf16_phase6_outside"] <= GRAD_BF16_PHASE6_OUTSIDE)
     if family in ("dense", "moe"):
-        return (nearer and r["bf16_max_abs_err"] <= GRAD_BF16_SHARE * r["bf16_max_abs"]
-                and r["bf16_rel_norm"] <= GRAD_BF16_SHARE
-                and r["bf16_phase6_outside"] <= GRAD_BF16_PHASE6_OUTSIDE)
-    return nearer and r["bf16_kernel_outside_fp32"] <= max(
+        return dense
+    relative = nearer and r["bf16_kernel_outside_fp32"] <= max(
         GRAD_BF16_VS_FP32 * r["bf16_plain_outside_fp32"], GRAD_BF16_PHASE6_OUTSIDE)
+    return relative if family == "ssm" else dense or relative
 
 
 def training_grad_check(tc, dev, cfg, model, pipe, report):
@@ -3834,20 +3998,21 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
     gradient would then go to other experts' weights; the flips the plain
     route would have made are counted and reported (`router_flips`), and
     the gradients are compared under one routing."""
-    batch = {k: v[:tc["check_seqs"]] for k, v in pipe.get_batch(0).items()}
+    batch = {k: v[:tc["check_seqs"]] for k, v in step_batch(cfg, pipe, 0).items()}
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
     cfg32 = cfg.scaled(dtype="float32")
     model32 = build_model(cfg32, tree_map(lambda t: t.detach().float(), model.param_tree()),
                           device=dev)
     paths = _paths(model.param_tree())
     grads, losses, flips = {}, {}, {}
-    for tag, m, c in (("bf16", model, cfg), ("fp32", model32, cfg32)):
+    for tag, m, c, b in (("bf16", model, cfg, batch), ("fp32", model32, cfg32, batch32)):
         m.requires_grad_(True)
         calls = {}
         for route in ("kernel", "plain"):
             calls[route] = []
             with (plain_kernels() if route == "plain" else contextlib.nullcontext()), \
                     routing(calls[route], calls["kernel"] if route == "plain" else None):
-                loss, _, g = loss_and_grads(m, batch, c)
+                loss, _, g = loss_and_grads(m, b, c)
             grads[route, tag] = list(tree_leaves(g))  # bf16 leaves kept in bf16
             losses[f"{route}_{tag}"] = float(loss)
             del g
@@ -3862,7 +4027,7 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
                 raise RuntimeError(f"gradient of {name} ({tag}) is zero through the kernel "
                                    f"route")
     del model32
-    fp32_tol = (lambda pf: GRAD_FP32_TOL) if cfg.family == "dense" else (
+    fp32_tol = (lambda pf: GRAD_FP32_TOL) if cfg.family in DENSE_CRITERIA else (
         lambda pf: dict(rtol=GRAD_FP32_REL, atol=GRAD_FP32_REL * float(pf.abs().max())))
     rows, failed = {}, []
     for i, path in enumerate(paths):
@@ -3890,7 +4055,7 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
     report[f"{tc['key']}_grad_check"] = dict(seqs=tc["check_seqs"], losses=losses,
                                              leaves=rows, router_flips=flips)
     worst = max(rows.values(), key=lambda r: r["bf16_rel_norm"])
-    fp32_desc = (f"atol and rtol {GRAD_FP32_TOL['rtol']}" if cfg.family == "dense"
+    fp32_desc = (f"atol and rtol {GRAD_FP32_TOL['rtol']}" if cfg.family in DENSE_CRITERIA
                  else f"rtol {GRAD_FP32_REL} and {GRAD_FP32_REL} of max |g|")
     if cfg.family in ("dense", "moe"):
         bf16_desc = (f"within {GRAD_BF16_SHARE} of max |g| and in norm (largest "
@@ -3901,11 +4066,13 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
     else:
         bf16_desc = (f"no farther from the fp32 gradients than {GRAD_BF16_VS_FP32} x the "
                      f"plain route, in norm and in the share of elements outside phase 6's "
-                     f"tolerance (or {GRAD_BF16_PHASE6_OUTSIDE} of them)")
+                     f"tolerance (or {GRAD_BF16_PHASE6_OUTSIDE} of them)"
+                     + ("" if cfg.family == "ssm" else ", or within the dense family's "
+                        "criteria of the plain route"))
     log(f"{cfg.name} gradients ({tc['check_seqs']} x {tc['seq_len']} tokens), kernel route "
         f"vs plain route, {len(rows)} leaves: fp32 within {fp32_desc} (largest |diff| / |g| "
         f"in norm {max(r['fp32_rel_norm'] for r in rows.values()):.3g}); bf16 {bf16_desc}; "
-        f"{', '.join(n.split('/')[-1] for n in KERNEL_LEAVES[cfg.family])} nonzero; "
+        f"{', '.join('/'.join(n.split('/')[-2:]) for n in KERNEL_LEAVES[cfg.family])} nonzero; "
         f"losses {losses}")
     for path, r in rows.items():
         log(f"  {path}: bf16 |diff| / |g| {r['bf16_rel_norm']:.3g} (max {r['bf16_max_abs_err']:.3g} "
@@ -3932,7 +4099,7 @@ def training_path(tc, dev, cfg, model, opt, pipe, report):
     losses, norms, times = [], [], []
     for s in range(tc["steps"]):
         t0 = time.perf_counter()
-        opt, m = step_fn(opt, pipe.get_batch(s))
+        opt, m = step_fn(opt, step_batch(cfg, pipe, s))
         losses.append(float(m["loss"]))  # waits for the step
         norms.append(float(m["grad_norm"]))
         times.append(time.perf_counter() - t0)
@@ -3955,43 +4122,70 @@ def training_path(tc, dev, cfg, model, opt, pipe, report):
     return opt
 
 
-# the kernels a family's training forward launches, once per layer and
-# microbatch (the backward recomputes through their plain versions)
+# the kernels a family's training forward launches (the backward
+# differentiates their plain versions)
 TRAIN_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention", "moe_gemm"),
-                 "ssm": ("ssd_scan",)}
+                 "ssm": ("ssd_scan",), "hybrid": ("flash_attention",),
+                 "encdec": ("flash_attention",)}
+# how many times a policy runs a layer's forward in a train step: ``block``
+# and ``dots`` again in the backward's recompute
+REMAT_PASSES = {"none": 1, "block": 2, "dots": 2}
+
+
+def kernel_calls(cfg):
+    """Each training kernel's calls in one forward of a microbatch: one a
+    layer; the hybrid's attention one an A unit, the encoder-decoder's one
+    an encoder layer and two a decoder layer (self and cross)."""
+    if cfg.family == "hybrid":
+        return count_units(cfg, "A")
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    return cfg.n_layers
 
 
 def check_training_launches(tc, cfg, counts):
-    """Each of the family's kernels exactly once per layer, microbatch and
-    step; `cutout_gather` at least once a step (the pipeline's rows)."""
-    want = cfg.n_layers * tc["microbatches"] * tc["steps"]
+    """Each of the family's kernels exactly `kernel_calls` x the policy's
+    forward passes (2 under ``block``) per microbatch and step;
+    `cutout_gather` at least once a step (the pipeline's rows)."""
+    want = kernel_calls(cfg) * REMAT_PASSES[cfg.remat] * tc["microbatches"] * tc["steps"]
     bad = {k: counts[k] for k in TRAIN_KERNELS[cfg.family] if counts[k] != want}
     if bad or counts["cutout_gather"] < tc["steps"]:
         raise RuntimeError(f"{cfg.name} training launches {counts}: want "
-                           f"{' and '.join(TRAIN_KERNELS[cfg.family])} {want} each (layers x "
-                           f"microbatches x steps) and cutout_gather >= {tc['steps']}")
+                           f"{' and '.join(TRAIN_KERNELS[cfg.family])} {want} each "
+                           f"({kernel_calls(cfg)} calls x {REMAT_PASSES[cfg.remat]} passes "
+                           f"under remat {cfg.remat!r} x microbatches x steps) and "
+                           f"cutout_gather >= {tc['steps']}")
 
 
 def train_flops(cfg, seq_len, seqs):
     """Model FLOPs of one training step, the forward's and twice that in
     the backward (the backward's recomputes of the forward not counted):
     - 6 x the parameters a token uses x tokens: the tied embedding counted
-      once, as the head's product; of a MoE's experts only the top k;
+      once, as the head's product; of a MoE's experts only the top k; the
+      encoder-decoder's encoder over as many frames as tokens;
     - causal attention's products, 12 x layers x B x H x D x S(S+1)/2 (QK^T
-      and PV);
+      and PV); the hybrid's A units over the keys inside their window;
+      the encoder's and the cross attention's over all S keys;
     - the ssm's SSD products as the chunked scan forms them, the
       intra-chunk ones causal like attention's: 6 x layers x B x (S(Q+1)/2
       x (N + H P) for C.B^T and its product with x dt, plus 2 S H P N for
       the chunk states and the carried state's share), Q the chunk.
     Returns {"dense", "attention", "ssd"}."""
-    params = count_params(lm_specs(cfg))
+    params = count_params(model_specs(cfg))
     if cfg.family == "moe":
         experts = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
         params -= experts - experts * cfg.top_k // cfg.n_experts
     out = dict(dense=6 * params * seq_len * seqs, attention=0, ssd=0)
+    causal = seq_len * (seq_len + 1) // 2
+    per_key = 12 * seqs * cfg.n_heads * cfg.head_dim  # a (query, key) pair's products
     if cfg.family in ("dense", "moe"):
-        out["attention"] = (12 * cfg.n_layers * seqs * cfg.n_heads * cfg.head_dim
-                            * seq_len * (seq_len + 1) // 2)
+        out["attention"] = per_key * cfg.n_layers * causal
+    if cfg.family == "hybrid":
+        window = sum(min(i + 1, cfg.local_window) for i in range(seq_len))
+        out["attention"] = per_key * count_units(cfg, "A") * window
+    if cfg.family == "encdec":
+        out["attention"] = per_key * (cfg.n_enc_layers * seq_len * seq_len
+                                      + cfg.n_dec_layers * (causal + seq_len * seq_len))
     if cfg.family == "ssm":
         Q, N = min(cfg.ssm_chunk, seq_len), cfg.ssm_state
         HP = cfg.ssm_heads * cfg.ssm_head_dim
@@ -4004,33 +4198,34 @@ TRAIN_RANGES = ("train_step.forward", "train_step.backward", "train_step.optimiz
 
 
 def training_profile(tc, dev, cfg, model, opt, pipe, name, report, first=100):
-    """Two train steps under the profiler (after two warm ones): the
-    device's idle share of the steps' wall time, and a step's split into
-    forward, backward (of it each kernel's recompute through its plain
-    version) and optimizer, the device time launched inside
+    """``profiled`` train steps under the profiler (after as many warm
+    ones): the device's idle share of the steps' wall time, and a step's
+    split into forward, backward (of it each kernel's recompute through
+    its plain version) and optimizer, the device time launched inside
     `make_train_step`'s and the Functions' profiler ranges (a step's mean).
     Then the model FLOPs over the median step of the counted run as a share
     of the card's bf16 peak."""
     step_fn = make_train_step(model, cfg, opt_config(tc), n_microbatches=tc["microbatches"])
-    steps = iter(range(first, first + 4))
+    n = tc["profiled"]
+    steps = iter(range(first, first + 2 * n))
     recomputes = [f"{k}.recompute" for k in TRAIN_KERNELS[cfg.family]]
 
-    def two_steps():
+    def some_steps():
         st = opt
-        for _ in range(2):
-            st, m = step_fn(st, pipe.get_batch(next(steps)))
+        for _ in range(n):
+            st, m = step_fn(st, step_batch(cfg, pipe, next(steps)))
         return float(m["loss"])
 
-    _, prof = profile_window(dev, two_steps, TRAIN_RANGES + tuple(recomputes))
+    _, prof = profile_window(dev, some_steps, TRAIN_RANGES + tuple(recomputes), raw=True)
     report[tc["key"]]["profile"] = prof
-    log_profile(f"{cfg.name}: 2 train steps", prof)
+    log_profile(f"{cfg.name}: {n} train steps", prof)
     r = prof["ranges"]
-    split = dict(forward_ms=r["train_step.forward"]["ms"] / 2,
-                 backward_ms=r["train_step.backward"]["ms"] / 2,
-                 optimizer_ms=r["train_step.optimizer"]["ms"] / 2,
-                 recompute={n: dict(ms=r[n]["ms"] / 2, calls=r[n]["calls"] / 2)
-                            for n in recomputes})
-    want = cfg.n_layers * tc["microbatches"]
+    split = dict(forward_ms=r["train_step.forward"]["ms"] / n,
+                 backward_ms=r["train_step.backward"]["ms"] / n,
+                 optimizer_ms=r["train_step.optimizer"]["ms"] / n,
+                 recompute={k: dict(ms=r[k]["ms"] / n, calls=r[k]["calls"] / n)
+                            for k in recomputes})
+    want = kernel_calls(cfg) * tc["microbatches"]  # each Function's backward once a call
     parts = [split["forward_ms"], split["backward_ms"], split["optimizer_ms"]] + [
         v["ms"] for v in split["recompute"].values()]
     if any(v["calls"] != want for v in split["recompute"].values()) or min(parts) <= 0:
@@ -4044,10 +4239,10 @@ def training_profile(tc, dev, cfg, model, opt, pipe, name, report, first=100):
                  bf16_peak_share=total / step_s / peak)
     report[tc["key"]]["split"] = split
     log(f"{cfg.name} train step split (device time launched in each profiler range, "
-        f"a step's mean over the profiled 2): forward {split['forward_ms']:.1f} ms, "
+        f"a step's mean over the profiled {n}): forward {split['forward_ms']:.1f} ms, "
         f"backward {split['backward_ms']:.1f} ms (of it " + ", ".join(
-            f"{n} {v['ms']:.1f} ms over {v['calls']:.0f} calls"
-            for n, v in split["recompute"].items()) +
+            f"{k} {v['ms']:.1f} ms over {v['calls']:.0f} calls"
+            for k, v in split["recompute"].items()) +
         f"), optimizer {split['optimizer_ms']:.1f} ms")
     log(f"{cfg.name} model FLOPs a step {total:.4g} ({flops}; "
         f"{tc['batch'] * tc['seq_len']} tokens): {split['model_tflops']:.2f} TFLOP/s "
@@ -4061,7 +4256,7 @@ def training_compressed_steps(tc, dev, cfg, model, opt, pipe, report):
     for i, method in enumerate(("bf16", "int8")):
         step_fn = make_train_step(model, cfg, opt_config(tc, grad_compression=method),
                                   n_microbatches=tc["microbatches"])
-        (opt, m), t = timed(dev, lambda: step_fn(opt, pipe.get_batch(300 + i)))
+        (opt, m), t = timed(dev, lambda: step_fn(opt, step_batch(cfg, pipe, 300 + i)))
         out[method] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), step_s=t)
         if not np.isfinite(out[method]["loss"]):
             raise RuntimeError(f"training with {method} compression: loss not finite")
@@ -4071,17 +4266,57 @@ def training_compressed_steps(tc, dev, cfg, model, opt, pipe, report):
         for k, v in out.items()))
 
 
+def remat_variants(tc, dev, cfg, model, opt, pipe, report):
+    """Two steps under each policy of ``remat_variants`` from the counted
+    run's state: the second step's time and the peak memory of the two,
+    beside the counted run's median step and peak under the config's
+    policy."""
+    key = tc["key"]
+    card = dev.type == "cuda"
+    out = {cfg.remat: dict(step_s=report[key]["median_step_s"],
+                           max_memory_allocated=report[key].get("max_memory_allocated", 0))}
+    try:
+        for i, policy in enumerate(tc["remat_variants"]):
+            model.cfg = cfg.scaled(remat=policy)
+            step_fn = make_train_step(model, model.cfg, opt_config(tc),
+                                      n_microbatches=tc["microbatches"])
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            times = []
+            for j in range(2):
+                (opt, m), t = timed(dev, lambda: step_fn(opt, step_batch(cfg, pipe,
+                                                                         400 + 2 * i + j)))
+                times.append(t)
+                if not np.isfinite(float(m["loss"])):
+                    raise RuntimeError(f"{cfg.name} under remat {policy!r}: loss not finite")
+            out[policy] = dict(step_s=times[-1], first_step_s=times[0],
+                               max_memory_allocated=torch.cuda.max_memory_allocated(dev)
+                               if card else 0)
+    finally:
+        model.cfg = cfg
+    report[key]["remat"] = out
+    log(f"{cfg.name} train step by remat policy ({tc['batch']} x {tc['seq_len']} tokens, the "
+        f"second of 2 steps; "
+        f"{cfg.remat!r}: the counted run's median): " + "; ".join(
+            f"{p} {v['step_s']:.4f} s, max memory allocated "
+            f"{v['max_memory_allocated'] / 2 ** 30:.3f} GiB" for p, v in out.items()))
+
+
 def training_phase(tc, dev, name, report, by_path):
     """A family's training at full width: the batch and gradient checks,
     then the counted run with the launch counts set to 0 just before it
     and read just after, the step's profile, and (``compressed``) a step
     each with compressed gradients."""
     t0 = time.perf_counter()
+    parts = {}
     cfg, model, opt, pipe = training_state(tc, dev)
     del opt  # the checks take no step; the counted run gets the same state anew
     training_batches_vs_cpu(tc, cfg, pipe, report)
+    parts["state_and_batches_s"] = time.perf_counter() - t0
     training_grad_check(tc, dev, cfg, model, pipe, report)
     torch.cuda.empty_cache()
+    parts["grad_check_s"] = time.perf_counter() - t0 - sum(parts.values())
     opt = adamw_init(model.param_tree())
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4090,18 +4325,86 @@ def training_phase(tc, dev, name, report, by_path):
     check_training_launches(tc, cfg, counts)
     report[tc["key"]]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     log(f"launches on the {tc['key']} path: {counts} ({', '.join(TRAIN_KERNELS[cfg.family])} "
-        f"= {cfg.n_layers} layers x {tc['microbatches']} microbatches x {tc['steps']} steps "
-        f"each, forward only); max memory allocated "
+        f"= {kernel_calls(cfg)} calls x {REMAT_PASSES[cfg.remat]} passes (remat "
+        f"{cfg.remat!r}: the forward and the recompute) x {tc['microbatches']} microbatches x "
+        f"{tc['steps']} steps each); max memory allocated "
         f"{report[tc['key']]['max_memory_allocated'] / 2 ** 30:.3f} GiB")
+    parts["counted_run_s"] = time.perf_counter() - t0 - sum(parts.values())
     training_profile(tc, dev, cfg, model, opt, pipe, name, report)
+    parts["profile_s"] = time.perf_counter() - t0 - sum(parts.values())
     if tc.get("compressed"):
         training_compressed_steps(tc, dev, cfg, model, opt, pipe, report)
+    if tc["remat_variants"]:
+        remat_variants(tc, dev, cfg, model, opt, pipe, report)
     pipe.stop()
     del model, opt, pipe
     torch.cuda.empty_cache()
+    parts["extra_steps_s"] = time.perf_counter() - t0 - sum(parts.values())
     training_small_vs_cpu(dev, report, tc["arch"])
+    parts["small_vs_cpu_s"] = time.perf_counter() - t0 - sum(parts.values())
     report[tc["key"]]["phase_s"] = time.perf_counter() - t0
-    log(f"{tc['key']} phase {report[tc['key']]['phase_s']:.1f} s")
+    report[tc["key"]]["phase_parts"] = parts
+    log(f"{tc['key']} phase {report[tc['key']]['phase_s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+
+
+# B2's gradient where the hybrid's window binds (Skv > window: at the
+# training phase's 2,048 positions the window of 2,048 masks nothing) and
+# the encoder-decoder's unmasked attention at Sq != Skv: (B, Sq, Skv, H, K,
+# D, causal, window)
+ATTN_GRAD_FULL = [(2, 4096, 4096, 10, 1, 256, True, 2048), (2, 2048, 512, 16, 16, 64, False, None),
+                  (2, 512, 2048, 16, 16, 64, False, None)]
+ATTN_GRAD_TINY = [(1, 64, 64, 10, 1, 256, True, 32), (1, 32, 16, 4, 4, 16, False, None),
+                  (1, 16, 32, 4, 4, 16, False, None)]
+
+
+def attention_grad_checks(shapes, dev, report, errs):
+    """`flash_attention`'s differentiable route (the kernel inside
+    `FlashAttention` on the card, one launch) against the plain version on
+    the same tensors, bf16 and fp32: the forward within phase 6's
+    tolerances, and dq, dk and dv equal bit for bit (the Function's
+    backward differentiates the plain version from its saved inputs),
+    finite and nonzero."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    rows = {}
+    for B, Sq, Skv, H, K, D, causal, window in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, dout = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                             for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D),
+                                           (B, Sq, H, D)))
+            qkv = [t.requires_grad_() for t in (q, k, v)]
+            attn = dict(causal=causal, window=window)
+            before = fa_ops.launches
+            out = fa_ops.flash_attention(*qkv, **attn)
+            want = flash_attention_ref(*qkv, scale=D ** -0.5, **attn)
+            got_g = torch.autograd.grad(out, qkv, dout)
+            want_g = torch.autograd.grad(want, qkv, dout)
+            sync(dev)
+            label = (f"flash_attention gradient {B} x {Sq} x {Skv}, H {H}, K {K}, D {D}, "
+                     f"{'causal' if causal else 'unmasked'}, window {window}, {str(dt)[6:]}")
+            if dev.type == "cuda" and fa_ops.launches != before + 1:
+                raise RuntimeError(f"{label}: {fa_ops.launches - before} launches, want 1")
+            mean_abs = float(want.float().abs().mean())
+            tol = (dict(atol=FULL_WIDTH_BF16_ATOL_SHARE * mean_abs, rtol=BF16_TOL["rtol"])
+                   if dt == torch.bfloat16 else FP32_TOL)
+            try:
+                torch.testing.assert_close(out.float(), want.float(), **tol)
+            except AssertionError as e:
+                raise RuntimeError(f"{label}: kernel != plain\n{e}") from None
+            err = float((out.float() - want.float()).abs().max())
+            errs.append(err)
+            for name, g, w in zip("qkv", got_g, want_g):
+                if not (torch.equal(g, w) and bool(torch.isfinite(g.float()).all())
+                        and bool((g != 0).any())):
+                    raise RuntimeError(f"{label}: d{name} differs from the plain route's, or "
+                                       f"is not finite, or is zero")
+            if window is not None and Skv <= window:
+                raise RuntimeError(f"{label}: the window does not bind")
+            rows[label] = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
+            log(f"{label}: forward max |kernel - plain| {err:.3g} (mean |out| {mean_abs:.3g}); "
+                f"dq, dk, dv bit-equal to the plain route's, finite, nonzero")
+            del q, k, v, dout, qkv, out, want, got_g, want_g
+    report["attention_grad_checks"] = rows
 
 
 # the 2-layer fp32 models trained on the card and the CPU; the ssm's at the
@@ -4109,13 +4412,17 @@ def training_phase(tc, dev, name, report, by_path):
 # decay overflowed exp above the chunk's diagonal before the plain scan's
 # repair (`kernels/ssd_scan/ref.py` `causal_decay`)
 SMALL_TRAIN = dict(smoke=True, seq_len=32, batch=4, microbatches=2, steps=5, lr=3e-3)
-SMALL_TRAIN_ARCH = {"mamba2-370m": (dict(seq_len=256), dict(ssm_chunk=256))}
+SMALL_TRAIN_ARCH = {"mamba2-370m": (dict(seq_len=256), dict(ssm_chunk=256)),
+                    # the smoke window of 32 over 64 positions: the window binds
+                    "recurrentgemma-2b": (dict(seq_len=64), {})}
 SMALL_TRAIN_RTOL = 1e-4  # losses and grad norms, fp32 card (kernel) vs CPU (plain)
 
 
 def training_small_vs_cpu(dev, report, arch="smollm-135m"):
-    """A 2-layer fp32 model at the smoke widths trains 5 steps from the
-    same weights and batches on the card and on the CPU: losses and grad
+    """The arch's smoke model in fp32 (2 layers; the hybrid's 4, RRA and
+    R; the encoder-decoder's 2 + 2; the patch frontend's with its
+    embeddings) trains 5 steps from the same weights and batches (the
+    driver's frontend inputs) on the card and on the CPU: losses and grad
     norms within rtol 1e-4, the parameters within 2 x the sum of the steps'
     lr (AdamW moves an element whose gradient is ~0 by about +-lr a step,
     whichever way its rounding falls); a MoE's routing flips between the
@@ -4138,7 +4445,7 @@ def training_small_vs_cpu(dev, report, arch="smollm-135m"):
         routes[d.type] = calls = []
         with routing(calls):
             for s in range(tc["steps"]):
-                batch = pipe.get_batch(s)
+                batch = step_batch(cfg, pipe, s)
                 opt, m = step_fn(opt, batch)
                 rows.append((batch["tokens"].cpu(), float(m["loss"]), float(m["grad_norm"]),
                              float(m["lr"])))
@@ -4174,7 +4481,8 @@ def training_small_vs_cpu(dev, report, arch="smollm-135m"):
 # ------------------------------------------------ checkpoint and restart ----
 
 RESTART_RUN = ["--smoke", "--steps", "10", "--seq-len", "64", "--batch", "4"]
-RESTART_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m")
+RESTART_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-2b",
+                 "seamless-m4t-medium", "internvl2-76b")
 
 
 def _state_bits(tree):
@@ -4252,13 +4560,17 @@ def rehearse():
     hybrid_path(HYBRID_TINY, dev, report)
     hybrid_prefill_vs_stepping(dev, report)
     encdec_path(ENCDEC_TINY, dev, report)
+    attention_grad_checks(ATTN_GRAD_TINY, dev, report, [])
     for tc in TRAINS_TINY:
         cfg, model, opt, pipe = training_state(tc, dev)
         training_batches_vs_cpu(tc, cfg, pipe, report)
         training_grad_check(tc, dev, cfg, model, pipe, report)
-        training_path(tc, dev, cfg, model, opt, pipe, report)
+        opt = training_path(tc, dev, cfg, model, opt, pipe, report)
+        if tc["remat_variants"]:
+            remat_variants(tc, dev, cfg, model, opt, pipe, report)
         pipe.stop()
         training_small_vs_cpu(dev, report, tc["arch"])
+    training_small_vs_cpu(dev, report, "internvl2-76b")
     for arch in RESTART_ARCHS:
         restart_vs_uninterrupted(dev, report, arch)
     log(json.dumps({"rehearsal": report}, default=str))
@@ -4504,9 +4816,18 @@ def main(argv=None) -> int:
     report["encdec_serving"]["phase_s"] = time.perf_counter() - t0
     log(f"phase 27 {report['encdec_serving']['phase_s']:.1f} s")
 
-    # training at full width: the dense, MoE and ssm families
+    # training at full width: the dense, MoE and ssm families (phases 16-19),
+    # B2's gradient where the window binds and at Sq != Skv, the hybrid and
+    # encoder-decoder families (phases 28-29)
     for tc in TRAINS_FULL:
+        if tc is HYBRID_TRAIN_FULL:
+            t0 = time.perf_counter()
+            attention_grad_checks(ATTN_GRAD_FULL, dev, report, errs["flash_attention"])
+            torch.cuda.empty_cache()
+            log(f"flash_attention gradient checks {time.perf_counter() - t0:.1f} s")
         training_phase(tc, dev, name, report, by_path)
+    # the patch frontend's smoke model with its embeddings, card against CPU
+    training_small_vs_cpu(dev, report, "internvl2-76b")
 
     # checkpoint and restart of each family's smoke model on the card
     t0 = time.perf_counter()

@@ -258,17 +258,18 @@ def opt_state_to_numpy(state: Dict) -> Dict:
     return out
 
 
-def train_state_to_tree(model: LM, opt: Dict) -> Dict:
-    """The train state as the JAX driver's checkpoint tree: the model's
-    live Parameters and the live optimizer state (a checkpoint snapshot
-    copies them to the host)."""
+def train_state_to_tree(model: Union[LM, EncDecLM], opt: Dict) -> Dict:
+    """The train state of any family's model (`LM` or `EncDecLM`) as the
+    JAX driver's checkpoint tree: the model's live Parameters and the live
+    optimizer state (a checkpoint snapshot copies them to the host)."""
     return {"params": model.param_tree(), "opt": opt}
 
 
 @torch.no_grad()
-def train_state_from_tree(tree, model: LM, opt: Dict) -> Dict:
+def train_state_from_tree(tree, model: Union[LM, EncDecLM], opt: Dict) -> Dict:
     """Copy a restored checkpoint tree (tensors on any device) into the
-    model's Parameters and ``opt`` in place, and return ``opt``.  In place
+    Parameters of ``model`` (`LM` or `EncDecLM`) and ``opt`` in place, and
+    return ``opt``.  In place
     because `train.make_train_step` closes over ``model.param_tree()`` and
     `optim.adamw_update` updates the state's tensors: new tensors would
     leave the step updating the old ones.  Keys, shapes and dtypes must

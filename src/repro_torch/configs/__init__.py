@@ -1,10 +1,11 @@
 """Architecture registry of the port (``--arch <id>``).
 
 The ids are the JAX package's; the port holds the configurations of the
-archs whose model family it runs.  The others raise NotImplementedError
-naming the ROADMAP item that brings them.  An arch in ``SMOKE_ONLY`` has
-its smoke config in the port, but not its full one: the full model does
-not fit one card.
+archs whose model family it runs.  An arch in ``SMOKE_ONLY`` has its smoke
+config in the port, but not its full one: the full model does not fit one
+card.  Not yet ported: arctic-480b (its smoke config too) and the full
+configs of llama3-405b and internvl2-76b; each raises NotImplementedError
+naming ROADMAP A13 (sharding), which brings them.
 """
 import importlib
 from typing import List
@@ -26,11 +27,11 @@ ARCH_IDS: List[str] = [
 
 SUPPORTED = ("smollm_135m", "minitron_8b", "gemma_2b", "granite_moe_1b_a400m",
              "mamba2_370m", "recurrentgemma_2b", "seamless_m4t_medium")
-SMOKE_ONLY = ("llama3_405b",)
+SMOKE_ONLY = ("llama3_405b", "internvl2_76b")
 
 _LATER = {
     "llama3_405b": "ROADMAP A13 (sharded dense models)",
-    "internvl2_76b": "ROADMAP A13 (sharded dense models, patch frontend)",
+    "internvl2_76b": "ROADMAP A13 (sharded dense models: 76B does not fit one card)",
     "arctic_480b": "ROADMAP A13 (sharded MoE models: 480B does not fit one card)",
 }
 

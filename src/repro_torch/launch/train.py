@@ -8,9 +8,12 @@ checkpoint/restart supervision.
   python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --seq-len 2048 --batch 16 --microbatches 2      # on the card
 
-(with ``src`` on ``PYTHONPATH``).  The dense, MoE and ssm families train;
-the weights are drawn from seed 0 and the corpus is the JAX driver's
-synthetic Zipf corpus (the same numpy draws).  With ``--ckpt-dir`` the
+(with ``src`` on ``PYTHONPATH``).  Every family trains: dense, MoE, ssm,
+hybrid and encoder-decoder, and the patch frontend's smoke config
+(internvl2-76b).  The weights are drawn from seed 0 and the corpus is the
+JAX driver's synthetic Zipf corpus (the same numpy draws); each step's
+``frames`` (encoder-decoder) and ``embeds`` (patch frontend) are the JAX
+driver's draws too (`frontend_inputs`).  With ``--ckpt-dir`` the
 steps run under `ft.TrainingSupervisor`: a checkpoint every
 ``--ckpt-every`` steps in the JAX package's format (`ckpt`), and a
 failure injected before step ``--inject-failure-at`` is recovered by a
@@ -35,11 +38,6 @@ from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_init
 from ..train import make_train_step
 
-# families whose serving path the port runs and whose training it does not yet
-_LATER_FAMILIES = {"hybrid": "ROADMAP A10 (training half)",
-                   "encdec": "ROADMAP A10 (training half)"}
-
-
 def build_state(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda"):
     """(model, optimizer state): weights drawn from ``seed`` on the device,
     fp32 masters copied from them, zero moments."""
@@ -61,6 +59,24 @@ def synthetic_corpus(cfg: ModelConfig, n_docs: int = 256, doc_len: int = 1024,
     toks = rng.choice(cfg.vocab, size=(n_docs, doc_len), p=probs)
     store.ingest_corpus(toks)
     return store
+
+
+def frontend_inputs(cfg: ModelConfig, step: int, tokens: torch.Tensor) -> Dict:
+    """The stub frontends' inputs of step ``step``, drawn as the JAX driver
+    draws them: for the patch frontend ``embeds`` (B, n_frontend_tokens,
+    d), for the encoder-decoder ``frames`` (B, S, d), each from
+    ``np.random.default_rng(step)``'s normals in float64, rounded to fp32
+    and then to bf16 (what ``jnp.asarray(..., jnp.bfloat16)`` does without
+    x64), on ``tokens``' device."""
+    B, S = tokens.shape
+    out = {}
+    if cfg.frontend == "patch_stub":
+        out["embeds"] = (B, cfg.n_frontend_tokens, cfg.d_model)
+    if cfg.family == "encdec":
+        out["frames"] = (B, S, cfg.d_model)
+    return {k: torch.from_numpy(np.random.default_rng(step).normal(size=shape)
+                                .astype(np.float32)).to(torch.bfloat16).to(tokens.device)
+            for k, shape in out.items()}
 
 
 def main(argv=None) -> Dict:
@@ -88,9 +104,6 @@ def main(argv=None) -> Dict:
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family in _LATER_FAMILIES:
-        raise NotImplementedError(f"{args.arch}: training of the {cfg.family} family is "
-                                  f"not in the port yet; see {_LATER_FAMILIES[cfg.family]}")
     model, opt = build_state(cfg, device=dev)
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=5, total_steps=args.steps,
                           grad_compression=args.grad_compression)
@@ -103,7 +116,9 @@ def main(argv=None) -> Dict:
 
     def one_step(opt, step):
         t0 = time.perf_counter()
-        opt, metrics = step_fn(opt, pipe.get_batch(step))
+        batch = pipe.get_batch(step)
+        batch.update(frontend_inputs(cfg, step, batch["tokens"]))
+        opt, metrics = step_fn(opt, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
         monitor.record(0, time.perf_counter() - t0)

@@ -2,7 +2,7 @@
 
 The XLA and TPU knobs have no meaning here and are left out
 (`use_flash_kernel`, `use_flash_decode`, `use_ssd_kernel`, `attn_unroll`,
-`attn_block_q`/`attn_block_kv`, `remat`, `scan_layers`): the route is fixed
+`attn_block_q`/`attn_block_kv`, `scan_layers`): the route is fixed
 by the device, a CUDA tensor going through the hand-written kernels and a
 CPU tensor through their plain versions.  ``moe_dispatch``
 is left out: its ``"local"`` mode is a vmap over a data-parallel mesh axis
@@ -31,6 +31,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
 
+    remat: str = "block"             # none | block | dots (`layers.maybe_remat`)
     fused_prefill_kv: bool = False   # build the decode cache from the forward
                                      # pass's K/V (no second projection)
 

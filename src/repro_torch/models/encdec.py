@@ -28,8 +28,9 @@ from ..kernels.flash_decode.ops import flash_decode
 from ..kernels.flash_decode.ref import as_lens
 from .attention import attention, attention_specs
 from .config import ModelConfig
-from .layers import cache_insert, mlp, mlp_specs, per_seq_positions, rms_norm, rms_norm_spec, rotary
-from .lm import ParamTree, _as_index, stack_specs, stack_views
+from .layers import (cache_insert, maybe_remat, mlp, mlp_specs, per_seq_positions, rms_norm,
+                     rms_norm_spec, rotary)
+from .lm import ParamTree, _as_index, remat_policy, stack_specs, stack_views
 from .params import ParamSpec, init_params
 
 F32 = torch.float32
@@ -117,11 +118,16 @@ class EncDecLM(nn.Module):
         x = frame_embeds.to(self.device)
         B, S, _ = x.shape
         positions = self._positions(B, S)
+        body = maybe_remat(self._enc_layer, remat_policy(self))
         for p in self.encoder:
-            x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-                              causal=False)
-            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+            x = body(p, x, positions)
         return rms_norm(x, self.top.enc_final_norm, cfg.norm_eps)
+
+    def _enc_layer(self, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+                          causal=False)
+        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
 
     # ------------------------------------------------------- cross attn ----
     def _cross(self, p, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -139,17 +145,24 @@ class EncDecLM(nn.Module):
 
     # ---------------------------------------------------------- decoder ----
     def forward(self, tokens: torch.Tensor, frame_embeds: torch.Tensor):
-        """Teacher-forced pass.  Returns (logits, aux = 0)."""
-        cfg = self.cfg
+        """Teacher-forced pass.  Returns (logits, aux = 0).  Each encoder and
+        decoder layer runs under the config's ``remat`` policy
+        (`maybe_remat`), as the reference's scan bodies do."""
         memory = self.encode(frame_embeds)
         x = self.embed_tokens(tokens)
         B, S, _ = x.shape
         positions = self._positions(B, S)
+        body = maybe_remat(self._dec_layer, remat_policy(self))
         for p in self.decoder:
-            x = x + attention(p.self_attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
-            x = x + self._cross(p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), memory)
-            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+            x = body(p, x, positions, memory)
         return self.logits(x), torch.zeros((), dtype=F32, device=self.device)
+
+    def _dec_layer(self, p, x: torch.Tensor, positions: torch.Tensor,
+                   memory: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = x + attention(p.self_attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
+        x = x + self._cross(p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), memory)
+        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
 
     # ----------------------------------------------------------- decode ----
     def cache_specs(self, B: int, cache_len: int, enc_len: int) -> dict:

@@ -3,19 +3,63 @@
 Norms and rotary angles are computed in fp32 and cast back; the MLP
 activation is taken in fp32 and cast before the gating product.  The
 attention itself lives in `kernels.flash_attention` (full sequence) and
-`kernels.flash_decode` (one token against a cache).
+`kernels.flash_decode` (one token against a cache).  `maybe_remat` is the
+reference's activation-recompute policy over a layer.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .config import ModelConfig
 from .params import ParamSpec
 
 F32 = torch.float32
+REMAT_POLICIES = ("none", "block", "dots")
+# the products `dots` keeps: matrix products with no batch dimension, the
+# ops ``x @ W`` becomes (`jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under an activation-recompute policy (`repro.models.layers.maybe_remat`).
+
+    none  -- ``fn`` itself: autograd keeps every activation.
+    block -- `torch.utils.checkpoint`: the forward keeps only ``fn``'s
+             inputs, the backward runs ``fn`` again and differentiates that.
+    dots  -- a selective checkpoint: the outputs of matrix products with no
+             batch dimension (``aten.mm``, ``aten.addmm``) are kept, every
+             other op (``bmm``, the kernels' launches, elementwise ops) is
+             recomputed.
+
+    While autograd records nothing (``torch.no_grad``) the policy is
+    inert: ``fn`` runs as it is.  The layers draw no random numbers, so no
+    RNG state is stashed for the recompute."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
+    if remat == "none":
+        return fn
+    extra = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                              _dots_policy)}
+             if remat == "dots" else {})
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **extra)
+
+    return run
 
 
 def rms_norm_spec(d: int) -> ParamSpec:

@@ -14,7 +14,11 @@ the tree (the optimizer's) is an update of the model.
 Parameters do not require gradients until the caller asks for them with
 ``model.requires_grad_(True)`` (`train.make_train_step` does).  Autograd's
 leaves are then the tree's tensors, in their own dtype, and the gradients
-come in the tree's stacked shapes.
+come in the tree's stacked shapes.  While autograd records them, each
+layer of `forward` (each repeat of the hybrid pattern, and the tail) runs
+under the config's ``remat`` policy (`layers.maybe_remat`), as the JAX
+package's scan body does.  ``forward(tokens, embeds=)`` puts the patch
+frontend stub's embeddings before the tokens.
 
 The dense and MoE families' cache is the JAX tree ``{"blocks": {"k": (L,
 B, S, K, hd), "v": ...}}``; the ssm family's is ``{"blocks": {"state": (L, B, H, P,
@@ -47,8 +51,8 @@ from ..kernels.flash_decode.ops import flash_decode
 from ..kernels.flash_decode.ref import as_lens
 from .attention import attention, attention_decode, attention_specs, prefill_kv
 from .config import ModelConfig
-from .layers import (cache_insert, mlp, mlp_specs, per_seq_positions, rms_norm, rms_norm_spec,
-                     rotary)
+from .layers import (cache_insert, maybe_remat, mlp, mlp_specs, per_seq_positions, rms_norm,
+                     rms_norm_spec, rotary)
 from .moe import moe, moe_specs
 from .params import ParamSpec, init_params, map_specs
 from .rglru import rglru_block, rglru_decode_step, rglru_specs
@@ -165,6 +169,15 @@ def stack_views(stack: "ParamTree", n: int, cache: Dict, key: str) -> list:
     if key not in cache:
         cache[key] = _layers(stack.tree(), n)
     return cache[key]
+
+
+def remat_policy(model: nn.Module) -> str:
+    """``model.cfg.remat`` while autograd records ``model``'s parameters
+    (training), else ``"none"``: a forward that differentiates nothing
+    keeps no activations to begin with (the serving paths)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters()):
+        return model.cfg.remat
+    return "none"
 
 
 def _as_index(index):
@@ -297,19 +310,39 @@ class LM(nn.Module):
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device).expand(B, S)
 
-    def forward(self, tokens: torch.Tensor):
-        """tokens (B, S) int.  Returns (logits, aux); aux is the sum of the
-        layers' MoE router losses (fp32), 0 for the dense and ssm families."""
+    def _repeat_fwd(self, p, x: torch.Tensor, positions: torch.Tensor, pattern: str):
+        """One repeat of the hybrid pattern (or the tail's units)."""
+        for key, kind in zip(UNIT_KEYS, pattern):
+            x = self._apply_unit(p[key], x, positions, kind)
+        return x
+
+    def forward(self, tokens: torch.Tensor, embeds: Optional[torch.Tensor] = None):
+        """tokens (B, S_text) int; ``embeds`` (B, S_img, d), the patch
+        frontend stub's output, is prepended to the sequence in the
+        activations' dtype.  Returns (logits over all S_img + S_text
+        positions, aux); aux is the sum of the layers' MoE router losses
+        (fp32), 0 for the other families.
+
+        Each layer (each repeat of the hybrid pattern, and the tail's) runs
+        under the config's ``remat`` policy (`maybe_remat`), as the
+        reference's scan body does."""
         x = self.embed_tokens(tokens)
+        if embeds is not None:
+            x = torch.cat([embeds.to(device=self.device, dtype=x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = self._positions(B, S)
         aux = torch.zeros((), dtype=F32, device=self.device)
         if self.cfg.family == "hybrid":
-            for _, _, _, kind, p in self._units():
-                x = self._apply_unit(p, x, positions, kind)
+            body = maybe_remat(self._repeat_fwd, remat_policy(self))
+            pattern = self.cfg.hybrid_pattern
+            for p in self.blocks:
+                x = body(p, x, positions, pattern)
+            for p in self.tail:
+                x = body(p, x, positions, pattern[:hybrid_layout(self.cfg)[1]])
             return self.logits(x), aux
+        body = maybe_remat(self._block_fwd, remat_policy(self))
         for p in self.blocks:
-            x, a = self._block_fwd(p, x, positions)
+            x, a = body(p, x, positions)
             if a is not None:
                 aux = aux + a
         return self.logits(x), aux

@@ -34,7 +34,17 @@ def make_prefill_step(model, cfg: ModelConfig):
     position, (xk, xv)), the JAX package's step (encode, then each decoder
     layer's cross K/V; the decoder's prompt is one BOS token).  Given
     ``cache_len`` it returns the whole decode cache in place of (xk, xv):
-    those beside a zero self cache of ``cache_len`` positions."""
+    those beside a zero self cache of ``cache_len`` positions.
+
+    Patch frontend (``frontend == "patch_stub"``): (tokens, embeds (B,
+    S_img, d)) -> the last position's logits of the forward pass over the
+    embeddings and the tokens, the JAX package's step (no cache)."""
+    if cfg.frontend == "patch_stub":
+        def prefill_patches(tokens: torch.Tensor, embeds: torch.Tensor):
+            logits, _ = model(tokens, embeds=embeds)
+            return logits[:, -1:]
+
+        return prefill_patches
     if cfg.family == "encdec":
         def prefill_frames(frames: torch.Tensor, cache_len: Optional[int] = None):
             memory = model.encode(frames)

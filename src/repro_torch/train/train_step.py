@@ -5,7 +5,8 @@ The gradients are autograd's with respect to the model's working weights
 in their own dtype (bf16 gradients for bf16 leaves, as `jax.value_and_grad`
 gives); the attention kernel's backward is `FlashAttention`'s recompute
 through the plain version.  With ``n_microbatches > 1`` the global batch
-is split along axis 0 and the gradients add up in fp32.  The JAX step
+is split along axis 0 (tokens, labels and the ``frames`` or ``embeds``
+alike) and the gradients add up in fp32.  The JAX step
 returns new parameters; here the model's parameters and the optimizer
 state are updated in place (`adamw_update`).  Profiler ranges
 (``train_step.forward``, ``.backward``, ``.optimizer``) mark the step's
@@ -29,8 +30,11 @@ F32 = torch.float32
 
 def loss_fn(model, batch: Dict, cfg: ModelConfig, loss_impl: str = "gather"):
     """Next-token cross-entropy over the positions with ``labels >= 0``,
-    plus the MoE aux loss (0 for the dense family).  Returns (loss,
-    {"ce", "aux"}).
+    plus the MoE aux loss (0 for the other families).  Returns (loss,
+    {"ce", "aux"}).  The encoder-decoder family takes the batch's
+    ``frames`` (B, S, d) into its encoder; with ``embeds`` (B, S_img, d) in
+    the batch (the patch frontend) the model sees them before the tokens
+    and the loss is taken on the text positions only.
 
     ``loss_impl``: ``gather`` takes the label's log-probability from
     `log_softmax`; ``onehot`` contracts the logits with a one-hot of the
@@ -38,7 +42,14 @@ def loss_fn(model, batch: Dict, cfg: ModelConfig, loss_impl: str = "gather"):
     vocab-sharded logits; one device computes the same number).
     """
     labels = batch["labels"].to(model.device)
-    logits, aux = model(batch["tokens"].to(model.device))
+    tokens = batch["tokens"].to(model.device)
+    if cfg.family == "encdec":
+        logits, aux = model(tokens, batch["frames"])
+    elif "embeds" in batch:
+        logits, aux = model(tokens, embeds=batch["embeds"])
+        logits = logits[:, -tokens.shape[1]:]  # the loss on the text positions
+    else:
+        logits, aux = model(tokens)
     logits = logits.to(F32)
     mask = (labels >= 0).to(F32)
     if loss_impl == "gather":

@@ -254,7 +254,8 @@ RUN = ["--smoke", "--device", "cpu", "--steps", "12", "--seq-len", "32", "--batc
 
 @pytest.mark.parametrize("arch,fail_at", [
     ("smollm-135m", 8), ("granite-moe-1b-a400m", 8), ("mamba2-370m", 8),
-    ("mamba2-370m", 3)])  # before the first checkpoint: a cold restart
+    ("mamba2-370m", 3),  # before the first checkpoint: a cold restart
+    ("recurrentgemma-2b", 8), ("seamless-m4t-medium", 8), ("internvl2-76b", 8)])
 def test_driver_restart_ends_bit_equal_to_an_uninterrupted_run(tmp_path, arch, fail_at):
     """``--ckpt-every 5 --inject-failure-at N`` against the same run without
     a failure: the replay, and the final parameters and optimizer state

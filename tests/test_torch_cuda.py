@@ -327,6 +327,115 @@ def test_flash_attention_gradients_through_the_kernel(cuda, shape, dtype):
         assert bool(torch.isfinite(g.float()).all()) and bool((g != 0).any())
 
 
+@pytest.mark.parametrize("case", [
+    dict(shape=(2, 512, 512, 10, 1, 256), causal=True, window=128),  # the hybrid's A unit
+    dict(shape=(2, 128, 384, 10, 1, 256), causal=True, window=96),   # Sq < Skv
+    dict(shape=(2, 96, 320, 16, 16, 64), causal=False, window=None),  # cross, Sq < Skv
+    dict(shape=(2, 320, 96, 16, 16, 64), causal=False, window=None)])  # cross, Sq > Skv
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_and_cross_gradients_through_the_kernel(cuda, case, dtype):
+    """The hybrid's windowed attention (the window binding: Skv > window)
+    and the encoder-decoder's unmasked attention at Sq != Skv: the kernel's
+    forward within the kernel tolerances, and the gradients autograd's
+    through the plain version bit for bit, finite and nonzero."""
+    B, Sq, Skv, H, K, D = case["shape"]
+    attn = dict(causal=case["causal"], window=case["window"])
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (_randn(gen, s, dtype, cuda).requires_grad_()
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+    dout = _randn(gen, (B, Sq, H, D), dtype, cuda)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, **attn)
+    want_out = flash_attention_ref(q, k, v, scale=D ** -0.5, **attn)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    assert fa_ops.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+        assert bool(torch.isfinite(g.float()).all()) and bool((g != 0).any())
+
+
+@pytest.mark.parametrize("remat", ["none", "block", "dots"])
+def test_checkpointed_layers_launch_the_kernel_again_on_the_card(cuda, remat):
+    """A 2-layer fp32 smollm on the card: under ``block`` and ``dots`` each
+    layer's `flash_attention` launches in the forward and again in the
+    recompute, under ``none`` once; the gradients agree across policies
+    within 1e-6 of each leaf's max |g|; without autograd one launch a
+    layer under every policy."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    cfg = get_smoke_config("smollm-135m").scaled(dtype="float32")
+    tree = lm_params_to_numpy(build_model(cfg, device="cpu",
+                                          generator=torch.Generator().manual_seed(3)))
+    data = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, size=(2, 65)).astype(np.int32))
+    batch = {"tokens": data[:, :-1], "labels": data[:, 1:]}
+    grads = {}
+    for policy in ("none", remat):
+        m = lm_params_from_numpy(cfg.scaled(remat=policy), tree, cuda)
+        before = fa_ops.launches
+        with torch.no_grad():
+            m(batch["tokens"])
+        assert fa_ops.launches == before + cfg.n_layers
+        m.requires_grad_(True)
+        before = fa_ops.launches
+        grads[policy] = loss_and_grads(m, batch, m.cfg)[2]
+        assert fa_ops.launches == before + cfg.n_layers * (1 if policy == "none" else 2)
+    for g, w in zip(tree_leaves(grads[remat]), tree_leaves(grads["none"])):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "seamless-m4t-medium", "internvl2-76b"])
+def test_family_smoke_model_trains_alike_on_card_and_cpu(cuda, arch):
+    """The hybrid (window 32 over 64 positions), encoder-decoder and patch
+    frontend smoke models in fp32: 3 train steps through `make_train_step`
+    (2 microbatches, the driver's frontend inputs) from the same weights
+    on the card and the CPU: losses and grad norms within rtol 1e-4, the
+    parameters within 2 x the sum of the steps' lr; `flash_attention`
+    launched twice per attention call of a microbatch (``block``)."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import frontend_inputs
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(9))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    attn_calls = {"hybrid": cfg.n_layers // 3, "encdec": cfg.n_enc_layers + 2 * cfg.n_dec_layers,
+                  "dense": cfg.n_layers}[cfg.family]
+    rows = {}
+    for m in (cpu, card):
+        step = make_train_step(m, cfg, AdamWConfig(lr_peak=3e-3, warmup_steps=1,
+                                                   total_steps=3), n_microbatches=2)
+        opt = adamw_init(m.param_tree())
+        rows[m.device.type] = out = []
+        before = fa_ops.launches
+        for s in range(3):
+            data = torch.from_numpy(np.random.default_rng(10 + s).integers(
+                0, cfg.vocab, size=(4, 65)).astype(np.int32))
+            batch = {"tokens": data[:, :-1], "labels": data[:, 1:]}
+            batch.update({k: v.float() for k, v in
+                          frontend_inputs(cfg, s, batch["tokens"]).items()})
+            opt, metrics = step(opt, batch)
+            out.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                        float(metrics["lr"])))
+        if m is card:
+            assert fa_ops.launches == before + 3 * 2 * 2 * attn_calls
+    lrs = sum(r[2] for r in rows["cpu"])
+    for (lk, nk, _), (lc, nc, _) in zip(rows["cuda"], rows["cpu"]):
+        assert abs(lk - lc) <= 1e-4 * abs(lc) and abs(nk - nc) <= 1e-4 * abs(nc)
+    for a, b in zip(tree_leaves(lm_params_to_numpy(card)), tree_leaves(lm_params_to_numpy(cpu))):
+        assert float(np.abs(a - b).max()) <= 2 * lrs
+
+
 def test_smoke_model_gradients_on_card_match_cpu(cuda):
     """A 2-layer fp32 smollm at the smoke widths: every parameter's
     gradient through the kernel route on the card within 1e-4 of its max
@@ -348,7 +457,8 @@ def test_smoke_model_gradients_on_card_match_cpu(cuda):
     for m in (cpu, card):
         m.requires_grad_(True)
         grads[m.device.type] = loss_and_grads(m, batch, cfg)[2]
-    assert fa_ops.launches == before + cfg.n_layers
+    assert cfg.remat == "block"
+    assert fa_ops.launches == before + 2 * cfg.n_layers  # the forward and the recompute
     for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["cpu"])):
         w = w.float()
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
@@ -981,7 +1091,8 @@ def test_family_smoke_model_gradients_on_card_match_cpu(cuda, arch):
     for m in (cpu, card):
         m.requires_grad_(True)
         grads[m.device.type] = loss_and_grads(m, batch, cfg)[2]
-    assert ops_.launches == before + cfg.n_layers
+    assert cfg.remat == "block"
+    assert ops_.launches == before + 2 * cfg.n_layers  # the forward and the recompute
     for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["cpu"])):
         assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))

@@ -176,13 +176,11 @@ def test_cpu_driver_microbatches_and_compression():
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--arch", "recurrentgemma-2b"], "A10"),
-    (["--arch", "seamless-m4t-medium"], "A10"),
-    (["--arch", "arctic-480b"], "A13"),
-    (["--arch", "internvl2-76b"], "A13"),
+    (["--arch", "arctic-480b", "--smoke"], "A13"),
+    (["--arch", "internvl2-76b"], "does not fit one card.*A13"),  # the full model
 ])
 def test_driver_raises_for_what_is_not_ported(argv, err):
-    args = ["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "1"]
+    args = ["--device", "cpu", "--steps", "1"]
     with pytest.raises(NotImplementedError, match=err):
         train.main(args + argv)
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.models import build_model as j_build_model
 from repro.models.params import count_params as j_count_params
 from repro.models.params import init_params as j_init_params
@@ -121,15 +122,19 @@ def test_specs_and_counts_match_jax():
         if arch not in SMOKE_WIDTHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_config(arch)
-    # llama3-405b: its smoke config runs, the full model stays with A13
-    from repro_torch.configs import llama3_405b
+    # llama3-405b and internvl2-76b: their smoke configs run, the full
+    # models stay with A13
+    from repro_torch.configs import internvl2_76b, llama3_405b
     assert port_cfg(j_get_config("llama3_405b")) == llama3_405b.CONFIG
     assert port_cfg(j_get_config("llama3_405b").scaled(**LLAMA3_SMOKE)) == \
         get_smoke_config("llama3-405b")
-    with pytest.raises(NotImplementedError, match="does not fit one card.*A13"):
-        get_config("llama3-405b")
+    assert port_cfg(j_get_config("internvl2_76b")) == internvl2_76b.CONFIG
+    assert port_cfg(j_get_smoke_config("internvl2_76b")) == get_smoke_config("internvl2-76b")
+    for arch in ("llama3-405b", "internvl2-76b"):
+        with pytest.raises(NotImplementedError, match="does not fit one card.*A13"):
+            get_config(arch)
     for arch in ARCH_IDS:
-        if arch not in SMOKE_WIDTHS and arch != "llama3_405b":
+        if arch not in SMOKE_WIDTHS and arch not in ("llama3_405b", "internvl2_76b"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_smoke_config(arch)
 

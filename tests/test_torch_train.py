@@ -341,7 +341,11 @@ def test_opt_state_round_trip_bit_exact():
     dict(shape=(2, 16, 16, 4, 2, 16), causal=True, window=None),
     dict(shape=(1, 8, 24, 6, 2, 32), causal=True, window=None),   # Sq < Skv
     dict(shape=(2, 16, 16, 4, 4, 16), causal=False, window=None),
-    dict(shape=(1, 32, 32, 4, 1, 16), causal=True, window=8)])
+    dict(shape=(1, 32, 32, 4, 1, 16), causal=True, window=8),
+    dict(shape=(2, 64, 64, 10, 1, 16), causal=True, window=16),  # the window binds, G 10
+    dict(shape=(1, 16, 48, 8, 2, 16), causal=True, window=24),   # Sq < Skv under a window
+    dict(shape=(2, 8, 24, 4, 4, 16), causal=False, window=None),  # cross: Sq < Skv
+    dict(shape=(2, 24, 8, 4, 4, 16), causal=False, window=None)])  # cross: Sq > Skv
 def test_flash_attention_function_backward_is_the_plain_gradient(case):
     """`FlashAttention` with the plain version as its forward (the kernel
     needs the card): its gradients are autograd's through the plain
