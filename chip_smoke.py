@@ -344,6 +344,34 @@ Phases (any failure raises and the exit code is non-zero):
    decoder calls) x 2 passes x 4 microbatches x steps times.  Then
    internvl2-76b's smoke model with its patch embeddings trains alike on
    card and CPU.
+30. arctic-480b serving at full width in bf16, its depth cut from 35 to 2
+   layers (the whole model, 480B parameters, does not fit one card; 2
+   layers are 27.7e9 parameters, 55.4 GB): d 7,168, 56 query heads over 8
+   kv heads of 128, 128 experts top-2 with the dense residual MLP, d_ff
+   4,864, 32,000 words untied; the expert leaves drawn on the card one
+   (layer, expert) slice at a time.  Counted as phase 5: 32 prompts of
+   2,048 through `make_prefill_step` (cache 2,176) and 32 greedy steps;
+   `moe_gemm` launches once a layer for the prefill and each step,
+   `flash_attention` once a layer, `flash_decode` once a layer a step.
+   TTFT, decode tokens/s, peak memory, the shares of picks dropped at the
+   prefill and at a decode step, profiles of the prefill and 8 decode
+   steps.  Checks: layer 0's MoE on the prefill's tokens dispatched twice
+   (equal routing), the kernel over all 128 experts against the plain
+   version on a slice of 8 experts (the kernel computes each expert on its
+   own, so the slice is exact; the plain version over all 128 in fp32
+   would need 53.6 GB more), and kernel and plain on the slice with counts
+   0 and C among them, at phase 12's tolerances; layer 0's attention at the
+   prefill and at a decode step, the plain version sliced over the batch,
+   at phase 6's; then B2, B3 and B5 timed at these shapes beside the bound,
+   the plain version and the library call.  arctic's smoke model in fp32
+   serves the same tokens and trains alike on card and CPU, and restarts
+   bit-equal (phase 20).
+31. The dry run (`python -m repro_torch.launch.dryrun`, a child process on
+   the host: its fake process group of 512 ranks cannot share a process
+   with phase 21's NCCL group): granite-moe-1b-a400m x decode_32k on the
+   16 x 16 and 2 x 16 x 16 meshes, arctic-480b and llama3-405b x train_4k
+   on 16 x 16.  Each cell's roofline row is printed, a cost model for H100
+   SXM constants, not a measurement; a cell not ``ok`` fails the phase.
 
 `flash_attention`, `morton_matmul` and `moe_gemm` have two bodies, a
 tensor-core one for bf16 and an FMA one for fp32; `flash_decode` has one,
@@ -388,7 +416,7 @@ sys.path.insert(0, str(HERE / "src"))
 from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,  # noqa: E402
                                train_state_from_tree, train_state_to_tree)
 from repro_torch.ckpt import restore_checkpoint  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import arctic_480b, get_config, get_smoke_config  # noqa: E402
 from repro_torch.cluster import ClusterStore, VolumeService  # noqa: E402
 from repro_torch.core import cutout as cut  # noqa: E402
 from repro_torch.core import distributed as dist_mod  # noqa: E402
@@ -425,7 +453,8 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model, count_params, model_specs  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import hybrid_layout  # noqa: E402
-from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.params import (DTYPES, init_params, map_specs,  # noqa: E402
+                                       tree_leaves, tree_map)
 from repro_torch.models.rglru import rglru_scan  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
@@ -450,13 +479,13 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
         ops=fa_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
                            "training", "moe_training", "hybrid_serving", "encdec_serving",
-                           "hybrid_training", "encdec_training")),
+                           "hybrid_training", "encdec_training", "arctic_serving")),
     "flash_decode": dict(
         route="cuda",
         source="src/repro_torch/kernels/flash_decode/kernel.cu",
         replaces="src/repro/kernels/flash_decode/kernel.py:66",
         ops=fd_ops, paths=("serving", "moe_serving", "gemma_serving", "minitron_serving",
-                           "hybrid_serving", "encdec_serving")),
+                           "hybrid_serving", "encdec_serving", "arctic_serving")),
     "ssd_scan": dict(
         route="cuda",
         source="src/repro_torch/kernels/ssd_scan/kernel.cu",
@@ -466,7 +495,7 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/moe_gemm/kernel.cu",
         replaces="src/repro/kernels/moe_gemm/kernel.py:55",
-        ops=mg_ops, paths=("moe_serving", "moe_training")),
+        ops=mg_ops, paths=("moe_serving", "moe_training", "arctic_serving")),
     "morton_matmul": dict(
         route="cuda",
         source="src/repro_torch/kernels/morton_matmul/kernel.cu",
@@ -517,8 +546,8 @@ CLUSTER_TINY = dict(volume=(256, 256, 32), r=2, n_blobs=12, slab=128, nodes=4, r
 # 16), phase 24's cluster settings; ``readers`` cold readers and a writer
 # while node 1 is crashed ``kill_after_s`` into stage (b); the supervisor
 # ticks every ``interval`` s and fails a node over after ``dead_ticks``
-# dead samples; stage (c) holds node 0 down until it is seen dead (at
-# most ``blip_max_s``)
+# dead samples; stage (c) holds node 0 down until the supervisor's first
+# sample that sees it dead (at most ``blip_max_s``)
 FAULT_FULL = dict(volume=(4096, 4096, 64), r=2, n_blobs=3072, slab=256, nodes=4, replication=2,
                   cache=64 << 20, tile=(512, 512, 64), reads=32, writes=100,
                   wbox=(96, 96, 12), readers=8, kill_after_s=2.0, heal_limit_s=30.0,
@@ -2368,18 +2397,33 @@ def storage_faults(fc, dev, report, counts):
                                                        errors, puts))
             th.start()
             res = {}
+            victim = fac.built[0]
+            restarted = threading.Event()
+            watch_sample = sup.watch.sample
+
+            def sample():
+                # the node comes back within the supervisor's tick that
+                # first samples it dead, so the blip is one tick long
+                # whatever the host's speed: shorter than the debounce
+                snap = watch_sample()
+                if not restarted.is_set() and snap["health"][:1] == ["dead"]:
+                    res["state_reached"] = "dead"
+                    victim.restart()
+                    res["crashed_s"] = time.perf_counter() - t_c
+                    restarted.set()
+                return snap
+
+            sup.watch.sample = sample
             try:
                 time.sleep(0.3)
-                victim = fac.built[0]
                 t_c = time.perf_counter()
                 victim.crash()
-                while time.perf_counter() - t_c < fc["blip_max_s"]:
-                    if cluster.topology()["health"][0] == "dead":
-                        break
-                    time.sleep(0.002)
-                res["state_reached"] = cluster.topology()["health"][0]
-                victim.restart()
-                res["crashed_s"] = time.perf_counter() - t_c
+                if not restarted.wait(fc["blip_max_s"]):
+                    sup.watch.sample = watch_sample
+                    if not restarted.is_set():
+                        res["state_reached"] = cluster.topology()["health"][0]
+                        victim.restart()
+                        res["crashed_s"] = time.perf_counter() - t_c
                 peak = 0
                 while time.perf_counter() - t_c < fc["heal_limit_s"]:
                     topo = cluster.topology()
@@ -2391,6 +2435,7 @@ def storage_faults(fc, dev, report, counts):
                 res["repair_peak"] = peak
                 res["healed_s"] = time.perf_counter() - t_c
             finally:
+                sup.watch.sample = watch_sample
                 stop_c.set()
                 th.join(timeout=120)
             return res
@@ -2685,7 +2730,7 @@ def attention_pair_checks(label, cases, errs, checks):
             del got, want, args
 
 
-def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs):
+def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs, slice_n=8):
     """Layer 0's attention at full width and at the path's own shapes:
     kernel vs plain version on the same card tensors, at the prefill of
     the whole batch and at one decode step over the whole cache with mixed
@@ -2716,7 +2761,8 @@ def layer0_attention_vs_plain(sc, dev, cfg, model, prompts, cache, report, errs)
     cases = (
         ("prefill", "flash_attention",
          lambda a, b, c: fa_ops.flash_attention(a, b, c, causal=True, scale=scale),
-         sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale), 8),
+         sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale),
+                slice_n),
          (q, k, v)),
         ("decode", "flash_decode",
          lambda a, b, c: fd_ops.flash_decode(a, b, c, lens, scale=scale),
@@ -4482,7 +4528,7 @@ def training_small_vs_cpu(dev, report, arch="smollm-135m"):
 
 RESTART_RUN = ["--smoke", "--steps", "10", "--seq-len", "64", "--batch", "4"]
 RESTART_ARCHS = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-2b",
-                 "seamless-m4t-medium", "internvl2-76b")
+                 "seamless-m4t-medium", "internvl2-76b", "arctic-480b")
 
 
 def _state_bits(tree):
@@ -4535,6 +4581,276 @@ def restart_vs_uninterrupted(dev, report, arch):
         f"uninterrupted run; the step-{step} checkpoint restores on the CPU bit for bit")
 
 
+# ------------------------------------- arctic-480b and the dry run ----
+
+ARCTIC_FULL = dict(arch="arctic-480b", key="arctic_serving", smoke=False, layers=2, batch=32,
+                   prompt=2048, cache=2176, steps=32, expert_slice=8, reps=10)
+ARCTIC_TINY = ARCTIC_FULL | dict(smoke=True, batch=2, prompt=16, cache=24, steps=4,
+                                 expert_slice=4)
+
+
+def arctic_model(ac, dev):
+    """arctic-480b at full width cut to ``layers`` layers (or its smoke
+    config), weights drawn on the device from a seed into their own dtype
+    a matrix at a time: `init_params` draws each leaf whole in fp32, and
+    the stacked experts alone would take 35.7 GB so beside the bf16
+    weights."""
+    cfg = (get_smoke_config(ac["arch"]) if ac["smoke"]
+           else arctic_480b.CONFIG.scaled(n_layers=ac["layers"]))
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def draw(s):
+        dt = DTYPES[s.dtype]
+        if s.init != "normal":
+            return (torch.zeros if s.init == "zeros" else torch.ones)(s.shape, dtype=dt,
+                                                                      device=dev)
+        t = torch.empty(s.shape, dtype=dt, device=dev)
+        for m in t.view(-1, *s.shape[-2:]) if t.dim() > 2 else [t]:
+            m.copy_(torch.randn(m.shape, generator=gen, device=dev) * s.scale)
+        return t
+
+    return cfg, build_model(cfg, map_specs(draw, model_specs(cfg)), device=dev)
+
+
+def arctic_moe_checks(ac, dev, cfg, model, prompts, report, errs):
+    """Layer 0's MoE on the prefill's tokens: two dispatches of the same
+    tokens route alike; the kernel over all experts against the plain
+    version on a slice of ``expert_slice`` experts (the least and the most
+    loaded among them) with their own counts, in bf16; and kernel and plain
+    on that slice with its counts set to 0 and C at its two ends, in bf16
+    and in fp32.  Returns the bf16 GEMM arguments of the prefill."""
+    blk = model.blocks[0]
+    x = model.embed_tokens(prompts)
+    B, S, d = x.shape
+    x = x + attention(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
+                      torch.arange(S, device=dev).expand(B, S))
+    xt = rms_norm(x, blk.ln2, cfg.norm_eps).reshape(B * S, d)
+    del x
+    p = SimpleNamespace(**blk.moe)
+    dk, dp = moe_mod.dispatch(p, cfg, xt), moe_mod.dispatch(p, cfg, xt)
+    for field in ("expert_ids", "keep", "slot", "counts", "grouped"):
+        if not torch.equal(getattr(dk, field), getattr(dp, field)):
+            raise RuntimeError(f"arctic layer-0 MoE: two dispatches differ in {field}")
+    del dp, xt
+    E, C = dk.grouped.shape[:2]
+    counts = dk.counts
+    idx = torch.argsort(counts)[torch.linspace(0, E - 1, ac["expert_slice"],
+                                               device=dev).round().long()]
+    sl = [t.index_select(0, idx) for t in (dk.grouped, p.w_gate, p.w_up, p.w_down)]
+    yk = mg_ops.moe_gemm(dk.grouped, p.w_gate, p.w_up, p.w_down, counts)
+    yp = moe_gemm_ref(*sl, counts.index_select(0, idx))
+    checks = {"all_experts_bf16": dict(max_abs_err=check_close(
+        "arctic layer-0 moe_gemm bf16, all experts vs a slice", yk.index_select(0, idx), yp,
+        moe_tol(yp), errs), **moe_tol(yp))}
+    del yk, yp
+    ends = counts.index_select(0, idx).clone()
+    ends[0], ends[-1] = 0, C
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        args = [t.to(dt) for t in sl]
+        if dt == torch.float32:  # rows past the new counts zero, as a dispatch leaves them
+            live = torch.arange(C, device=dev)[None, :] < ends[:, None]
+            args[0] = args[0] * live[..., None]
+        got, want = mg_ops.moe_gemm(*args, ends), moe_gemm_ref(*args, ends)
+        checks[f"slice_ends_{tag}"] = dict(max_abs_err=check_close(
+            f"arctic layer-0 moe_gemm {tag}, slice with counts 0 and C", got, want,
+            moe_tol(want), errs), **moe_tol(want))
+        del got, want, args
+    report[ac["key"]]["layer0_moe"] = dict(
+        tokens=B * S, capacity=C, experts=E, slice=idx.tolist(),
+        slice_counts=counts.index_select(0, idx).tolist(),
+        counts_min=int(counts.min()), counts_max=int(counts.max()), checks=checks)
+    log(f"arctic layer-0 MoE [moe_gemm: {body('moe_gemm', torch.bfloat16)}], full width "
+        f"({B * S} tokens, E {E}, C {C}, counts {int(counts.min())}-{int(counts.max())}): "
+        + ", ".join(f"{k} max |kernel - plain| {v['max_abs_err']:.3g} (atol {v['atol']:.3g})"
+                    for k, v in checks.items()))
+    return (dk.grouped, p.w_gate, p.w_up, p.w_down, counts), idx
+
+
+def decode_dispatch(model, cfg, cache, tok, index):
+    """Layer 0's dispatch at one decode step: (buffer, counts)."""
+    seen = []
+    with moe_mod.observe(lambda p, xt, disp: seen.append((disp.grouped.clone(),
+                                                          disp.counts.clone()))):
+        make_serve_step(model, cfg)(cache, tok, index)
+    return seen[0]
+
+
+def moe_gemm_timing(dev, name, label, args, idx, reps):
+    """`moe_gemm` over the whole buffer beside the plain version on the
+    expert slice ``idx`` (all experts in fp32 do not fit beside the
+    weights), 3 bf16 bmm over the whole buffer (no skipping) and the bound:
+    the live rows' products, and the bytes of the rows, the output and the
+    weights of the experts with a nonzero count."""
+    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    x, wg, wu, wd, counts = args
+    E, C, d = x.shape
+    f = wg.shape[-1]
+    rows = int(counts.clamp(0, C).sum())
+    active = int((counts > 0).sum())
+    sl = [t.index_select(0, idx) for t in (x, wg, wu, wd, counts)]
+    ms = event_times(dev, lambda i=0: mg_ops.moe_gemm(*args), reps)
+    plain = event_times(dev, lambda i=0: moe_gemm_ref(*sl), reps)
+    lib = event_times(dev, lambda i=0: torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu),
+                                                 wd), reps)
+    ops_ = 6 * d * f * rows
+    bytes_ = x.element_size() * (rows * d + E * C * d + 3 * active * d * f)
+    bound = max(ops_ / flops, bytes_ / hbm) * 1e3
+    t = dict(ms=ms, plain_ms=plain, plain_experts=len(idx), library_ms=lib, bound_ms=bound,
+             bound_by="operations" if ops_ / flops > bytes_ / hbm else "bytes",
+             library="3 x torch.bmm (bf16, whole buffer, no skipping) + silu product",
+             operations=ops_, bytes=bytes_, shape=[E, C, d, f], live_rows=rows,
+             active_experts=active, body=body("moe_gemm", x.dtype))
+    log(f"moe_gemm {label} {t['shape']} ({rows} live rows, {active} experts with picks): "
+        f"{ms:.4f} ms (plain on {len(idx)} experts {plain:.4f} ms; 3 x bmm {lib:.4f} ms); "
+        f"bound {bound:.4f} ms by {t['bound_by']} = {100 * bound / ms:.2f}% of the card's peak")
+    return t
+
+
+def arctic_timings(ac, dev, cfg, name, model, prompts, cache, gemm_args, idx):
+    """B2 at the prefill, B3 at a decode step over the path's cache, B5 at
+    the prefill (layer 0's buffer) and at a decode step."""
+    p = model.blocks[0]
+    x = rms_norm(model.embed_tokens(prompts), p.ln1, cfg.norm_eps)
+    B, S = prompts.shape
+    q, k, v = qkv(p.attn, cfg, x, torch.arange(S, device=dev).expand(B, S))
+    del x
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale, reps = D ** -0.5, ac["reps"]
+    out = {"arctic_prefill": attention_timing(
+        dev, name, "flash_attention, arctic prefill",
+        lambda: fa_ops.flash_attention(q, k, v, causal=True, scale=scale),
+        lambda: sliced(lambda a, b, c: flash_attention_ref(a, b, c, causal=True, scale=scale),
+                       2)(q, k, v),
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2), is_causal=True, scale=scale,
+                                               enable_gqa=True),
+        4 * B * H * D * S * (S + 1) // 2, 2 * (2 * q.numel() + k.numel() + v.numel()),
+        [B, S, S, H, K, D])}
+    del q, k, v
+    ck, cv = cache["blocks"]["k"][0], cache["blocks"]["v"][0]
+    Sc = ck.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    lens = torch.randint(Sc - ac["steps"], Sc + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    qd = torch.randn((B, 1, H, D), generator=gen, device=dev).to(ck.dtype)
+    live = int(lens.sum())
+    mask = (torch.arange(Sc, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    out["arctic_decode"] = attention_timing(
+        dev, name, "flash_decode, arctic decode", lambda: fd_ops.flash_decode(
+            qd, ck, cv, lens, scale=scale),
+        lambda: flash_decode_ref(qd, ck, cv, lens, scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask,
+            scale=scale, enable_gqa=True),
+        4 * H * D * live, 2 * (2 * live * K * D + 2 * qd.numel()) + 4 * B,
+        [B, Sc, H, K, D], lens=[int(lens.min()), int(lens.max())],
+        splits=fd_ops.plan_for(qd, ck).nsplit)
+    out["moe_prefill"] = moe_gemm_timing(dev, name, "arctic prefill", gemm_args, idx, reps)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    grouped, counts = decode_dispatch(model, cfg, cache, tok, ac["prompt"] + ac["steps"] - 1)
+    dec_args = (grouped, p.moe.w_gate, p.moe.w_up, p.moe.w_down, counts)
+    out["moe_decode"] = moe_gemm_timing(dev, name, "arctic decode step", dec_args,
+                                        torch.argsort(counts, descending=True)[:len(idx)], reps)
+    return out
+
+
+def check_arctic_launches(ac, cfg, counts):
+    """`flash_attention` once a layer (the prefill), `flash_decode` once a
+    layer and step, `moe_gemm` once a layer for the prefill and each step."""
+    L, n = cfg.n_layers, ac["steps"]
+    want = dict(flash_attention=L, flash_decode=L * n, moe_gemm=L * (1 + n))
+    if counts != want:
+        raise RuntimeError(f"{cfg.name}: launches {counts}, want {want}")
+
+
+def arctic_path(ac, dev, report, errs):
+    """Phase 30's run and checks (see the module's docstring).  Returns
+    the launch counts and the kernels' timings."""
+    t0 = time.perf_counter()
+    cfg, model = arctic_model(ac, dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    serving_path(ac | dict(batch=2, prompt=64, cache=72, steps=2), dev, cfg, model, {})
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    prompts, generated, cache = serving_path(ac, dev, cfg, model, report)
+    counts = read_launches(ac["key"]) if dev.type == "cuda" else {}
+    if dev.type == "cuda":
+        check_arctic_launches(ac, cfg, counts)
+    n_params = count_params(model.specs())
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    cut = "smoke widths" if ac["smoke"] else f"full width, {cfg.n_layers} of 35 layers"
+    report[ac["key"]].update(init_s=t_init, params=n_params, layers=cfg.n_layers,
+                             depth_cut=cut, max_memory_allocated=peak)
+    log(f"{cfg.name} ({cut}): {n_params} parameters drawn on the device in {t_init:.3f} s; "
+        f"launches {counts}; max memory allocated {peak / 2 ** 30:.3f} GiB")
+    moe_drop_shares(ac, dev, cfg, model, prompts, cache, generated, report)
+    timings = {}
+    if dev.type == "cuda":
+        serving_profile(ac, dev, cfg, model, prompts, cache, generated, report)
+        layer0_attention_vs_plain(ac, dev, cfg, model, prompts, cache, report, errs,
+                                  slice_n=2)
+        torch.cuda.empty_cache()
+        gemm_args, idx = arctic_moe_checks(ac, dev, cfg, model, prompts, report,
+                                           errs["moe_gemm"])
+        timings = arctic_timings(ac, dev, cfg, torch.cuda.get_device_name(dev), model,
+                                 prompts, cache, gemm_args, idx)
+        del gemm_args
+    del model, prompts, generated, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    serving_small_vs_cpu(dev, report, ac["arch"])
+    training_small_vs_cpu(dev, report, ac["arch"])
+    report[ac["key"]]["phase_s"] = time.perf_counter() - t0
+    log(f"phase 30 {report[ac['key']]['phase_s']:.1f} s")
+    return counts, timings
+
+
+DRYRUN_FULL = dict(cells=["granite-moe-1b-a400m:decode_32k:16x16",
+                          "granite-moe-1b-a400m:decode_32k:2x16x16",
+                          "arctic-480b:train_4k:16x16", "llama3-405b:train_4k:16x16"],
+                   smoke=False, timeout=600)
+DRYRUN_TINY = dict(cells=["smollm-135m:train_4k:2x2", "granite-moe-1b-a400m:decode_32k:2x2"],
+                   smoke=True, timeout=300)
+
+
+def dry_run_phase(dc, report):
+    """Phase 31: the dry run's cells in a child process; each cell's row
+    printed; the phase fails if the child fails or a cell is not ``ok``."""
+    t0 = time.perf_counter()
+    out = HERE / "build" / "dryrun_cells.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(out)]
+    for cell in dc["cells"]:
+        argv += ["--cell", cell]
+    if dc["smoke"]:
+        argv.append("--smoke")
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    r = subprocess.run(argv, cwd=HERE, env=env, capture_output=True, text=True,
+                       timeout=dc["timeout"])
+    cells = json.loads(out.read_text()) if out.exists() else []
+    for c in cells:
+        row = {k: v for k, v in c.get("roofline", {}).items()}
+        log(f"dry run {c['arch']} x {c['shape']} x {c['mesh']}: {c['status']} "
+            f"(a cost model for H100 SXM constants, not a measurement) "
+            + json.dumps(dict(row, coll_breakdown=c.get("coll_breakdown"),
+                              trace_s=c.get("lower_s"), error=c.get("error"))))
+    if r.returncode != 0 or len(cells) != len(dc["cells"]) or \
+            any(c["status"] != "ok" for c in cells):
+        raise RuntimeError(f"the dry run failed (exit {r.returncode}): {r.stdout[-3000:]}"
+                           f"\n{r.stderr[-3000:]}")
+    report["dryrun"] = dict(
+        cells={f"{c['arch']} x {c['shape']} x {c['mesh']}": {
+            k: c[k] for k in ("roofline", "coll_breakdown", "memory_analysis", "lower_s",
+                              "cost_extrapolated")} for c in cells},
+        phase_s=time.perf_counter() - t0,
+        note="a cost model for H100 SXM constants, not a measurement")
+    log(f"phase 31 {report['dryrun']['phase_s']:.1f} s ({len(cells)} cells)")
+
+
 def rehearse():
     """Every path at a tiny size on the CPU: control flow only, no kernels,
     no timing claims and no result line.  One intra-op thread: at these
@@ -4573,6 +4889,9 @@ def rehearse():
     training_small_vs_cpu(dev, report, "internvl2-76b")
     for arch in RESTART_ARCHS:
         restart_vs_uninterrupted(dev, report, arch)
+    arctic_path(ARCTIC_TINY, dev, report, {"flash_attention": [], "flash_decode": [],
+                                            "moe_gemm": []})
+    dry_run_phase(DRYRUN_TINY, report)
     log(json.dumps({"rehearsal": report}, default=str))
     return 0
 
@@ -4837,15 +5156,25 @@ def main(argv=None) -> int:
     log(f"restart phase {report['restart']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # arctic-480b serving at full width, 2 of 35 layers (phase 30)
+    by_path["arctic_serving"], timings["arctic"] = arctic_path(ARCTIC_FULL, dev, report, errs)
+    # the dry run on the production meshes, in a child process (phase 31)
+    dry_run_phase(DRYRUN_FULL, report)
+
     rank4 = report["timeseries"]["gather"]
     rows = [dict(name="cutout_gather", max_abs_err=gather_err, ms=tile["ms"],
                  plain_ms=tile["plain_ms"], bound_ms=tile["bound_ms"],
                  bound_by="bytes", library_ms=None, rank4_ms=rank4["ms"],
                  rank4_plain_ms=rank4["plain_ms"], rank4_bound_ms=rank4["bound_ms"])]
+    arctic = timings["arctic"]
     new_shapes = {"flash_attention": {"window_prefill": timings["hybrid"]["window_prefill"],
-                                      "encoder_prefill": timings["encdec"]["encoder_prefill"]},
+                                      "encoder_prefill": timings["encdec"]["encoder_prefill"],
+                                      "arctic_prefill": arctic["arctic_prefill"]},
                   "flash_decode": {"window_decode": timings["hybrid"]["window_decode"],
-                                   "cross_decode": timings["encdec"]["cross_decode"]}}
+                                   "cross_decode": timings["encdec"]["cross_decode"],
+                                   "arctic_decode": arctic["arctic_decode"]},
+                  "moe_gemm": {"arctic_prefill": arctic["moe_prefill"],
+                               "arctic_decode": arctic["moe_decode"]}}
     for n in ("flash_attention", "flash_decode", "ssd_scan", "moe_gemm", "morton_matmul"):
         t = timings[n]
         extra = {}

@@ -12,7 +12,10 @@ Library callers that open no budget are unaffected: ``remaining()``
 returns ``None`` and the cluster waits on nodes exactly as before.  The
 budget only ever *shrinks* when nested, so an inner stage can tighten but
 not extend the caller's allowance.  The budget is not carried into pool
-threads.
+threads by itself: a thread that does another request's work (the front
+door's coalescer, its leader or the cluster's batch pool) runs it under
+that request's own budget, taken with `expiry()` where the request was
+admitted and installed with `adopt()`.
 """
 
 from __future__ import annotations
@@ -65,3 +68,22 @@ def remaining() -> Optional[float]:
     if expires is None:
         return None
     return max(0.0, expires - time.monotonic())
+
+
+def expiry() -> Optional[float]:
+    """The calling thread's budget as an absolute `time.monotonic()`
+    instant, or ``None`` when it has none open."""
+    return getattr(_local, "expires", None)
+
+
+@contextlib.contextmanager
+def adopt(expires: Optional[float]):
+    """Run under another request's budget: install the instant ``expires``
+    (its `expiry()`) in place of the calling thread's own, earlier or
+    later, and restore the thread's own on exit."""
+    prev = getattr(_local, "expires", None)
+    _local.expires = expires
+    try:
+        yield
+    finally:
+        _local.expires = prev

@@ -3,8 +3,9 @@ dense llama3-70B-class decoder.  The InternViT frontend is a stub:
 precomputed patch embeddings are prepended to the token sequence
 (`LM.forward`'s ``embeds``).
 
-A copy of `repro.configs.internvl2_76b`.  Only `smoke()` runs in the port:
-the full model does not fit one card (`get_config` raises, ROADMAP A13)."""
+A copy of `repro.configs.internvl2_76b`.  `smoke()` runs in the port; the
+full model does not fit one card: `get_config` refuses it, and
+`get_config(..., abstract=True)` hands it to the dry run (`launch.dryrun`)."""
 from ..models.config import ModelConfig
 
 CONFIG = ModelConfig(

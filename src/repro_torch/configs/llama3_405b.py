@@ -1,7 +1,8 @@
 """Llama-3.1-405B [arXiv:2407.21783]: dense GQA, 128k vocab.
 
-A copy of `repro.configs.llama3_405b`.  Only `smoke()` runs in the port:
-the full model does not fit one card (`get_config` raises, ROADMAP A13)."""
+A copy of `repro.configs.llama3_405b`.  `smoke()` runs in the port; the
+full model does not fit one card: `get_config` refuses it, and
+`get_config(..., abstract=True)` hands it to the dry run (`launch.dryrun`)."""
 from ..models.config import ModelConfig
 
 CONFIG = ModelConfig(

@@ -3,21 +3,20 @@
 The full-sequence path (training forward, prefill) goes through
 `kernels.flash_attention`, the one-token path through
 `kernels.flash_decode`: the hand-written CUDA kernels for tensors on the
-card, their plain versions for tensors on the CPU.
+card, their plain versions for tensors on the CPU (through `spmd`, which
+runs them per device on DTensors).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.flash_decode.ops import flash_decode
 from ..kernels.flash_decode.ref import as_lens
 from .config import ModelConfig
-from .layers import cache_insert, per_seq_positions, rotary
+from .layers import per_seq_positions, rotary
 from .params import ParamSpec
+from .spmd import cache_insert, flash_attention, flash_decode, merge_heads, pad, split_heads
 
 
 def attention_specs(cfg: ModelConfig) -> dict:
@@ -33,9 +32,9 @@ def attention_specs(cfg: ModelConfig) -> dict:
 def qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.w_q).reshape(B, S, H, hd)
-    k = (x @ p.w_k).reshape(B, S, K, hd)
-    v = (x @ p.w_v).reshape(B, S, K, hd)
+    q = split_heads(x @ p.w_q, H, hd)
+    k = split_heads(x @ p.w_k, K, hd)
+    v = split_heads(x @ p.w_v, K, hd)
     q = rotary(q, positions, cfg.rope_theta)
     k = rotary(k, positions, cfg.rope_theta)
     return q, k, v
@@ -55,7 +54,7 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = qkv(p, cfg, x, positions)
     out = flash_attention(q, k, v, causal=causal, scale=cfg.head_dim ** -0.5,
                           window=window)
-    out = out.reshape(B, S, -1) @ p.w_o
+    out = merge_heads(out) @ p.w_o
     if return_kv:
         return out, (k, v)
     return out
@@ -69,14 +68,14 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = per_seq_positions(index, B, x.device)
-    q = rotary((x @ p.w_q).reshape(B, 1, H, hd), positions, cfg.rope_theta)
-    k = rotary((x @ p.w_k).reshape(B, 1, K, hd), positions, cfg.rope_theta)
-    v = (x @ p.w_v).reshape(B, 1, K, hd)
+    q = rotary(split_heads(x @ p.w_q, H, hd), positions, cfg.rope_theta)
+    k = rotary(split_heads(x @ p.w_k, K, hd), positions, cfg.rope_theta)
+    v = split_heads(x @ p.w_v, K, hd)
     cache_insert(cache_k, k, index)
     cache_insert(cache_v, v, index)
     lens = index + 1 if isinstance(index, int) else as_lens(index, B, x.device) + 1
     out = flash_decode(q, cache_k, cache_v, lens, scale=hd ** -0.5)
-    return out.reshape(B, 1, -1) @ p.w_o, cache_k, cache_v
+    return merge_heads(out) @ p.w_o, cache_k, cache_v
 
 
 def prefill_kv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -84,7 +83,7 @@ def prefill_kv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     """K/V of the prompt, padded with zeros to ``cache_len`` positions."""
     B, S, _ = x.shape
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    k = rotary((x @ p.w_k).reshape(B, S, K, hd), positions, cfg.rope_theta)
-    v = (x @ p.w_v).reshape(B, S, K, hd)
-    pad = (0, 0, 0, 0, 0, cache_len - S)
-    return F.pad(k, pad), F.pad(v, pad)
+    k = rotary(split_heads(x @ p.w_k, K, hd), positions, cfg.rope_theta)
+    v = split_heads(x @ p.w_v, K, hd)
+    widths = (0, 0, 0, 0, 0, cache_len - S)
+    return pad(k, widths), pad(v, widths)

@@ -1,13 +1,14 @@
-"""Model configuration: a copy of `repro.models.config.ModelConfig`.
+"""Model configuration: a copy of `repro.models.config` (`ModelConfig`,
+`ShapeConfig`, `SHAPES`).
 
 The XLA and TPU knobs have no meaning here and are left out
 (`use_flash_kernel`, `use_flash_decode`, `use_ssd_kernel`, `attn_unroll`,
 `attn_block_q`/`attn_block_kv`, `scan_layers`): the route is fixed
 by the device, a CUDA tensor going through the hand-written kernels and a
-CPU tensor through their plain versions.  ``moe_dispatch``
-is left out: its ``"local"`` mode is a vmap over a data-parallel mesh axis
-and falls back to the one global dispatch without a sharding plan, which
-is what the port always does (sharding is ROADMAP A13).
+CPU tensor through their plain versions.  ``moe_dispatch`` is kept:
+``"local"`` dispatches each data-parallel group's tokens into its own
+capacity buffer under an active sharding plan (`models.moe`), and falls
+back to the one global dispatch (``"gspmd"``) without one.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ class ModelConfig:
     capacity_factor: float = 1.25
     moe_dense_residual: bool = False  # arctic: dense FFN in parallel w/ MoE
     router_aux_coef: float = 0.01
+    moe_dispatch: str = "gspmd"       # gspmd | local (a dispatch per
+                                      # data-parallel group, `models.moe`)
 
     # --- hybrid (recurrentgemma / griffin) ---
     # layer pattern: 'R' = RG-LRU recurrent block, 'A' = local attention
@@ -73,6 +76,10 @@ class ModelConfig:
             object.__setattr__(self, "n_dec_layers", self.n_layers)
 
     @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
     def d_inner(self) -> int:        # ssm
         return self.ssm_expand * self.d_model
 
@@ -80,6 +87,33 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context?  (Its cache and its step
+        are O(1) or O(window) in the sequence.)"""
+        return self.family in ("ssm", "hybrid")
+
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced copy for smoke tests."""
         return dataclasses.replace(self, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

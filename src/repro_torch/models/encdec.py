@@ -23,15 +23,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.flash_decode.ops import flash_decode
 from ..kernels.flash_decode.ref import as_lens
+from ..train.sharding import constrain, zeros
 from .attention import attention, attention_specs
 from .config import ModelConfig
-from .layers import (cache_insert, maybe_remat, mlp, mlp_specs, per_seq_positions, rms_norm,
-                     rms_norm_spec, rotary)
-from .lm import ParamTree, _as_index, remat_policy, stack_specs, stack_views
+from .layers import (maybe_remat, mlp, mlp_specs, per_seq_positions, rms_norm, rms_norm_spec,
+                     rotary)
+from .lm import ACT, ParamTree, _as_index, remat_policy, stack_specs, stack_views
 from .params import ParamSpec, init_params
+from .spmd import (cache_insert, embedding, flash_attention, flash_decode, merge_heads,
+                   own_grad, split_heads)
 
 F32 = torch.float32
 
@@ -52,6 +53,20 @@ def encdec_specs(cfg: ModelConfig) -> dict:
         out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                                    dtype=cfg.dtype)
     return out
+
+
+def encdec_cache_specs(cfg: ModelConfig, B: int, cache_len: int, enc_len: int) -> dict:
+    """The self-attention KV cache of ``cache_len`` positions and the
+    cross K/V of ``enc_len`` memory positions, per decoder layer."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def kv(n):
+        return ParamSpec((B, n, K, hd), ("batch", "kv_len", "kv_heads_cache", None),
+                         dtype=cfg.dtype, init="zeros")
+
+    return {"decoder": stack_specs({"k": kv(cache_len), "v": kv(cache_len),
+                                    "xk": kv(enc_len), "xv": kv(enc_len)},
+                                   cfg.n_dec_layers)}
 
 
 class EncDecLM(nn.Module):
@@ -99,25 +114,28 @@ class EncDecLM(nn.Module):
         return stack_views(self.dec_stack, self.cfg.n_dec_layers, self._views, "decoder")
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.to(self.device), self.top.embed)
+        x = embedding(tokens.to(self.device), self.top.embed)
+        return constrain(x, ACT)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return x @ self.top.embed.T
+            return x @ own_grad(self.top.embed).T
         return x @ self.top.lm_head
 
-    def _positions(self, B: int, S: int) -> torch.Tensor:
-        return torch.arange(S, device=self.device).expand(B, S)
+    def _positions(self, S: int) -> torch.Tensor:
+        """(1, S): the rotary tables broadcast over the batch (under a plan
+        a plain (B, S) would make the whole batch's on every device)."""
+        return torch.arange(S, device=self.device)[None]
 
     # ---------------------------------------------------------- encoder ----
     def encode(self, frame_embeds: torch.Tensor) -> torch.Tensor:
         """frame_embeds (B, T, d), the stub frontend's output -> the
         encoder's memory (B, T, d)."""
         cfg = self.cfg
-        x = frame_embeds.to(self.device)
+        x = constrain(frame_embeds.to(self.device), ACT)
         B, S, _ = x.shape
-        positions = self._positions(B, S)
+        positions = self._positions(S)
         body = maybe_remat(self._enc_layer, remat_policy(self))
         for p in self.encoder:
             x = body(p, x, positions)
@@ -127,7 +145,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions,
                           causal=False)
-        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+        x = constrain(x, ACT)
+        return constrain(x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act), ACT)
 
     # ------------------------------------------------------- cross attn ----
     def _cross(self, p, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -137,11 +156,11 @@ class EncDecLM(nn.Module):
         B, Sq, _ = x.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         Sm = memory.shape[1]
-        q = (x @ p.w_q).reshape(B, Sq, H, hd)
-        k = (memory @ p.w_k).reshape(B, Sm, K, hd)
-        v = (memory @ p.w_v).reshape(B, Sm, K, hd)
+        q = split_heads(x @ p.w_q, H, hd)
+        k = split_heads(memory @ p.w_k, K, hd)
+        v = split_heads(memory @ p.w_v, K, hd)
         out = flash_attention(q, k, v, causal=False, scale=hd ** -0.5)
-        return out.reshape(B, Sq, -1) @ p.w_o
+        return merge_heads(out) @ p.w_o
 
     # ---------------------------------------------------------- decoder ----
     def forward(self, tokens: torch.Tensor, frame_embeds: torch.Tensor):
@@ -151,7 +170,7 @@ class EncDecLM(nn.Module):
         memory = self.encode(frame_embeds)
         x = self.embed_tokens(tokens)
         B, S, _ = x.shape
-        positions = self._positions(B, S)
+        positions = self._positions(S)
         body = maybe_remat(self._dec_layer, remat_policy(self))
         for p in self.decoder:
             x = body(p, x, positions, memory)
@@ -160,24 +179,15 @@ class EncDecLM(nn.Module):
     def _dec_layer(self, p, x: torch.Tensor, positions: torch.Tensor,
                    memory: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = x + attention(p.self_attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
-        x = x + self._cross(p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), memory)
-        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+        x = constrain(x + attention(p.self_attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
+                                    positions), ACT)
+        x = constrain(x + self._cross(p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), memory),
+                      ACT)
+        return constrain(x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act), ACT)
 
     # ----------------------------------------------------------- decode ----
     def cache_specs(self, B: int, cache_len: int, enc_len: int) -> dict:
-        """The self-attention KV cache of ``cache_len`` positions and the
-        cross K/V of ``enc_len`` memory positions, per decoder layer."""
-        cfg = self.cfg
-        K, hd = cfg.n_kv_heads, cfg.head_dim
-
-        def kv(n):
-            return ParamSpec((B, n, K, hd), ("batch", "kv_len", "kv_heads_cache", None),
-                             dtype=cfg.dtype, init="zeros")
-
-        return {"decoder": stack_specs({"k": kv(cache_len), "v": kv(cache_len),
-                                        "xk": kv(enc_len), "xv": kv(enc_len)},
-                                       cfg.n_dec_layers)}
+        return encdec_cache_specs(self.cfg, B, cache_len, enc_len)
 
     def decode_step(self, cache: Dict, token: torch.Tensor, index):
         """One decoder token against the self cache (written in place) and
@@ -195,28 +205,29 @@ class EncDecLM(nn.Module):
         for i, p in enumerate(self.decoder):
             xin = rms_norm(x, p.ln1, cfg.norm_eps)
             a = p.self_attn
-            q = rotary((xin @ a.w_q).reshape(B, 1, H, hd), positions, cfg.rope_theta)
-            k = rotary((xin @ a.w_k).reshape(B, 1, K, hd), positions, cfg.rope_theta)
-            v = (xin @ a.w_v).reshape(B, 1, K, hd)
+            q = rotary(split_heads(xin @ a.w_q, H, hd), positions, cfg.rope_theta)
+            k = rotary(split_heads(xin @ a.w_k, K, hd), positions, cfg.rope_theta)
+            v = split_heads(xin @ a.w_v, K, hd)
             cache_insert(c["k"][i], k, index)
             cache_insert(c["v"][i], v, index)
             h = flash_decode(q, c["k"][i], c["v"][i], lens, scale=hd ** -0.5)
-            x = x + h.reshape(B, 1, -1) @ a.w_o
+            x = constrain(x + merge_heads(h) @ a.w_o, ACT)
             # cross-attention against the precomputed memory K/V (all valid)
             xq = rms_norm(x, p.ln_x, cfg.norm_eps)
-            q2 = (xq @ p.cross_attn.w_q).reshape(B, 1, H, hd)
+            q2 = split_heads(xq @ p.cross_attn.w_q, H, hd)
             h2 = flash_decode(q2, c["xk"][i], c["xv"][i], enc_len, scale=hd ** -0.5)
-            x = x + h2.reshape(B, 1, -1) @ p.cross_attn.w_o
-            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+            x = constrain(x + merge_heads(h2) @ p.cross_attn.w_o, ACT)
+            x = constrain(x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act), ACT)
         return self.logits(x), cache
 
     def decode_cache(self, xk: torch.Tensor, xv: torch.Tensor, cache_len: int) -> Dict:
         """The decode cache over cross K/V from `build_cross_cache`: a zero
         self cache of ``cache_len`` positions beside them (not copied)."""
         L, B, _, K, hd = xk.shape
-        zeros = [torch.zeros((L, B, cache_len, K, hd), dtype=xk.dtype, device=xk.device)
-                 for _ in range(2)]
-        return {"decoder": {"k": zeros[0], "v": zeros[1], "xk": xk, "xv": xv}}
+        names = ("layers", "batch", "kv_len", "kv_heads_cache", None)
+        k, v = (zeros((L, B, cache_len, K, hd), names, xk.dtype, xk.device, like=xk)
+                for _ in range(2))
+        return {"decoder": {"k": k, "v": v, "xk": xk, "xv": xv}}
 
     def build_cross_cache(self, memory: torch.Tensor):
         """Each decoder layer's cross K/V of the memory (B, Sm, d): (xk, xv),
@@ -224,8 +235,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         B, Sm, _ = memory.shape
         K, hd = cfg.n_kv_heads, cfg.head_dim
-        xk = torch.stack([(memory @ p.cross_attn.w_k).reshape(B, Sm, K, hd)
+        xk = torch.stack([split_heads(memory @ p.cross_attn.w_k, K, hd)
                           for p in self.decoder])
-        xv = torch.stack([(memory @ p.cross_attn.w_v).reshape(B, Sm, K, hd)
+        xv = torch.stack([split_heads(memory @ p.cross_attn.w_v, K, hd)
                           for p in self.decoder])
         return xk, xv

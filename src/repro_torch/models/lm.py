@@ -43,23 +43,47 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.flash_decode.ops import flash_decode
 from ..kernels.flash_decode.ref import as_lens
+from ..train.sharding import constrain, relayout, zeros
 from .attention import attention, attention_decode, attention_specs, prefill_kv
 from .config import ModelConfig
-from .layers import (cache_insert, maybe_remat, mlp, mlp_specs, per_seq_positions, rms_norm,
-                     rms_norm_spec, rotary)
+from .layers import (maybe_remat, mlp, mlp_specs, per_seq_positions, rms_norm, rms_norm_spec,
+                     rotary)
 from .moe import moe, moe_specs
-from .params import ParamSpec, init_params, map_specs
+from .params import DTYPES, ParamSpec, init_params, map_specs
 from .rglru import rglru_block, rglru_decode_step, rglru_specs
+from .spmd import (cache_insert, copy_into, embedding, flash_decode, is_dtensor,
+                   merge_heads, own_grad, pad, roll, split_heads)
 from .ssm import ssm_block, ssm_decode_step, ssm_specs
 
 F32 = torch.float32
 UNIT_KEYS = "abcdefgh"  # the hybrid units' keys within a repeat of the pattern
+ACT = ("act_batch", "act_seq", "act_embed")  # the layout of the residual stream
+
+
+def _write_prefix(c: torch.Tensor, k: torch.Tensor) -> None:
+    """``c[:, :S] = k`` for k (B, S, ...); a DTensor cache takes k padded
+    to its length."""
+    if is_dtensor(c):
+        copy_into(c, pad(k, (0, 0, 0, 0, 0, c.shape[1] - k.shape[1])))
+    else:
+        c[:, :k.shape[1]] = k
+
+
+def _write_window(c: torch.Tensor, k: torch.Tensor, wlen: int) -> None:
+    """The rotating window of the last ``wlen`` of k's S positions,
+    position p at slot p mod wlen (a roll, for a DTensor cache)."""
+    S = k.shape[1]
+    if S <= wlen:
+        _write_prefix(c, k)
+    elif is_dtensor(c):
+        copy_into(c, roll(k[:, S - wlen:], S % wlen, 1))
+    else:
+        keep = torch.arange(S - wlen, S, device=k.device)
+        c[:, keep % wlen] = k[:, keep]
 
 
 def stack_specs(tree, n: int):
@@ -123,6 +147,39 @@ def lm_specs(cfg: ModelConfig) -> dict:
     return out
 
 
+def lm_cache_specs(cfg: ModelConfig, B: int, cache_len: int) -> dict:
+    """The decode cache: (L, B, cache_len, K, hd) K and V for the dense
+    and MoE families; for the ssm family O(1) states, whatever
+    ``cache_len``; for the hybrid family O(1) states and a window of at
+    most ``local_window`` positions."""
+    if cfg.family == "hybrid":
+        return _hybrid_stacks(cfg, lambda kind: _unit_cache_spec(cfg, kind, B, cache_len))
+    if cfg.family == "ssm":
+        st = {"state": ParamSpec((B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                 ("batch", "heads_cache", None, None),
+                                 dtype="float32", init="zeros"),
+              "conv": ParamSpec((B, cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                                ("batch", None, "inner"), dtype=cfg.dtype,
+                                init="zeros")}
+        return {"blocks": stack_specs(st, cfg.n_layers)}
+    kv = ParamSpec((B, cache_len, cfg.n_kv_heads, cfg.head_dim),
+                   ("batch", "kv_len", "kv_heads_cache", None),
+                   dtype=cfg.dtype, init="zeros")
+    return {"blocks": stack_specs({"k": kv, "v": kv}, cfg.n_layers)}
+
+
+def _unit_cache_spec(cfg: ModelConfig, kind: str, B: int, cache_len: int) -> dict:
+    if kind == "R":
+        return {"h": ParamSpec((B, cfg.d_rnn), ("batch", "rnn"), dtype="float32",
+                               init="zeros"),
+                "conv": ParamSpec((B, cfg.conv_width - 1, cfg.d_rnn),
+                                  ("batch", None, "rnn"), dtype=cfg.dtype, init="zeros")}
+    kv = ParamSpec((B, min(cfg.local_window, cache_len), cfg.n_kv_heads, cfg.head_dim),
+                   ("batch", "kv_len", "kv_heads_cache", None), dtype=cfg.dtype,
+                   init="zeros")
+    return {"k": kv, "v": kv}
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: tensors become (gradient-free)
     Parameters, dicts submodules, under the same keys."""
@@ -152,10 +209,19 @@ class Layer(dict):
             raise AttributeError(key) from None
 
 
+def _unbind(v: torch.Tensor) -> tuple:
+    """The layers of a stacked leaf; on a DTensor each layer's gradient is
+    brought to its slice's layout, so that the backward stacks them in
+    the leaf's layout whatever the depth."""
+    if not is_dtensor(v):
+        return v.unbind(0)
+    return tuple(relayout(s, s.device_mesh, tuple(s.placements)) for s in v.unbind(0))
+
+
 def _layers(tree, n: int) -> list:
     """``n`` `Layer`s, layer i holding index i of each stacked leaf: one
     `unbind` a leaf, whose backward stacks the layers' gradients."""
-    per = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+    per = {k: _layers(v, n) if isinstance(v, dict) else _unbind(v)
            for k, v in tree.items()}
     return [Layer({k: v[i] for k, v in per.items()}) for i in range(n)]
 
@@ -285,30 +351,37 @@ class LM(nn.Module):
             out = attention(p.temporal, cfg, xin, positions,
                             window=window or cfg.local_window, return_kv=return_cache)
             h, state = out if return_cache else (out, None)
-        x = x + h
-        x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+        x = constrain(x + h, ACT)
+        x = constrain(x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act), ACT)
         return (x, state) if return_cache else x
 
     def _block_fwd(self, p, x: torch.Tensor, positions: torch.Tensor):
         """One layer; returns (x, the MoE aux loss or None)."""
         cfg = self.cfg
         if cfg.family == "ssm":
-            return x + ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps)), None
+            return constrain(x + ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps)),
+                             ACT), None
         x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), positions)
+        # the heads' partial sums reduced before the MLP (under a plan)
+        x = constrain(x, ACT)
         y, aux = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))
-        return x + y, aux
+        return constrain(x + y, ACT), aux
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.to(self.device), self.top.embed)
+        x = embedding(tokens.to(self.device), self.top.embed)
+        # under a plan: the lookup's partial sums reduced, the batch
+        # layout pinned (see spmd.embedding)
+        return constrain(x, ACT)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            return x @ self.top.embed.T
-        return x @ self.top.lm_head
+        out = x @ (own_grad(self.top.embed).T if self.cfg.tie_embeddings else self.top.lm_head)
+        return constrain(out, ("act_batch", "act_seq", "act_vocab"))
 
-    def _positions(self, B: int, S: int) -> torch.Tensor:
-        return torch.arange(S, device=self.device).expand(B, S)
+    def _positions(self, S: int) -> torch.Tensor:
+        """(1, S): the rotary tables broadcast over the batch (under a plan
+        a plain (B, S) would make the whole batch's on every device)."""
+        return torch.arange(S, device=self.device)[None]
 
     def _repeat_fwd(self, p, x: torch.Tensor, positions: torch.Tensor, pattern: str):
         """One repeat of the hybrid pattern (or the tail's units)."""
@@ -330,7 +403,7 @@ class LM(nn.Module):
         if embeds is not None:
             x = torch.cat([embeds.to(device=self.device, dtype=x.dtype), x], dim=1)
         B, S, _ = x.shape
-        positions = self._positions(B, S)
+        positions = self._positions(S)
         aux = torch.zeros((), dtype=F32, device=self.device)
         if self.cfg.family == "hybrid":
             body = maybe_remat(self._repeat_fwd, remat_policy(self))
@@ -349,37 +422,7 @@ class LM(nn.Module):
 
     # ---------------------------------------------------------- decode ----
     def cache_specs(self, B: int, cache_len: int) -> dict:
-        """The decode cache: (L, B, cache_len, K, hd) K and V for the dense
-        and MoE families; for the ssm family O(1) states, whatever
-        ``cache_len``; for the hybrid family O(1) states and a window of at
-        most ``local_window`` positions."""
-        cfg = self.cfg
-        if cfg.family == "hybrid":
-            return _hybrid_stacks(cfg, lambda kind: self._unit_cache_spec(kind, B, cache_len))
-        if cfg.family == "ssm":
-            st = {"state": ParamSpec((B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-                                     ("batch", "heads_cache", None, None),
-                                     dtype="float32", init="zeros"),
-                  "conv": ParamSpec((B, cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state),
-                                    ("batch", None, "inner"), dtype=cfg.dtype,
-                                    init="zeros")}
-            return {"blocks": stack_specs(st, cfg.n_layers)}
-        kv = ParamSpec((B, cache_len, cfg.n_kv_heads, cfg.head_dim),
-                       ("batch", "kv_len", "kv_heads_cache", None),
-                       dtype=cfg.dtype, init="zeros")
-        return {"blocks": stack_specs({"k": kv, "v": kv}, cfg.n_layers)}
-
-    def _unit_cache_spec(self, kind: str, B: int, cache_len: int) -> dict:
-        cfg = self.cfg
-        if kind == "R":
-            return {"h": ParamSpec((B, cfg.d_rnn), ("batch", "rnn"), dtype="float32",
-                                   init="zeros"),
-                    "conv": ParamSpec((B, cfg.conv_width - 1, cfg.d_rnn),
-                                      ("batch", None, "rnn"), dtype=cfg.dtype, init="zeros")}
-        kv = ParamSpec((B, min(cfg.local_window, cache_len), cfg.n_kv_heads, cfg.head_dim),
-                       ("batch", "kv_len", "kv_heads_cache", None), dtype=cfg.dtype,
-                       init="zeros")
-        return {"k": kv, "v": kv}
+        return lm_cache_specs(self.cfg, B, cache_len)
 
     def _unit_decode(self, p, c: Dict, i: int, x: torch.Tensor, index, kind: str):
         """One hybrid unit at one token; its cache ``c`` (the stacked
@@ -388,17 +431,17 @@ class LM(nn.Module):
         xin = rms_norm(x, p.ln1, cfg.norm_eps)
         if kind == "R":
             h, hs, conv = rglru_decode_step(p.temporal, cfg, xin, c["h"][i], c["conv"][i])
-            c["h"][i].copy_(hs)
-            c["conv"][i].copy_(conv)
+            copy_into(c["h"][i], hs)
+            copy_into(c["conv"][i], conv)
         else:
             # the rotating window: position p at slot p mod wlen
             ck, cv = c["k"][i], c["v"][i]
             B, wlen = x.shape[0], ck.shape[1]
             H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
             positions = per_seq_positions(index, B, x.device)
-            q = rotary((xin @ p.temporal.w_q).reshape(B, 1, H, hd), positions, cfg.rope_theta)
-            k = rotary((xin @ p.temporal.w_k).reshape(B, 1, K, hd), positions, cfg.rope_theta)
-            v = (xin @ p.temporal.w_v).reshape(B, 1, K, hd)
+            q = rotary(split_heads(xin @ p.temporal.w_q, H, hd), positions, cfg.rope_theta)
+            k = rotary(split_heads(xin @ p.temporal.w_k, K, hd), positions, cfg.rope_theta)
+            v = split_heads(xin @ p.temporal.w_v, K, hd)
             if isinstance(index, int):
                 slot, n_valid = index % wlen, min(index + 1, wlen)
             else:
@@ -407,18 +450,18 @@ class LM(nn.Module):
             cache_insert(ck, k, slot)
             cache_insert(cv, v, slot)
             out = flash_decode(q, ck, cv, n_valid, scale=hd ** -0.5)
-            h = out.reshape(B, 1, -1) @ p.temporal.w_o
-        x = x + h
-        return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act)
+            h = merge_heads(out) @ p.temporal.w_o
+        x = constrain(x + h, ACT)
+        return constrain(x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.act), ACT)
 
     def _block_decode(self, p, cache_k: torch.Tensor, cache_v: torch.Tensor,
                       x: torch.Tensor, index) -> torch.Tensor:
         cfg = self.cfg
         h, _, _ = attention_decode(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
                                    cache_k, cache_v, index)
-        x = x + h
+        x = constrain(x + h, ACT)
         y, _ = self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))
-        return x + y
+        return constrain(x + y, ACT)
 
     def decode_step(self, cache: Dict, token: torch.Tensor, index):
         """token (B, 1) int; index an int position or (B,) per-sequence
@@ -436,7 +479,7 @@ class LM(nn.Module):
                 h, _, _ = ssm_decode_step(p.ssm, self.cfg,
                                           rms_norm(x, p.ln, self.cfg.norm_eps),
                                           st[i], conv[i])
-                x = x + h
+                x = constrain(x + h, ACT)
             return self.logits(x), cache
         index = _as_index(index)
         ck, cv = cache["blocks"]["k"], cache["blocks"]["v"]
@@ -466,28 +509,29 @@ class LM(nn.Module):
             for p in self.blocks:
                 h, st, conv = ssm_block(p.ssm, cfg, rms_norm(x, p.ln, cfg.norm_eps),
                                         return_cache=True)
-                x = x + h
+                x = constrain(x + h, ACT)
                 states.append(st)
                 convs.append(conv)
             return self.logits(x[:, -1:]), {"blocks": {"state": torch.stack(states),
                                                        "conv": torch.stack(convs)}}
-        positions = self._positions(B, S)
+        positions = self._positions(S)
         shape = (cfg.n_layers, B, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        ck = torch.zeros(shape, dtype=x.dtype, device=self.device)
-        cv = torch.zeros(shape, dtype=x.dtype, device=self.device)
+        names = ("layers", "batch", "kv_len", "kv_heads_cache", None)
+        ck = zeros(shape, names, x.dtype, self.device, like=x)
+        cv = zeros(shape, names, x.dtype, self.device, like=x)
         for i, p in enumerate(self.blocks):
             xin = rms_norm(x, p.ln1, cfg.norm_eps)
             if cfg.fused_prefill_kv:
                 h, (k, v) = attention(p.attn, cfg, xin, positions, return_kv=True)
-                x = x + h
-                x = x + self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))[0]
-                ck[i, :, :S] = k
-                cv[i, :, :S] = v
+                x = constrain(x + h, ACT)
+                x = constrain(x + self._ffn(p, rms_norm(x, p.ln2, cfg.norm_eps))[0], ACT)
+                _write_prefix(ck[i], k)
+                _write_prefix(cv[i], v)
             else:
                 k, v = prefill_kv(p.attn, cfg, xin, positions, cache_len)
                 x, _ = self._block_fwd(p, x, positions)
-                ck[i].copy_(k)
-                cv[i].copy_(v)
+                copy_into(ck[i], k)
+                copy_into(cv[i], v)
         return self.logits(x[:, -1:]), {"blocks": {"k": ck, "v": cv}}
 
     def _hybrid_prefill(self, x: torch.Tensor, cache_len: int):
@@ -500,19 +544,18 @@ class LM(nn.Module):
         least that long)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        positions = self._positions(B, S)
+        positions = self._positions(S)
         wlen = min(cfg.local_window, cache_len)
-        cache = init_params(self.cache_specs(B, cache_len), None, device=self.device)
-        keep = torch.arange(max(S - wlen, 0), S, device=self.device)
+        cache = map_specs(lambda s: zeros(s.shape, s.axes, DTYPES[s.dtype], self.device,
+                                          like=x), self.cache_specs(B, cache_len))
         for where, i, key, kind, p in self._units():
             x, state = self._apply_unit(p, x, positions, kind, window=wlen,
                                         return_cache=True)
             c = cache[where][key]
             if kind == "R":
-                c["h"][i].copy_(state[0])
-                c["conv"][i].copy_(state[1])
+                copy_into(c["h"][i], state[0])
+                copy_into(c["conv"][i], state[1])
             else:
-                k, v = state
-                c["k"][i][:, keep % wlen] = k[:, keep]
-                c["v"][i][:, keep % wlen] = v[:, keep]
+                _write_window(c["k"][i], state[0], wlen)
+                _write_window(c["v"][i], state[1], wlen)
         return self.logits(x[:, -1:]), cache

@@ -11,8 +11,28 @@ package runs the expert GEMMs as three einsums, the port runs the
 `moe_gemm` kernel, which computes the same function and keeps g and u in
 fp32 where the JAX model rounds them to the working dtype first.
 
-One dispatch takes all the tokens of a call (the JAX ``gspmd`` mode; its
-``local`` mode needs a data-parallel mesh).  Nothing here syncs with the
+On plain tensors one dispatch takes all the tokens of a call, whatever
+``moe_dispatch``: the JAX ``local`` mode falls back to its one global
+dispatch too where no plan shards the batch.
+
+On DTensors (a sharded step under a plan, `models.spmd`) the dispatch and
+the combine run per device on its own tokens and the expert GEMM per
+device on its own experts, with the layouts of expert parallelism in
+between.  In the ``gspmd`` mode each device's tokens (split further over
+the mesh dims that shard the experts, where they divide) fill a buffer
+that an all-to-all hands to the experts' devices and another brings back;
+the capacity is then a device's (``capacity(cfg, T_device)``), where
+GSPMD's global capacity would need a prefix sum across devices, and the
+load-balancing loss is the global one, from the devices' router
+statistics averaged.  ``moe_dispatch="local"`` is the JAX ``_moe_local``:
+the tokens stay where the batch's data-parallel sharding puts them, each
+data-parallel group dispatches its own (T/dp) tokens into its own buffer
+of capacity ``capacity(cfg, T/dp)``, that buffer is sliced by expert on
+each device of the group (no all-to-all) and the outputs are gathered
+back; the loss is the mean of the groups'.  The GEMM runs every row of
+those buffers (their rows past a count are zeros, which give zeros).
+
+Nothing here syncs with the
 host: the counts stay on the device, scatters take a clipped slot and a
 source zeroed by ``keep`` instead of a boolean mask, and the combine adds
 each token's k contributions in a fixed order (ascending expert id, the
@@ -35,13 +55,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from types import SimpleNamespace
 from typing import Callable, Iterator, List, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.moe_gemm.ops import moe_gemm
+from ..train.sharding import relayout
 from .config import ModelConfig
 from .params import ParamSpec
+from .spmd import is_dtensor, kernel_call, layout, run_local, shard_dims
 
 F32 = torch.float32
 
@@ -70,7 +94,9 @@ class Dispatch:
     and ``slot`` (T, k) (row of the flattened (E * C) buffer; clipped to
     the expert's last row where dropped).  ``counts`` (E,) int32 counts
     every pick, dropped ones too; ``grouped`` is the (E, C, d) buffer;
-    ``aux`` the load-balancing loss (fp32 scalar)."""
+    ``aux`` the load-balancing loss (fp32 scalar), ``router_aux_coef * E``
+    times the sum of ``me * ce``: each expert's mean router probability
+    and its share of the picks, (E,) fp32 each."""
     expert_ids: torch.Tensor
     gates: torch.Tensor
     keep: torch.Tensor
@@ -78,6 +104,8 @@ class Dispatch:
     counts: torch.Tensor
     grouped: torch.Tensor
     aux: torch.Tensor
+    me: torch.Tensor
+    ce: torch.Tensor
 
 
 _observers: List[Callable] = []
@@ -151,7 +179,7 @@ def dispatch(p, cfg: ModelConfig, xt: torch.Tensor) -> Dispatch:
     slot[order] = slot_s
     return Dispatch(expert_ids=ids, gates=gates, keep=keep.view(T, k),
                     slot=slot.view(T, k), counts=counts,
-                    grouped=buf.view(E, C, d), aux=aux)
+                    grouped=buf.view(E, C, d), aux=aux, me=me, ce=ce)
 
 
 def combine(y: torch.Tensor, disp: Dispatch) -> torch.Tensor:
@@ -169,13 +197,75 @@ def combine(y: torch.Tensor, disp: Dispatch) -> torch.Tensor:
     return out
 
 
-def moe(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux loss).  All B * S tokens go
-    through one dispatch."""
-    B, S, d = x.shape
-    xt = x.reshape(B * S, d)
+def _moe_tokens(p, cfg: ModelConfig, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dispatch of the tokens xt (T, d): (out (T, d), aux)."""
     disp = dispatch(p, cfg, xt)
     for fn in _observers:
         fn(p, xt, disp)
     y = moe_gemm(disp.grouped, p.w_gate, p.w_up, p.w_down, disp.counts)
-    return combine(y, disp).reshape(B, S, d), disp.aux
+    return combine(y, disp), disp.aux
+
+
+def moe(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux loss).  All B * S tokens go
+    through one dispatch; on DTensors one a device (``gspmd``) or a
+    data-parallel group (``local``)."""
+    B, S, d = x.shape
+    if is_dtensor(x):
+        return _moe_sharded(p, cfg, x)
+    out, aux = _moe_tokens(p, cfg, x.reshape(B * S, d))
+    return out.reshape(B, S, d), aux
+
+
+def _moe_sharded(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe` on DTensors: dispatch and combine per device, the expert GEMM
+    per device on its experts, and the all-to-alls of expert parallelism
+    between them (see the module's docstring)."""
+    mesh = x.device_mesh
+    d, E = x.shape[-1], cfg.n_experts
+    tok = {i: 0 for i in shard_dims(x, 0)}
+    tok.update({i: 1 for i in shard_dims(x, 1)})
+    ep = shard_dims(p.w_gate, 0)
+    if cfg.moe_dispatch != "local":  # split the tokens over the expert dims too
+        for i in ep:
+            if i in tok:
+                continue
+            n_b = x.shape[0] // int(np.prod([mesh.size(j) for j, t in tok.items() if t == 0]))
+            n_s = x.shape[1] // int(np.prod([mesh.size(j) for j, t in tok.items() if t == 1]))
+            if n_b % mesh.size(i) == 0:
+                tok[i] = 0
+            elif n_s % mesh.size(i) == 0:
+                tok[i] = 1
+    xpl = layout(mesh.ndim, tok)
+    bpl = layout(mesh.ndim, {i: 1 for i in tok})      # the buffer: tokens' slots
+    gpl = layout(mesh.ndim, {**{i: 1 for i in tok}, **{i: 0 for i in ep}})
+    wpl = layout(mesh.ndim, {i: 0 for i in ep})
+    state = {}
+
+    def route(xl, w_router):
+        xt = xl.reshape(-1, d)
+        disp = dispatch(SimpleNamespace(w_router=w_router), cfg, xt)
+        for fn in _observers:
+            fn(p, xt, disp)
+        state.update(disp=disp, shape=xl.shape)
+        return disp.grouped, disp.aux.reshape(1), disp.me[None], disp.ce[None]
+
+    per_device = layout(mesh.ndim, {i: 0 for i in tok})
+    grouped, aux, me, ce = run_local(route, (x, p.w_router), (xpl, layout(mesh.ndim, {})),
+                                     (bpl, per_device, per_device, per_device), mesh)
+    if cfg.moe_dispatch != "local":  # the loss over all the tokens, as one dispatch's
+        aux = cfg.router_aux_coef * E * torch.sum(me.mean(0) * ce.mean(0))
+
+    def experts(g, wg, wu, wd):
+        full = torch.full((g.shape[0],), g.shape[1], dtype=torch.int32, device=g.device)
+        E_l, C, dl = g.shape
+        return kernel_call(moe_gemm, (g, wg, wu, wd, full), [(g.shape, g.dtype)],
+                           6.0 * E_l * C * dl * wg.shape[-1])
+
+    y = run_local(experts, (grouped, p.w_gate, p.w_up, p.w_down),
+                  (gpl, wpl, wpl, wpl), gpl, mesh)
+    out = run_local(lambda yl: combine(yl, state["disp"]).reshape(state["shape"]),
+                    (y,), (bpl,), xpl, mesh)
+    # back to the tokens' own layout, the gradient too
+    return relayout(out, mesh, tuple(x.placements)), aux.mean()
+

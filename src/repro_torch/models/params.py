@@ -2,8 +2,8 @@
 
 Models declare parameters as nested dicts of `ParamSpec`; the same
 declaration gives the shapes, the initialisation and the parameter
-count.  The sharding helpers (`partition_specs`, `named_shardings`) wait
-for ROADMAP A13.
+count.  The logical axis names resolve to mesh axes in
+`train.sharding` (`resolve_specs`, `placements`).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from ..device import DeviceLike, resolve_device
 
 LogicalAxes = Tuple[Optional[str], ...]
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int32": torch.int32}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,11 +17,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..train.sharding import constrain
 from .config import ModelConfig
 from .params import ParamSpec
+from .spmd import along_sequence, pad
 
 F32 = torch.float32
-_C = 8.0  # Griffin's fixed recurrence sharpness constant
+_C = 8.0
+GATE = ("act_batch", "act_seq", "act_ff")  # Griffin's fixed recurrence sharpness constant
 
 
 def rglru_specs(cfg: ModelConfig) -> dict:
@@ -44,7 +47,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     """Depthwise causal convolution along the sequence: x (B, S, dr), w
     (W, dr), b (dr,)."""
     W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = pad(x, (0, 0, W - 1, 0))
     out = xp[:, 0:S] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + S] * w[i]
@@ -53,8 +56,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 def _gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence's fp32 decay a and input b for the conv output u."""
-    r = torch.sigmoid((u @ p.w_a).float() + p.b_a)
-    i = torch.sigmoid((u @ p.w_i).float() + p.b_i)
+    # the products' partial sums reduced onto the channels (under a plan)
+    r = torch.sigmoid(constrain(u @ p.w_a, GATE).float() + p.b_a)
+    i = torch.sigmoid(constrain(u @ p.w_i, GATE).float() + p.b_i)
     log_a = -_C * F.softplus(p.lam) * r                  # (B, S, dr) <= 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0))
@@ -88,12 +92,12 @@ def rglru_block(p, cfg: ModelConfig, x: torch.Tensor, return_cache: bool = False
     u = _causal_conv(ux, p.conv_w, p.conv_b)
     y = F.gelu((x @ p.w_y).float(), approximate="tanh")
     a, b = _gates(p, u)
-    h = rglru_scan(a, b)
+    h = along_sequence(rglru_scan, a, b)
     out = (h * y).to(x.dtype) @ p.w_o
     if not return_cache:
         return out
     W = p.conv_w.shape[0]
-    conv = F.pad(ux, (0, 0, W - 1, 0))[:, ux.shape[1]:]
+    conv = pad(ux, (0, 0, W - 1, 0))[:, ux.shape[1]:]
     return out, h[:, -1], conv
 
 

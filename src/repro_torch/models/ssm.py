@@ -19,10 +19,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
 from .layers import rms_norm
+from ..train.sharding import constrain
 from .params import ParamSpec
+from .spmd import pad, ssd_scan, state_readout
 
 F32 = torch.float32
 
@@ -52,7 +53,7 @@ def ssm_specs(cfg: ModelConfig) -> dict:
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x (B, S, C), w (W, C), b (C,)."""
     W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = pad(x, (0, 0, W - 1, 0))
     out = xp[:, 0:S] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + S] * w[i]
@@ -81,7 +82,9 @@ def ssm_output(p, cfg: ModelConfig, z: torch.Tensor, xs: torch.Tensor,
     Bsz, S = y.shape[:2]
     y = y + p.D[:, None] * xs.float()
     y = y.reshape(Bsz, S, cfg.d_inner).to(z.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm, cfg.norm_eps)
+    # the norm's width whole on each device (under a plan)
+    y = constrain(y * F.silu(z.float()).to(z.dtype), ("act_batch", "act_seq", None))
+    y = rms_norm(y, p.norm, cfg.norm_eps)
     return y @ p.w_out
 
 
@@ -91,7 +94,7 @@ def conv_tail(xbc: torch.Tensor, conv_width: int) -> torch.Tensor:
     conv cache after stepping through the same tokens."""
     keep = conv_width - 1
     tail = xbc[:, max(xbc.shape[1] - keep, 0):]
-    return F.pad(tail, (0, 0, keep - tail.shape[1], 0))
+    return pad(tail, (0, 0, keep - tail.shape[1], 0))
 
 
 def ssm_block(p, cfg: ModelConfig, x: torch.Tensor, *, return_cache: bool = False):
@@ -99,8 +102,8 @@ def ssm_block(p, cfg: ModelConfig, x: torch.Tensor, *, return_cache: bool = Fals
     ``return_cache`` also the final state (B, H, P, N) fp32 and the conv
     tail (B, conv_width - 1, d_inner + 2N)."""
     z, xbc, xs, dt, A, Bm, Cm = ssm_inputs(p, cfg, x)
-    y, state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm,
-                                chunk=min(cfg.ssm_chunk, x.shape[1]))
+    y, state = ssd_scan(xs, dt, A, Bm, Cm,
+                        chunk=min(cfg.ssm_chunk, x.shape[1]))
     out = ssm_output(p, cfg, z, xs, y)
     if not return_cache:
         return out
@@ -130,7 +133,7 @@ def ssm_decode_step(p, cfg: ModelConfig, x: torch.Tensor, state: torch.Tensor,
     decay = torch.exp(dt * A)                              # (B, H)
     state.mul_(decay[..., None, None]).add_(
         (dt[..., None] * xs)[..., None] * Bv[:, None, None, :])
-    y = (state @ Cv[:, None, :, None])[..., 0]             # (B, H, P)
+    y = state_readout(state, Cv)                           # (B, H, P)
     y = y + p.D[:, None] * xs
     y = y.reshape(Bsz, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.norm, cfg.norm_eps)

@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..models.params import DTYPES, tree_leaves, tree_map
+from ..models.params import DTYPES, ParamSpec, map_specs, tree_leaves, tree_map
 
 F32 = torch.float32
 
@@ -40,15 +40,30 @@ class AdamWConfig:
                                      # (masters always fp32)
 
 
+def adamw_init_specs(model_specs, state_dtype: str = "float32") -> Dict:
+    """The state's `ParamSpec` tree (the JAX package's): the moments in
+    ``state_dtype`` and the fp32 masters under the parameters' logical
+    axes, and the int32 step."""
+    def moment_like(s: ParamSpec) -> ParamSpec:
+        return dataclasses.replace(s, dtype=state_dtype, init="zeros")
+
+    return {"mu": map_specs(moment_like, model_specs),
+            "nu": map_specs(moment_like, model_specs),
+            "master": map_specs(lambda s: dataclasses.replace(s, dtype="float32"),
+                                model_specs),
+            "step": ParamSpec((), (), dtype="int32", init="zeros")}
+
+
 def adamw_init(params, state_dtype: str = "float32") -> Dict:
     """Zero moments in ``state_dtype``, fp32 masters copied from
     ``params``, step 0."""
     dt = DTYPES[state_dtype]
     step_dev = tree_leaves(params)[0].device
-    return {"mu": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                           params),
-            "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                           params),
+    def zeros(p):  # a DTensor's moments laid out as the DTensor
+        return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
+
+    return {"mu": tree_map(zeros, params),
+            "nu": tree_map(zeros, params),
             "master": tree_map(lambda p: p.detach().to(F32, copy=True), params),
             "step": torch.zeros((), dtype=torch.int32, device=step_dev)}
 

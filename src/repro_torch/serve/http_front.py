@@ -101,10 +101,11 @@ def _json_default(obj):
 class _Pending:
     """One queued cutout awaiting its (possibly shared) response."""
 
-    __slots__ = ("request", "response", "done")
+    __slots__ = ("request", "expires", "response", "done")
 
     def __init__(self, request: Request):
         self.request = request
+        self.expires = deadline.expiry()  # the budget its admission opened
         self.response: Optional[Response] = None
         self.done = threading.Event()
 
@@ -160,6 +161,17 @@ class _CutoutCoalescer:
         item.done.wait()
         return item.response
 
+    def _serve(self, item: _Pending) -> Response:
+        # Each request runs under the deadline its own admission opened,
+        # on whichever thread runs it: the leader's budget is its own
+        # request's, and runs out while it drains the others'; a batch
+        # pool thread has none.  A failure answers its own request only.
+        with deadline.adopt(item.expires):
+            try:
+                return get_cutout(self._service, item.request)
+            except Exception as e:
+                return _error(500, f"batch execution failed: {e}")
+
     def _drain(self, dataset: str, cluster) -> None:
         while True:
             with self._lock:
@@ -180,9 +192,7 @@ class _CutoutCoalescer:
             self.deduped += len(batch) - len(groups)
             reps = [items[0] for items in groups.values()]
             try:
-                jobs = [
-                    functools.partial(get_cutout, self._service, rep.request) for rep in reps
-                ]
+                jobs = [functools.partial(self._serve, rep) for rep in reps]
                 results = cluster.run_batch(jobs) if len(jobs) > 1 else [jobs[0]()]
             except Exception as e:  # a handler bug must not strand waiters
                 results = [_error(500, f"batch execution failed: {e}")] * len(reps)

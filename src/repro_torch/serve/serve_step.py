@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 
 from ..models.config import ModelConfig
+from ..train.sharding import constrain
 
 
 def make_serve_step(model, cfg: ModelConfig):
@@ -15,7 +16,9 @@ def make_serve_step(model, cfg: ModelConfig):
         Returns (next_token (B, 1) int32, logits (B, 1, V), cache), the
         cache updated in place."""
         logits, cache = model.decode_step(cache, token, index)
-        nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        # the vocab whole on each device for the argmax (under a plan)
+        last = constrain(logits[:, -1:], ("act_batch", None, None))
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt, logits, cache
 
     return serve_step

@@ -17,11 +17,11 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..models.config import ModelConfig
 from ..models.params import tree_leaves, tree_map
+from ..models.spmd import label_logprob, logsumexp
 from ..optim import (AdamWConfig, adamw_update, compress_grads,
                      decompress_grads)
 
@@ -53,10 +53,9 @@ def loss_fn(model, batch: Dict, cfg: ModelConfig, loss_impl: str = "gather"):
     logits = logits.to(F32)
     mask = (labels >= 0).to(F32)
     if loss_impl == "gather":
-        logp = F.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+        ll = label_logprob(logits, labels)
     elif loss_impl == "onehot":
-        lse = torch.logsumexp(logits, dim=-1)
+        lse = logsumexp(logits)
         vocab = torch.arange(logits.shape[-1], device=logits.device)
         onehot = (labels.long()[..., None] == vocab).to(logits.dtype)
         ll = torch.einsum("bsv,bsv->bs", logits, onehot) - lse
@@ -92,8 +91,7 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
     def accumulate(batch):
         micro = {k: v.reshape(n_microbatches, -1, *v.shape[1:])
                  for k, v in batch.items()}
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device),
-                       params)
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
         loss_sum = 0.0
         for i in range(n_microbatches):
             loss, _, grads = loss_and_grads(model, {k: v[i] for k, v in micro.items()},

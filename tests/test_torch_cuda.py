@@ -938,6 +938,68 @@ def test_moe_smoke_model_serves_the_same_tokens_on_card_and_cpu(cuda):
 
 
 
+def test_arctic_smoke_model_serves_and_trains_alike_on_card_and_cpu(cuda):
+    """arctic-480b's 2-layer smoke model in fp32 (8 experts top-2 beside the
+    dense residual MLP): the same greedy tokens on the card and the CPU,
+    and 3 train steps whose losses agree within rtol 1e-4."""
+    from repro_torch.carry import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    from repro_torch.train import make_train_step
+
+    cfg = get_smoke_config("arctic-480b").scaled(dtype="float32")
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = lm_params_from_numpy(cfg, lm_params_to_numpy(cpu), cuda)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(3, 20)).astype(np.int32))
+    served, losses = {}, {}
+    before = mg_ops.launches
+    for model in (cpu, card):
+        lg, cache = make_prefill_step(model, cfg)(tok.to(model.device), cache_len=32)
+        nxt = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        step, out = make_serve_step(model, cfg), [nxt.cpu()]
+        for i in range(10):
+            nxt, _, cache = step(cache, nxt, 20 + i)
+            out.append(nxt.cpu())
+        served[model.device.type] = torch.cat(out, 1)
+        opt = adamw_init(model.param_tree())
+        train = make_train_step(model, cfg, AdamWConfig(lr_peak=1e-3, warmup_steps=1))
+        runs = losses[model.device.type] = []
+        for s in range(3):
+            b = np.random.default_rng(10 + s).integers(0, cfg.vocab, size=(4, 17))
+            batch = {"tokens": torch.from_numpy(b[:, :-1]).to(model.device),
+                     "labels": torch.from_numpy(b[:, 1:]).to(model.device)}
+            opt, m = train(opt, batch)
+            runs.append(float(m["loss"]))
+    assert mg_ops.launches >= before + cfg.n_layers * 11
+    assert torch.equal(served["cuda"], served["cpu"])
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_moe_gemm_at_arctic_width_on_an_expert_slice(cuda):
+    """arctic's experts (E 128, d 7,168, f 4,864) in bf16: the kernel over
+    all 128 against the plain version on 8 of them (each expert is computed
+    on its own, so the slice is exact), counts 0 and C among the slice."""
+    E, C, d, f = 128, 64, 7168, 4864
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    counts = torch.randint(0, C + 1, (E,), generator=gen, device=cuda, dtype=torch.int32)
+    counts[:2] = torch.tensor([0, C], dtype=torch.int32, device=cuda)
+    x = (_randn(gen, (E, C, d), torch.float32, cuda)
+         * (torch.arange(C, device=cuda)[None, :] < counts[:, None])[..., None]).bfloat16()
+    w = []
+    for shape in ((E, d, f), (E, d, f), (E, f, d)):
+        t = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+        for m in t:
+            m.copy_(_randn(gen, shape[1:], torch.float32, cuda) * shape[1] ** -0.5)
+        w.append(t)
+    got = mg_ops.moe_gemm(x, *w, counts)
+    idx = torch.tensor([0, 1, 5, 31, 64, 90, 100, 127], device=cuda)
+    want = moe_gemm_ref(*(t.index_select(0, idx) for t in [x] + w + [counts]))
+    torch.testing.assert_close(got.index_select(0, idx), want, **moe_tol(want))
+    assert not bool(got[0].any())
+
 @pytest.mark.parametrize("case", ["zero_token", "equal_columns"])
 def test_moe_router_breaks_ties_by_lower_expert_id_on_the_card(cuda, case):
     """CUDA's sort is another code path than the CPU's: among equal router

@@ -8,6 +8,7 @@ sheds with 503 while the control plane answers, ``DELETE /nodes/<i>``
 under readers loses no read, and `RetryingClient` retries the 503s.  The
 port's witness is on for every test (`torch_witness`).
 """
+import collections
 import json
 import threading
 import time
@@ -30,7 +31,7 @@ from repro_torch.core.annotations import AnnotationProject
 from repro_torch.core.cuboid import DatasetSpec
 from repro_torch.core.cutout import ingest
 from repro_torch.core.store import DeviceCuboidStore
-from repro_torch.serve import FrontDoor, RetryingClient
+from repro_torch.serve import FrontDoor, RetryingClient, http_front
 
 
 def http(method, url, body=None, headers=None):
@@ -226,6 +227,106 @@ def test_identical_concurrent_cutouts_coalesce():
         counters = door.counters()
         assert counters["batches"] >= 1
         assert counters["coalesced"] + counters["deduped"] > 0, counters
+    store.backing.close()
+
+
+@pytest.mark.parametrize("followers", [1, 2])
+def test_coalesced_cutouts_run_under_their_own_deadlines(monkeypatch, followers):
+    """A leader that drains past its own deadline serves the requests queued
+    behind it under theirs: one alone runs inline on the leader's thread,
+    two run on the cluster's batch pool.  With the leader's budget each
+    cold read would be cut to a millisecond a node and fail with 500."""
+    base = volume(seed=5)
+    spec = DatasetSpec(**spec_kw("web"))
+    store = DeviceCuboidStore(spec, device="cpu",
+                              backing=ClusterStore(spec, n_nodes=2, replication=2))
+    ingest(store, 0, base)
+    service = VolumeService()
+    service.add_dataset("web", DeviceCuboidStore(spec, device="cpu", backing=store.backing))
+    boxes = [((0, 0, 0), (8, 8, 4)), ((16, 16, 8), (32, 32, 16)), ((0, 16, 0), (16, 32, 8))]
+    entered, release, seen = threading.Event(), threading.Event(), {}
+    real = http_front.get_cutout
+
+    def get_cutout(svc, request):
+        lo = tuple(request["lo"])
+        if lo == boxes[0][0]:  # the leader: done, then held past its deadline
+            resp = real(svc, request)
+            seen["leader_expires"] = deadline.expiry()
+            entered.set()
+            release.wait(timeout=30)
+            seen[lo] = deadline.remaining()
+            return resp
+        seen[lo] = deadline.remaining()
+        return real(svc, request)
+
+    monkeypatch.setattr(http_front, "get_cutout", get_cutout)
+    with FrontDoor(service, deadline_ms=1000) as door:
+        results = {}
+
+        def fetch(lo, hi):
+            results[lo] = http("GET", box_url(door.url, lo, hi))
+
+        threads = [threading.Thread(target=fetch, args=boxes[0])]
+        threads[0].start()
+        assert entered.wait(timeout=30)
+        expires = seen["leader_expires"]
+        time.sleep(max(0.0, expires - 0.5 - time.monotonic()))
+        for lo, hi in boxes[1:1 + followers]:
+            threads.append(threading.Thread(target=fetch, args=(lo, hi)))
+            threads[-1].start()
+        t_end = time.monotonic() + 30
+        while len(door.coalescer._queues.get("web", ())) < followers:
+            assert time.monotonic() < t_end
+            time.sleep(0.005)
+        time.sleep(max(0.0, expires + 0.02 - time.monotonic()))
+        release.set()
+        for t in threads:
+            t.join(timeout=60)
+    assert seen[boxes[0][0]] == 0.0  # the leader's own budget was spent
+    for lo, hi in boxes[:1 + followers]:
+        status, headers, payload = results[lo]
+        assert status == 200, payload
+        box = tuple(slice(a, b) for a, b in zip(lo, hi))
+        np.testing.assert_array_equal(
+            np.frombuffer(payload, np.uint8).reshape(base[box].shape), base[box])
+        if lo != boxes[0][0]:
+            assert seen[lo] is not None and 0.0 < seen[lo] <= 1.0, seen
+    store.backing.close()
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_a_failed_cutout_fails_only_its_own_request(monkeypatch, n):
+    """One request of a drained batch that raises answers 500 alone; the
+    others of its batch (run on the batch pool) are served."""
+    base = volume(seed=6)
+    spec = DatasetSpec(**spec_kw("web"))
+    store = DeviceCuboidStore(spec, device="cpu",
+                              backing=ClusterStore(spec, n_nodes=2, replication=2))
+    ingest(store, 0, base)
+    service = VolumeService()
+    service.add_dataset("web", store)
+    real = http_front.get_cutout
+
+    def get_cutout(svc, request):
+        if request["lo"] == [0, 0, 0]:
+            raise TimeoutError("node 0 op exceeded the deadline budget")
+        return real(svc, request)
+
+    monkeypatch.setattr(http_front, "get_cutout", get_cutout)
+    boxes = [([0, 0, 0], [8, 8, 4]), ([8, 8, 4], [24, 24, 12]), ([0, 8, 0], [8, 32, 16])][:n]
+    items = [http_front._Pending(dict(dataset="web", resolution=0, lo=lo, hi=hi))
+             for lo, hi in boxes]
+    coalescer = http_front._CutoutCoalescer(service)
+    coalescer._queues["web"] = collections.deque(items)
+    coalescer._busy.add("web")
+    coalescer._drain("web", store.backing)
+    assert items[0].response["status"] == 500
+    assert "exceeded the deadline budget" in items[0].response["error"]
+    for item, (lo, hi) in zip(items[1:], boxes[1:]):
+        box = tuple(slice(a, b) for a, b in zip(lo, hi))
+        assert item.response.get("status", 200) == 200, item.response
+        np.testing.assert_array_equal(
+            np.frombuffer(item.response["data"], np.uint8).reshape(base[box].shape), base[box])
     store.backing.close()
 
 

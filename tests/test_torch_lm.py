@@ -122,21 +122,22 @@ def test_specs_and_counts_match_jax():
         if arch not in SMOKE_WIDTHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_config(arch)
-    # llama3-405b and internvl2-76b: their smoke configs run, the full
-    # models stay with A13
-    from repro_torch.configs import internvl2_76b, llama3_405b
+    # llama3-405b, internvl2-76b and arctic-480b: their smoke configs run,
+    # the full models only in the dry run (A13), which reads them abstractly
+    from repro_torch.configs import arctic_480b, internvl2_76b, llama3_405b
     assert port_cfg(j_get_config("llama3_405b")) == llama3_405b.CONFIG
     assert port_cfg(j_get_config("llama3_405b").scaled(**LLAMA3_SMOKE)) == \
         get_smoke_config("llama3-405b")
     assert port_cfg(j_get_config("internvl2_76b")) == internvl2_76b.CONFIG
     assert port_cfg(j_get_smoke_config("internvl2_76b")) == get_smoke_config("internvl2-76b")
-    for arch in ("llama3-405b", "internvl2-76b"):
+    assert port_cfg(j_get_config("arctic_480b")) == arctic_480b.CONFIG
+    assert port_cfg(j_get_smoke_config("arctic_480b")) == get_smoke_config("arctic-480b")
+    for arch in ("llama3-405b", "internvl2-76b", "arctic-480b"):
         with pytest.raises(NotImplementedError, match="does not fit one card.*A13"):
             get_config(arch)
-    for arch in ARCH_IDS:
-        if arch not in SMOKE_WIDTHS and arch not in ("llama3_405b", "internvl2_76b"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_smoke_config(arch)
+        assert port_cfg(j_get_config(arch.replace("-", "_"))) == get_config(arch, abstract=True)
+    for arch in ARCH_IDS:  # every arch has its smoke config in the port
+        assert port_cfg(j_get_smoke_config(arch)) == get_smoke_config(arch)
 
 
 LLAMA3_SMOKE = dict(n_layers=3, d_model=128, n_heads=8, n_kv_heads=2, head_dim=16,
