@@ -25,6 +25,7 @@ from ..core.cuboid import DatasetSpec
 from ..core.cutout import cutout, ingest
 from ..core.store import DeviceCuboidStore
 from ..device import DeviceLike
+from ..obs.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,8 +134,10 @@ class DataPipeline:
 
     def get_batch(self, step: int) -> Dict[str, torch.Tensor]:
         """{"tokens", "labels"}: (rows, seq_len) int32 on the store's
-        device, the labels shifted by one position."""
-        data = self._assemble(self.host_slice(step))
+        device, the labels shifted by one position (the span
+        ``data.get_batch``)."""
+        with span("data.get_batch"):
+            data = self._assemble(self.host_slice(step))
         return {"tokens": data[:, :-1], "labels": data[:, 1:]}
 
     # ---- prefetch (the read path decoupled from the training loop) ------

@@ -21,8 +21,8 @@ import threading
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
+from ...obs.trace import span
 from .. import _build
 from .ref import flash_attention_ref
 
@@ -142,7 +142,7 @@ class FlashAttention(torch.autograd.Function):
     """Attention whose forward is ``forward`` (the CUDA kernel; the tests
     pass the plain version to reach the wiring on the CPU) and whose
     backward is autograd's through `flash_attention_ref`, recomputed from
-    the saved q, k and v (the profiler range ``flash_attention.recompute``).
+    the saved q, k and v (the span ``flash_attention.recompute``).
     The recompute holds the plain version's (B, K, G, Sq, Skv) fp32 scores
     and probabilities for one layer at a time."""
 
@@ -155,7 +155,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        with torch.enable_grad(), record_function("flash_attention.recompute"):
+        with torch.enable_grad(), span("flash_attention.recompute"):
             qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = flash_attention_ref(*qkv, **ctx.attn)
             dq, dk, dv = torch.autograd.grad(out, qkv, dout)

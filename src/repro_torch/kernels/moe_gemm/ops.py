@@ -24,8 +24,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
+from ...obs.trace import span
 from .. import _build
 from .ref import moe_gemm_ref
 
@@ -166,7 +166,7 @@ class MoeGemm(torch.autograd.Function):
     """The expert GEMM whose forward is ``forward`` (the CUDA kernel; the
     tests pass the plain version to reach the wiring on the CPU) and whose
     backward is autograd's through `moe_gemm_ref`, recomputed from the
-    saved x and weights (the profiler range ``moe_gemm.recompute``).  Rows
+    saved x and weights (the span ``moe_gemm.recompute``).  Rows
     at or past ``counts[e]`` get zero gradient (the plain version's
     `where`); ``counts`` gets none."""
 
@@ -177,7 +177,7 @@ class MoeGemm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        with torch.enable_grad(), record_function("moe_gemm.recompute"):
+        with torch.enable_grad(), span("moe_gemm.recompute"):
             *ins, counts = ctx.saved_tensors
             ins = [t.detach().requires_grad_(need)
                    for t, need in zip(ins, ctx.needs_input_grad)]

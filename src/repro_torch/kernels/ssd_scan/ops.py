@@ -22,8 +22,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
+from ...obs.trace import span
 from .. import _build
 from .ref import ssd_scan_ref
 
@@ -177,7 +177,7 @@ class SsdScan(torch.autograd.Function):
     """The scan whose forward is ``forward`` (the CUDA kernel; the tests
     pass the plain version to reach the wiring on the CPU) and whose
     backward is autograd's through `ssd_scan_ref`, recomputed from the
-    saved x, dt, A, B and C (the profiler range ``ssd_scan.recompute``).
+    saved x, dt, A, B and C (the span ``ssd_scan.recompute``).
     x, B and C may be strided views of one tensor (the mixer's conv
     output): they are saved as they are, and autograd adds the three
     gradients into that tensor's.  The final state's cotangent is None
@@ -192,7 +192,7 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        with torch.enable_grad(), record_function("ssd_scan.recompute"):
+        with torch.enable_grad(), span("ssd_scan.recompute"):
             ins = [t.detach().requires_grad_(need)
                    for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
             y, state = ssd_scan_ref(*ins, chunk=ctx.chunk)

@@ -41,7 +41,11 @@ atomic ``index_add_`` would sum bf16 in an order that varies by run.
 
 The router's load-balancing loss is computed on every call, as in the JAX
 package, and the LM discards it outside ``forward``.  Instruments read
-the routing through `observe` (a callback on every dispatch).
+the routing through `observe` (a callback on every dispatch) and, under
+a profiler, the spans (`obs.trace.span`) that each call enters once on
+either path: ``moe.route`` (router, softmax, top-k, the loss),
+``moe.dispatch`` (the sort, the counts, the buffer's scatter),
+``moe.experts`` (the expert GEMM) and ``moe.combine``.
 
 Training differentiates all of it: on the card the expert GEMM through
 `MoeGemm` (the kernel's forward, the plain version's gradient), the
@@ -62,6 +66,7 @@ import numpy as np
 import torch
 
 from ..kernels.moe_gemm.ops import moe_gemm
+from ..obs.trace import span
 from ..train.sharding import relayout
 from .config import ModelConfig
 from .params import ParamSpec
@@ -141,42 +146,44 @@ def dispatch(p, cfg: ModelConfig, xt: torch.Tensor) -> Dispatch:
     C = capacity(cfg, T)
     dev = xt.device
 
-    logits = xt.to(F32) @ p.w_router.to(F32)                     # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, ids = top_k(probs, k)                                 # (T, k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)  # renorm
+    with span("moe.route"):
+        logits = xt.to(F32) @ p.w_router.to(F32)                     # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        gates, ids = top_k(probs, k)                                 # (T, k)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)  # renorm
 
-    # Switch/GShard load-balancing loss
-    me = probs.mean(dim=0)
-    ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
-        0, ids.reshape(-1), torch.full((T * k,), 1.0 / (T * k), device=dev))
-    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+        # Switch/GShard load-balancing loss
+        me = probs.mean(dim=0)
+        ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
+            0, ids.reshape(-1), torch.full((T * k,), 1.0 / (T * k), device=dev))
+        aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
-    # a token's picks in ascending expert id: the stable sort below sees
-    # one pick per (token, expert), so it orders each expert's picks by
-    # token either way, and the combine adds in this order
-    ids, by_id = ids.sort(dim=-1)
-    gates = gates.gather(-1, by_id)
+    with span("moe.dispatch"):
+        # a token's picks in ascending expert id: the stable sort below sees
+        # one pick per (token, expert), so it orders each expert's picks by
+        # token either way, and the combine adds in this order
+        ids, by_id = ids.sort(dim=-1)
+        gates = gates.gather(-1, by_id)
 
-    flat = ids.reshape(T * k)
-    order = torch.argsort(flat, stable=True)
-    sorted_ids = flat[order]
-    counts = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
-        0, sorted_ids, torch.ones(T * k, dtype=torch.int32, device=dev))
-    offsets = torch.cumsum(counts, 0) - counts                  # exclusive
-    pos = torch.arange(T * k, device=dev) - offsets[sorted_ids]
-    keep_s = pos < C
-    slot_s = sorted_ids * C + pos.clamp(0, C - 1)
+        flat = ids.reshape(T * k)
+        order = torch.argsort(flat, stable=True)
+        sorted_ids = flat[order]
+        counts = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
+            0, sorted_ids, torch.ones(T * k, dtype=torch.int32, device=dev))
+        offsets = torch.cumsum(counts, 0) - counts                  # exclusive
+        pos = torch.arange(T * k, device=dev) - offsets[sorted_ids]
+        keep_s = pos < C
+        slot_s = sorted_ids * C + pos.clamp(0, C - 1)
 
-    # a dropped pick adds zeros to its clipped slot, so every slot sums one
-    # value at most, in any order
-    src = xt[order // k] * keep_s[:, None].to(xt.dtype)
-    buf = torch.zeros((E * C, d), dtype=xt.dtype, device=dev).index_add_(0, slot_s, src)
+        # a dropped pick adds zeros to its clipped slot, so every slot sums
+        # one value at most, in any order
+        src = xt[order // k] * keep_s[:, None].to(xt.dtype)
+        buf = torch.zeros((E * C, d), dtype=xt.dtype, device=dev).index_add_(0, slot_s, src)
 
-    keep = torch.empty_like(keep_s)
-    keep[order] = keep_s
-    slot = torch.empty_like(slot_s)
-    slot[order] = slot_s
+        keep = torch.empty_like(keep_s)
+        keep[order] = keep_s
+        slot = torch.empty_like(slot_s)
+        slot[order] = slot_s
     return Dispatch(expert_ids=ids, gates=gates, keep=keep.view(T, k),
                     slot=slot.view(T, k), counts=counts,
                     grouped=buf.view(E, C, d), aux=aux, me=me, ce=ce)
@@ -188,12 +195,13 @@ def combine(y: torch.Tensor, disp: Dispatch) -> torch.Tensor:
     ascending expert id.  Returns (T, d)."""
     T, k = disp.slot.shape
     d = y.shape[-1]
-    picked = y.reshape(-1, d).index_select(0, disp.slot.reshape(-1)).view(T, k, d)
-    w = (disp.gates * disp.keep).to(y.dtype)
-    picked.mul_(w[..., None])
-    out = picked[:, 0]
-    for j in range(1, k):
-        out = out + picked[:, j]
+    with span("moe.combine"):
+        picked = y.reshape(-1, d).index_select(0, disp.slot.reshape(-1)).view(T, k, d)
+        w = (disp.gates * disp.keep).to(y.dtype)
+        picked.mul_(w[..., None])
+        out = picked[:, 0]
+        for j in range(1, k):
+            out = out + picked[:, j]
     return out
 
 
@@ -202,7 +210,8 @@ def _moe_tokens(p, cfg: ModelConfig, xt: torch.Tensor) -> Tuple[torch.Tensor, to
     disp = dispatch(p, cfg, xt)
     for fn in _observers:
         fn(p, xt, disp)
-    y = moe_gemm(disp.grouped, p.w_gate, p.w_up, p.w_down, disp.counts)
+    with span("moe.experts"):
+        y = moe_gemm(disp.grouped, p.w_gate, p.w_up, p.w_down, disp.counts)
     return combine(y, disp), disp.aux
 
 
@@ -259,8 +268,9 @@ def _moe_sharded(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     def experts(g, wg, wu, wd):
         full = torch.full((g.shape[0],), g.shape[1], dtype=torch.int32, device=g.device)
         E_l, C, dl = g.shape
-        return kernel_call(moe_gemm, (g, wg, wu, wd, full), [(g.shape, g.dtype)],
-                           6.0 * E_l * C * dl * wg.shape[-1])
+        with span("moe.experts"):
+            return kernel_call(moe_gemm, (g, wg, wu, wd, full), [(g.shape, g.dtype)],
+                               6.0 * E_l * C * dl * wg.shape[-1])
 
     y = run_local(experts, (grouped, p.w_gate, p.w_up, p.w_down),
                   (gpl, wpl, wpl, wpl), gpl, mesh)

@@ -4,9 +4,14 @@ registry/exposition, and structured logging.
 Host code, as the reference's: the storage stack's spans (``plan``,
 ``assemble``, ``store.fetch``, ``decode``, ``write.*``, ``compact.*``) land
 in the span ring, its compaction and flush durations in the registry's
-histograms.  Settings are arguments, not environment variables:
-`trace.configure` (ring size, sampling rate) and `log.configure` (access
-log, slow-request threshold).
+histograms.  The hot path's spans (``train_step.forward``, ``.backward``,
+``.optimizer``; ``moe_gemm.recompute``, ``flash_attention.recompute``,
+``ssd_scan.recompute``; ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+``moe.combine``; ``data.get_batch``; ``serve.decode_step``) go through the
+same `trace.span`.  Every span, the storage stack's too, is also a
+profiler range while ``torch.profiler.profile`` runs.  Settings are
+arguments, not environment variables: `trace.configure` (ring size,
+sampling rate) and `log.configure` (access log, slow-request threshold).
 """
 
 from .hist import BOUNDS, Histogram, describe

@@ -25,6 +25,17 @@ Propagation: spans cross thread-pool boundaries (node fan-out, decode
 chunks, prefetch tasks) via :func:`bind`, which captures the caller's
 active span and re-installs it inside the worker — a no-op returning the
 original callable when nothing is traced, so pools pay nothing either.
+
+The profiler: while ``torch.profiler.profile`` runs, every span is also a
+profiler range of the same name, whether or not a request is traced, so
+it lands on the profiler's clock, the one the device's operations are
+placed on.  The check is one module attribute read
+(``torch.autograd.profiler._is_profiler_enabled``, read through the module
+on every call): with neither a profiler nor a request trace a span costs
+that read and the ContextVar read, where a bare profiler range enters
+the dispatcher on every call, profiler or not.  The port's hot path
+(train step parts, the kernels' recomputes, the MoE layer, the data
+pipeline, the decode step) opens its ranges through :func:`span` alone.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ import threading
 import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional
+
+import torch.autograd.profiler as _profiler
 
 from ..analysis.witness import ordered_lock
 
@@ -236,31 +249,54 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _Range:
+    """A span while a profiler runs and no request is traced: the
+    profiler's range alone.  Yields None, as the null span does."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+
 class _Span:
     """An open span: times itself, nests children, records on exit.
 
     ``__enter__`` yields the (mutable) meta dict so stages can annotate
     results discovered mid-span (cache hits, byte counts) without a
-    second record.
+    second record.  Made while a profiler runs, it is also the profiler's
+    range of the same name.
     """
 
-    __slots__ = ("_name", "_meta", "_active", "_sid", "_token", "_t0")
+    __slots__ = ("_name", "_meta", "_active", "_sid", "_token", "_t0", "_range")
 
-    def __init__(self, name: str, meta: Dict[str, Any], active: _Active):
+    def __init__(self, name: str, meta: Dict[str, Any], active: _Active,
+                 profiled: bool = False):
         self._name = name
         self._meta = meta
         self._active = active
         self._sid = next(_span_ids)
         self._token = None
         self._t0 = 0.0
+        self._range = _Range(name) if profiled else _NULL
 
     def __enter__(self) -> Dict[str, Any]:
         self._token = _current.set(_Active(self._active.ctx, self._sid))
+        self._range.__enter__()
         self._t0 = time.perf_counter()
         return self._meta
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur = time.perf_counter() - self._t0
+        self._range.__exit__(exc_type, exc, tb)
         _current.reset(self._token)
         if exc_type is not None:
             self._meta["error"] = exc_type.__name__
@@ -283,11 +319,15 @@ class _Span:
 def span(name: str, **meta: Any):
     """``with span("node.fetch", node=3) as s:`` — time one stage.
 
-    Untraced: returns a shared null context manager (one ContextVar read,
-    no allocation beyond the kwargs dict).  Traced: opens a child of the
-    innermost active span; the yielded dict accepts extra annotations.
+    Untraced: returns a shared null context manager (one ContextVar read
+    and one module attribute read, no allocation beyond the kwargs dict).
+    Traced: opens a child of the innermost active span; the yielded dict
+    accepts extra annotations.  While a profiler runs the span is also a
+    profiler range named ``name``, traced or not (untraced it yields None).
     """
     active = _current.get()
+    if _profiler._is_profiler_enabled:
+        return _Range(name) if active is None else _Span(name, meta, active, True)
     if active is None:
         return _NULL
     return _Span(name, meta, active)

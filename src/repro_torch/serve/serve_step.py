@@ -1,5 +1,6 @@
 """Serving steps (`repro.serve.serve_step`): batched prefill and one-token
-decode with greedy sampling (token in, token out)."""
+decode with greedy sampling (token in, token out).  Each decode step is
+the span ``serve.decode_step`` (`obs.trace.span`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +8,7 @@ from typing import Optional
 import torch
 
 from ..models.config import ModelConfig
+from ..obs.trace import span
 from ..train.sharding import constrain
 
 
@@ -15,10 +17,11 @@ def make_serve_step(model, cfg: ModelConfig):
         """token (B, 1) int; index an int position or (B,) positions.
         Returns (next_token (B, 1) int32, logits (B, 1, V), cache), the
         cache updated in place."""
-        logits, cache = model.decode_step(cache, token, index)
-        # the vocab whole on each device for the argmax (under a plan)
-        last = constrain(logits[:, -1:], ("act_batch", None, None))
-        nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        with span("serve.decode_step"):
+            logits, cache = model.decode_step(cache, token, index)
+            # the vocab whole on each device for the argmax (under a plan)
+            last = constrain(logits[:, -1:], ("act_batch", None, None))
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt, logits, cache
 
     return serve_step

@@ -12,10 +12,15 @@ reads ``REPRO_*`` variables.
 """
 import json
 import logging
+import pathlib
+import sys
 import threading
 
 import numpy as np
 import pytest
+import torch
+import torch.autograd.profiler as torch_profiler
+from torch.profiler import ProfilerActivity, profile
 from torch_witness import port_witness  # noqa: F401
 
 from repro.analysis import witness as jwitness
@@ -37,6 +42,11 @@ from repro_torch.obs import hist as thist
 from repro_torch.obs import log as tlog
 from repro_torch.obs import registry as treg
 from repro_torch.obs import trace as ttrace
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+from ocpbench import trace as bench_trace  # noqa: E402
 
 SHAPE = (32, 32, 16)
 CUBOID = (8, 8, 4)
@@ -179,6 +189,75 @@ def test_untraced_instrumentation_is_inert_and_configure_sets_sampling():
     finally:
         ttrace.configure(ring=4096, sample=0)
     assert ttrace.sample_period() == 0 and ttrace.RING.capacity == 4096
+
+
+def test_span_with_nothing_active_is_the_null_object(monkeypatch):
+    """No request trace and no profiler: the shared null object, no ring
+    write, and no profiler range made."""
+    def no_range(*a, **k):
+        raise AssertionError("a profiler range was made with no profiler on")
+
+    monkeypatch.setattr(torch_profiler, "record_function", no_range)
+    appended = ttrace.RING.counters()["appended"]
+    assert not torch_profiler._is_profiler_enabled
+    s = ttrace.span("moe.route", k=1)
+    assert s is ttrace._NULL
+    with s as meta:
+        assert meta is None
+    assert ttrace.RING.counters()["appended"] == appended
+
+
+def _profiled_ranges(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert torch_profiler._is_profiler_enabled
+        fn()
+    assert not torch_profiler._is_profiler_enabled
+    return bench_trace.from_kineto(prof)
+
+
+def test_span_under_the_profiler_is_a_range_holding_its_ops():
+    """Under `torch.profiler.profile` a span with no request trace is a
+    profiler range of its name (yielding None, as untraced), and its
+    interval holds the operations run inside it."""
+    appended = ttrace.RING.counters()["appended"]
+
+    def fn():
+        with ttrace.span("outer.step") as meta:
+            assert meta is None
+            x = torch.ones(64) * 3.0
+            with ttrace.span("inner.part"):
+                torch.cumsum(x, 0)
+
+    ev = _profiled_ranges(fn)
+    ranges = {n: (a, b) for n, a, b in ev.ranges}
+    assert set(ranges) >= {"outer.step", "inner.part"}
+    (a, b), (ia, ib) = ranges["outer.step"], ranges["inner.part"]
+    assert a <= ia <= ib <= b
+    ops = {n: (s, e) for n, s, e in ev.host if n in ("aten::mul", "aten::cumsum")}
+    assert set(ops) == {"aten::mul", "aten::cumsum"}
+    for s, e in ops.values():
+        assert a <= s <= e <= b
+    cs, ce = ops["aten::cumsum"]
+    assert ia <= cs <= ce <= ib
+    assert ttrace.RING.counters()["appended"] == appended
+
+
+def test_traced_request_under_the_profiler_records_both():
+    """A request trace and the profiler at once: the ring gets the span
+    tree with its annotations, and the profiler the ranges."""
+    ring = ttrace.SpanRing(64)
+
+    def fn():
+        with ttrace.activate(ttrace.TraceContext("both", ring)):
+            with ttrace.span("outer", k=1) as meta:
+                meta["extra"] = 2
+                with ttrace.span("inner"):
+                    torch.ones(8).sum()
+
+    ev = _profiled_ranges(fn)
+    assert {"outer", "inner"} <= {n for n, _, _ in ev.ranges}
+    tree = ttrace.trace_tree("both", ring)
+    assert _shape(tree) == [("outer", {"k": 1, "extra": 2}, [("inner", {}, [])])]
 
 
 def _cold_read_tree(trace_mod, read):
