@@ -172,10 +172,15 @@ Phases (any failure raises and the exit code is non-zero):
    `FlashAttention`) against the plain route, bf16 (phase 17's criteria)
    and fp32 (within rtol 1e-4 and 1e-4 of the leaf's max |g|), the plain
    route taking the kernel route's top-k picks and the flips it would have
-   made counted; then the counted run: the
+   made counted; then `moe_gemm`'s bf16 backward kernel against its plain
+   twin `moe_gemm_grad_ref` on layer 0's dispatched buffer of the counted
+   run's first microbatch (each leaf within 2^-9 in norm and 2^-5 of its
+   max |g|, no farther from the fp64 gradient than 1.01 x the twin); then
+   the counted run: the
    loss must fall, every step's gradient norm be finite, `moe_gemm` and
    `flash_attention` launch exactly 24 layers x 2 passes x microbatches x
-   steps times
+   steps times, the backward kernel 24 x microbatches x steps times and
+   the plain recompute never,
    and `cutout_gather` at least once a step.  The split reads
    ``moe_gemm.recompute`` and ``flash_attention.recompute``.  Then a
    2-layer fp32 granite trains alike on card and CPU, with its routing
@@ -437,7 +442,8 @@ from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import bench as mg_bench  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as mg_ops  # noqa: E402
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import (moe_gemm_grad_f64, moe_gemm_grad_ref,  # noqa: E402
+                                             moe_gemm_ref)
 from repro_torch.kernels.morton_matmul import bench as mm_bench  # noqa: E402
 from repro_torch.kernels.morton_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref  # noqa: E402
@@ -457,7 +463,7 @@ from repro_torch.models.params import (DTYPES, init_params, map_specs,  # noqa: 
                                        tree_leaves, tree_map)
 from repro_torch.models.rglru import rglru_scan  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
-from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
+from repro_torch.train import loss_and_grads, loss_fn, make_train_step  # noqa: E402
 from repro_torch.models.attention import attention, qkv  # noqa: E402
 from repro_torch.models.layers import rms_norm, rotary  # noqa: E402
 from repro_torch.models.ssm import ssm_inputs, ssm_output  # noqa: E402
@@ -4131,6 +4137,69 @@ def training_grad_check(tc, dev, cfg, model, pipe, report):
         raise RuntimeError("\n".join(failed))
 
 
+# The MoE backward kernel against its plain twin at the training path's own
+# shape, at the card test's limits (tests/test_torch_cuda.py,
+# `test_moe_gemm_backward_kernel_matches_its_plain_twin`): each leaf within
+# 2^-9 of the twin in norm and every element within 2^-5 of the leaf's
+# largest |g|, and no farther from the fp64 gradient than 1.01 x the twin.
+# A backward that rounded dg and du to one bf16 each would miss the first
+# and the last (~2.6e-3 from the twin, ~1.2 x its distance from fp64, on
+# the CPU: tests/test_torch_train.py).
+MOE_GRAD_NORM = 2 ** -9
+MOE_GRAD_MAX = 2 ** -5
+MOE_GRAD_VS_F64 = 1.01
+
+
+def moe_backward_vs_twin(tc, dev, cfg, model, pipe, report):
+    """`moe_gemm_grad_cuda` on layer 0's dispatched buffer of the first
+    microbatch of the counted run's first batch (its x, expert weights and
+    counts, and a seeded dy of the buffer's shape, junk past the counts)
+    against `moe_gemm_grad_ref` and `moe_gemm_grad_f64` on the same
+    tensors, at the limits above; rows past the counts must get zero dx."""
+    seqs = tc["batch"] // tc["microbatches"]
+    batch = {k: v[:seqs] for k, v in step_batch(cfg, pipe, 0).items()}
+    seen = []
+
+    def first(p, xt, disp):
+        if not seen:
+            seen.append((disp.grouped, p.w_gate, p.w_up, p.w_down, disp.counts))
+
+    with torch.no_grad(), moe_mod.observe(first):
+        loss_fn(model, batch, cfg)
+    x, wg, wu, wd, counts = (t.detach() for t in seen[0])
+    del seen, batch
+    gen = torch.Generator(device=dev).manual_seed(30)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+    args = (x, wg, wu, wd, counts, dy)
+    got = mg_ops.moe_gemm_grad_cuda(*args)
+    want = moe_gemm_grad_ref(*args)
+    exact = moe_gemm_grad_f64(*args)
+    rows, failed = {}, []
+    for name, g, w, ex in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, want, exact):
+        gf, wf = g.float(), w.float()
+        r = dict(rel_norm=_rel(gf, wf), max_share=float((gf - wf).abs().max() / wf.abs().max()),
+                 kernel_vs_f64=_rel(g.double(), ex), twin_vs_f64=_rel(w.double(), ex))
+        rows[name] = r
+        if not (r["rel_norm"] <= MOE_GRAD_NORM and r["max_share"] <= MOE_GRAD_MAX
+                and r["kernel_vs_f64"] <= MOE_GRAD_VS_F64 * r["twin_vs_f64"]):
+            failed.append(f"{name}: {r}")
+    E, C, d = x.shape
+    dead = torch.arange(C, device=dev)[None, :] >= counts[:, None]
+    if bool(got[0][dead].any()):
+        failed.append("dx: nonzero on rows past the counts")
+    live = int(counts.clamp(0, C).sum())
+    report[f"{tc['key']}_backward_vs_twin"] = dict(shape=[E, C, d, wg.shape[-1]],
+                                                   live_rows=live, leaves=rows)
+    log(f"{cfg.name} MoE backward kernel vs moe_gemm_grad_ref, layer 0 of the first "
+        f"microbatch (E {E}, C {C}, d {d}, f {wg.shape[-1]}, {live} live rows): " + "; ".join(
+            f"{n} {r['rel_norm']:.3g} in norm (limit {MOE_GRAD_NORM:.3g}), "
+            f"{r['max_share']:.3g} of max |g| (limit {MOE_GRAD_MAX:.3g}), vs fp64 kernel "
+            f"{r['kernel_vs_f64']:.4g} twin {r['twin_vs_f64']:.4g}" for n, r in rows.items()))
+    if failed:
+        raise RuntimeError(f"{cfg.name} MoE backward kernel != moe_gemm_grad_ref:\n"
+                           + "\n".join(failed))
+
+
 def _paths(tree, prefix=""):
     return [p for k in sorted(tree) for p in (
         _paths(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict) else [prefix + k])]
@@ -4169,7 +4238,8 @@ def training_path(tc, dev, cfg, model, opt, pipe, report):
 
 
 # the kernels a family's training forward launches (the backward
-# differentiates their plain versions)
+# differentiates their plain versions, but for the MoE's bf16 expert GEMM,
+# which has a backward kernel)
 TRAIN_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention", "moe_gemm"),
                  "ssm": ("ssd_scan",), "hybrid": ("flash_attention",),
                  "encdec": ("flash_attention",)}
@@ -4192,7 +4262,9 @@ def kernel_calls(cfg):
 def check_training_launches(tc, cfg, counts):
     """Each of the family's kernels exactly `kernel_calls` x the policy's
     forward passes (2 under ``block``) per microbatch and step;
-    `cutout_gather` at least once a step (the pipeline's rows)."""
+    `cutout_gather` at least once a step (the pipeline's rows).  The MoE's
+    bf16 backward through `moe_gemm`'s backward kernel once a layer per
+    microbatch and step, and never through the plain recompute."""
     want = kernel_calls(cfg) * REMAT_PASSES[cfg.remat] * tc["microbatches"] * tc["steps"]
     bad = {k: counts[k] for k in TRAIN_KERNELS[cfg.family] if counts[k] != want}
     if bad or counts["cutout_gather"] < tc["steps"]:
@@ -4201,6 +4273,16 @@ def check_training_launches(tc, cfg, counts):
                            f"({kernel_calls(cfg)} calls x {REMAT_PASSES[cfg.remat]} passes "
                            f"under remat {cfg.remat!r} x microbatches x steps) and "
                            f"cutout_gather >= {tc['steps']}")
+    if cfg.family == "moe":
+        backward = dict(backward_launches=mg_ops.backward_launches,
+                        backward_plain=mg_ops.backward_plain)
+        want_b = dict(backward_launches=cfg.n_layers * tc["microbatches"] * tc["steps"],
+                      backward_plain=0)
+        if backward != want_b:
+            raise RuntimeError(f"{cfg.name} training: moe_gemm backward calls {backward}, "
+                               f"want {want_b} (layers x microbatches x steps through the "
+                               f"backward kernel)")
+        counts.update({f"moe_gemm.{k}": v for k, v in backward.items()})
 
 
 def train_flops(cfg, seq_len, seqs):
@@ -4361,6 +4443,8 @@ def training_phase(tc, dev, name, report, by_path):
     training_batches_vs_cpu(tc, cfg, pipe, report)
     parts["state_and_batches_s"] = time.perf_counter() - t0
     training_grad_check(tc, dev, cfg, model, pipe, report)
+    if cfg.family == "moe":
+        moe_backward_vs_twin(tc, dev, cfg, model, pipe, report)
     torch.cuda.empty_cache()
     parts["grad_check_s"] = time.perf_counter() - t0 - sum(parts.values())
     opt = adamw_init(model.param_tree())

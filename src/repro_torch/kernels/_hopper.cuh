@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA tile loads (2-D and 3-D) and the host's lookup
-// of the tensor-map encoder, wgmma descriptors, fences and the m64n128k16
-// and m64n256k16 bf16 products, and the Ampere-style warp-level pieces
-// (cp.async, ldmatrix, mma.sync) that sm_90a still runs.  Each is one PTX
-// instruction (or a short loop around one); the kernels that include this
-// header say how they use them.
+// of the tensor-map encoder, wgmma descriptors, fences, the m64nNk16 bf16
+// products and the warp-specialised register split, and the Ampere-style
+// warp-level pieces (cp.async, ldmatrix, mma.sync) that sm_90a still runs.
+// Each is one PTX instruction (or a short loop around one); the kernels
+// that include this header say how they use them.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -142,8 +142,28 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
          static_cast<uint64_t>(1) << 62;
 }
 
-// acc (64 x 128 fp32, 64 a thread) += A (smem, K-major) . B (smem,
-// MN-major: the transpose bit), one m64n128k16 bf16 product
+// acc (64 x N fp32, N / 2 a thread) += A . B, one m64nNk16 bf16 product of
+// shared-memory tiles; TA and TB are the transpose bits: 0 reads the
+// operand K-major, 1 MN-major (by default A K-major, B MN-major)
+template <int TA = 0, int TB = 1>
+__device__ __forceinline__ void wgmma_64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -154,7 +174,7 @@ __device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -164,11 +184,10 @@ __device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// acc (64 x 256 fp32, 128 a thread) += A (smem, K-major) . B (smem,
-// MN-major: the transpose bit), one m64n256k16 bf16 product
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_256(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -183,7 +202,7 @@ __device__ __forceinline__ void wgmma_256(float* d, uint64_t da, uint64_t db) {
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -201,16 +220,28 @@ __device__ __forceinline__ void wgmma_256(float* d, uint64_t da, uint64_t db) {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int BN>
+template <int BN, int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db) {
-  if constexpr (BN == 256) {
-    wgmma_256(d, da, db);
+  if constexpr (BN == 64) {
+    wgmma_64<TA, TB>(d, da, db);
+  } else if constexpr (BN == 128) {
+    wgmma_128<TA, TB>(d, da, db);
   } else {
-    wgmma_128(d, da, db);
+    wgmma_256<TA, TB>(d, da, db);
   }
+}
+
+// A warp-specialised block's register split: the producer warpgroup (one
+// thread issuing TMA loads) gives registers up, the consumer warpgroups
+// (wgmma accumulators) take them
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 }
 
 // --------------------------------------------- cp.async, ldmatrix, mma.sync

@@ -1,6 +1,6 @@
 """Time `moe_gemm` on the card at the MoE serving path's shapes.
 
-    python -m repro_torch.kernels.moe_gemm.bench [--against OTHER.cu]
+    python -m repro_torch.kernels.moe_gemm.bench [--against OTHER.cu] [--backward]
 
 (with ``src`` on ``PYTHONPATH``, on a machine with a CUDA card and nvcc).
 Prints the compiler's register and spill report for ``kernel.cu`` and how
@@ -20,6 +20,18 @@ enqueue a decode-step call through the same thin binding (the weights'
 tensor maps are cached, so this is what a decode step pays), and the
 largest difference between the two outputs is printed.  The wrapper
 `ops.moe_gemm` is timed on the host too.
+
+With ``--backward``, the backward instead (`ops.moe_gemm_grad_cuda`, bf16)
+at a training microbatch's buffer: 8 sequences of 2,048 tokens routed at
+capacity factor 4.0 (C 16,384, a quarter of the rows live) and at 1.25,
+beside the plain recompute that the fp32 route runs (autograd through
+`moe_gemm_ref` over every row in fp32) and the gradient's operations
+bound: the 8 products of 2 * d * f * live rows it needs (g and u
+recomputed, dh, dx's two, dWg, dWu and dWd) at the bf16 tensor rate.  The
+kernel runs 12, its hi + lo split doubling the depth of dx's two and of
+dWg and dWu.  Each gradient's difference from `moe_gemm_grad_ref` on the
+same tensors is printed, in norm and at its largest, relative to the
+reference's.
 """
 from __future__ import annotations
 
@@ -33,7 +45,7 @@ import torch
 from ...configs import get_config
 from ...models.moe import capacity
 from .. import _bench, _build
-from . import ops
+from . import ops, ref
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12
@@ -59,10 +71,12 @@ def _bind(lib: pathlib.Path):
     return gemm
 
 
-def inputs(tokens: int, dev, seed: int = 21):
+def inputs(tokens: int, dev, seed: int = 21, capacity_factor=None):
     """The expert weights (init scale 0.02), a capacity buffer for
     ``tokens`` tokens routed top-k uniformly, and its counts."""
     cfg = get_config("granite-moe-1b-a400m")
+    if capacity_factor is not None:
+        cfg = cfg.scaled(capacity_factor=capacity_factor)
     E, k, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
     C = capacity(cfg, tokens)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -86,10 +100,51 @@ def bound_ms(x, counts, f: int) -> tuple:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
+GRAD_PRODUCTS = 8  # each 2 * d * f * live rows; see the module's docstring
+
+
+def gap(got: torch.Tensor, want: torch.Tensor) -> str:
+    """|got - want| relative to |want|, in norm and at the largest."""
+    g, w = got.float(), want.float()
+    return (f"{float((g - w).norm() / w.norm()):.3g} in norm, "
+            f"{float((g - w).abs().max() / w.abs().max()):.3g} at most")
+
+
+def backward(dev) -> None:
+    """The ``--backward`` report."""
+    for cf in (4.0, 1.25):
+        x, wg, wu, wd, counts = inputs(8 * 2048, dev, capacity_factor=cf)
+        E, C, d = x.shape
+        f = wg.shape[-1]
+        gen = torch.Generator(device=dev).manual_seed(22)
+        dy = (torch.randn(x.shape, generator=gen, device=dev) * 0.02).bfloat16()
+        rows = int(counts.clamp(0, C).sum())
+        bound = GRAD_PRODUCTS * 2 * d * f * rows / BF16_FLOPS * 1e3
+        args = (x, wg, wu, wd, counts, dy)
+        got = ops.moe_gemm_grad_cuda(*args)
+        want = ref.moe_gemm_grad_ref(*args)
+        print(f"backward cf {cf}, from moe_gemm_grad_ref: " + "; ".join(
+            f"{n} {gap(g, w)}" for n, g, w in zip(("dx", "dWg", "dWu", "dWd"), got, want)),
+            flush=True)
+        del got, want
+        need = (True,) * 4
+        for name, fn in (("kernel", lambda: ops.moe_gemm_grad_cuda(*args)),
+                         ("plain recompute", lambda: ops._plain_grad(
+                             [x, wg, wu, wd], counts, dy, need))):
+            ms = _bench.event_ms(fn, reps=5 if name != "kernel" else 25)
+            print(f"backward cf {cf} {name}: {ms:.4f} ms at E {E}, C {C}, d {d}, f {f}, "
+                  f"{rows} live rows; bound {bound:.4f} ms by operations "
+                  f"({100 * bound / ms:.2f}%)", flush=True)
+        del x, wg, wu, wd, counts, dy, args
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=pathlib.Path,
                     help="another moe_gemm kernel source to time in turns with this one")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward kernel beside the plain recompute instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device; nothing measured", file=sys.stderr)
@@ -100,6 +155,10 @@ def main(argv=None) -> int:
     print("kernel.cu:", _bench.compile_with_report(_build.source_of("moe_gemm"), lib),
           flush=True)
     print(f"kernel.cu SASS: {_bench.sass_counts(lib, ('HGMMA', 'HMMA', 'FFMA'))}", flush=True)
+    if args.backward:
+        backward(dev)
+        print(_bench.card())
+        return 0
     other = None
     if args.against:
         other_lib = _build.BUILD_DIR / "bench" / "other.so"

@@ -70,6 +70,44 @@
 // Offsets are 64-bit.  Shapes taken: d and f multiples of 8; all tensors
 // contiguous and 16-byte aligned; E and the row tiles (C over 64 rows in
 // fp32, 128 in bf16) up to 65,535.
+//
+// The backward (bf16 only; `moe_gemm_grad_launch`) replaces no TPU kernel:
+// the JAX package differentiates einsums, and the port's fp32 route
+// differentiates the plain version.  It computes the gradient of the
+// function above for a cotangent dy with autograd's rounding points
+// (ref.py, `moe_gemm_grad_ref`), over the live rows only:
+//   dh = round(dy Wd^T); g, u recomputed in fp32; h = round(silu(g) u);
+//   dg = dh u silu'(g), du = dh silu(g) (fp32);
+//   dx = round(dg Wg^T + du Wu^T), 0 past the count;
+//   dWg = round(x^T dg), dWu = round(x^T du), dWd = round(h^T dy).
+// dg and du, the only fp32 operands, enter their products as bf16 hi + lo
+// pairs (hi = round(v), lo = round(v - hi): ~16 bits of the mantissa).
+// Bound: the gradient needs 8 products of 2 d f (live rows) operations
+// (g and u recomputed, dh, dx's two, dWg, dWu, dWd); at granite's train-2k
+// microbatch (131,072 live rows of E 32 x C 16,384) 1.10e12 operations,
+// 1.11 ms at the bf16 tensor rate, against ~1.6 GB of bytes it must move
+// (0.48 ms: the live rows of x and dy read, dx written whole).  The kernel
+// runs 12 such products, the hi + lo split doubling the depth of dx's two
+// and of dWg and dWu (3 in launch 1, 4 in launch 2, 2 + 2 + 1 in launch 3),
+// and moves ~4.1 GB (x and dy read twice, the scratch written once and
+// read twice).  Three launches on the forward's ring of TMA stages,
+// producer warpgroup and two consumer warpgroups of 64 rows:
+//   1. per (64 columns of f, 128-row tile, expert): g, u and dh in three
+//      accumulators (K = d; A = x or dy K-major, B = Wg and Wu MN-major,
+//      Wd K-major), whose epilogue writes h, dg hi, dg lo, du hi and du lo
+//      into a (5, E, C, f) scratch for the live rows; a dead tile returns;
+//   2. per (256 columns of d, 128-row tile, expert): dx over K = 4 f, the
+//      four scratch planes against Wg, Wg, Wu, Wu (both K-major); a dead
+//      tile writes its zeros;
+//   3. per (128 x 256 tile of dWg, dWu or dWd, expert): the depth is the
+//      expert's live rows, A = x or h and B = a scratch plane or dy, both
+//      read MN-major through the descriptors' transpose bits; whole 64-row
+//      tiles come by TMA, and the last, partial one is copied by the
+//      consumers into a stage in TMA's swizzled layout with the rows past
+//      the count as zeros (those rows of x, dy and the scratch hold
+//      anything), then multiplied.
+// No atomics: every output element is written by one block, so a call is
+// deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -325,38 +363,30 @@ cudaError_t launch_fma(const float* x, const float* wg, const float* wu, const f
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kBM = 128;           // row tile: two consumer warpgroups of 64
-constexpr int kBK = 64;            // depth of a stage: one 128-byte swizzle row
+constexpr int kBM = 128;               // row tile: two consumer warpgroups of 64
+constexpr int kBK = 64;                // depth of a stage: one 128-byte swizzle row
 constexpr int kStages = 4;
-constexpr int kThreads = 3 * 128;  // producer warpgroup + two consumers
-constexpr int kBox = 64;           // B box side (64 x 64 bf16, 8 KB)
-constexpr int kBN1 = 128;          // phase 1: columns of f a block (g and u each)
+constexpr int kThreads = 3 * 128;      // producer warpgroup + two consumers
+constexpr int kBox = 64;               // B box side (64 x 64 bf16, 8 KB)
+constexpr int kBoxElems = kBox * kBK;
+constexpr int kBN1 = 128;              // phase 1: columns of f a block (g and u each)
 
-// a stage: one 128 x 64 box of A and NB boxes of 64 x 64 of B
-template <int NB>
-struct Smem {
-  static constexpr int kA = kBM * kBK;
-  static constexpr int kB = NB * kBox * kBK;
-  static constexpr size_t bytes = kStages * (kA + kB) * sizeof(bf16) +
-                                  2 * kStages * sizeof(uint64_t);
-  static constexpr size_t dynamic = bytes + 1024;  // room to align to 1024
-};
-
-// The ring of one block: stages, `full` and `empty` barriers.  `consumers`
-// is how many consumer warpgroups release each stage.
-template <int NB>
+// A ring of kNum stages of kElems bf16 each, filled by TMA, with `full`
+// and `empty` barriers; `consumers` warpgroups release each stage.
+template <int kElems, int kNum = kStages>
 struct Ring {
-  bf16 *a, *b;
+  static constexpr uint32_t kBytes = kElems * sizeof(bf16);
+  static constexpr size_t dynamic = kNum * (size_t)kBytes + 2 * kNum * sizeof(uint64_t) + 1024;
+  bf16* base;
   uint64_t *full, *empty;
   __device__ Ring(uint8_t* raw, int consumers) {
     // swizzle atoms must start 1024-byte aligned (descriptor base offset 0)
-    uint8_t* base = raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
-    a = reinterpret_cast<bf16*>(base);
-    b = a + kStages * Smem<NB>::kA;
-    full = reinterpret_cast<uint64_t*>(b + kStages * Smem<NB>::kB);
-    empty = full + kStages;
+    uint8_t* p = raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
+    base = reinterpret_cast<bf16*>(p);
+    full = reinterpret_cast<uint64_t*>(p + kNum * (size_t)kBytes);
+    empty = full + kNum;
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kStages; ++s) {
+      for (int s = 0; s < kNum; ++s) {
         hopper::mbar_init(&full[s], 1);
         hopper::mbar_init(&empty[s], consumers);
       }
@@ -364,32 +394,43 @@ struct Ring {
     }
     __syncthreads();
   }
-  // producer: stage `it` of A at (k0, row0, e) and of B at columns
-  // (cols[c], k0, e) of maps[c], one box each
-  __device__ void load(int it, const CUtensorMap* amap, int k0, int row0, int e,
-                       const CUtensorMap* const* bmaps, const int* cols) {
-    const int s = it % kStages;
-    hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-    hopper::mbar_arrive_expect_tx(&full[s], (Smem<NB>::kA + Smem<NB>::kB) * sizeof(bf16));
-    hopper::tma_load_3d(a + s * Smem<NB>::kA, amap, &full[s], k0, row0, e);
-#pragma unroll
-    for (int c = 0; c < NB; ++c)
-      hopper::tma_load_3d(b + s * Smem<NB>::kB + c * kBox * kBK, bmaps[c], &full[s], cols[c],
-                          k0, e);
+  __device__ bf16* stage(int it) const { return base + (it % kNum) * kElems; }
+  // producer: waits for step `it`'s stage to be free, expects a full stage
+  // of TMA bytes on its `full` barrier and returns that barrier
+  __device__ uint64_t* fill(int it) const {
+    const int s = it % kNum;
+    hopper::mbar_wait(&empty[s], ((it / kNum) & 1) ^ 1);
+    hopper::mbar_arrive_expect_tx(&full[s], kBytes);
+    return &full[s];
   }
-  // descriptors of stage s, depth step kk: A rows [64 cw, 64 cw + 64)
-  // (K-major rows of 128 bytes, 8-row groups 1024 bytes apart, k16 steps
-  // 32 bytes along the row) and B from box `box` on (MN-major: 64-column
-  // boxes kBK * 128 bytes apart, 8-row groups 1024 bytes apart, k16 steps
-  // 16 rows = 2048 bytes)
-  __device__ uint64_t desc_a(int s, int cw, int kk) const {
-    return hopper::sw128_desc(a + s * Smem<NB>::kA + cw * 64 * kBK + kk * 16, 16, 1024);
+  // consumers: step `it`'s stage once its bytes have landed
+  __device__ const bf16* wait(int it) const {
+    hopper::mbar_wait(&full[it % kNum], (it / kNum) & 1);
+    return stage(it);
   }
-  __device__ uint64_t desc_b(int s, int box, int kk) const {
-    return hopper::sw128_desc(b + s * Smem<NB>::kB + box * kBox * kBK + kk * 16 * kBox,
-                              kBox * kBK * 2, 1024);
+  // consumers, after issuing step `it`'s products: keep them in flight and
+  // release the stage of the step before, whose products are then done
+  __device__ void issued(int it, int t) const {
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (it > 0 && t == 0) hopper::mbar_arrive(&empty[(it - 1) % kNum]);
   }
 };
+
+// a stage of one 128 x 64 box of A (or two 64 x 64) and NB 64 x 64 boxes of B
+template <int NB>
+using BoxRing = Ring<kBM * kBK + NB * kBoxElems>;
+
+// A K-major tile: rows of 64 depth values (128 bytes, swizzled) from
+// `rows` on, 8-row groups 1024 bytes apart; depth step kk is 32 bytes
+__device__ __forceinline__ uint64_t desc_k(const bf16* rows, int kk) {
+  return hopper::sw128_desc(rows + kk * 16, 16, 1024);
+}
+// An MN-major tile: boxes of kBK depth rows x 64 columns from `box` on,
+// 8 KB apart; depth step kk is 16 rows (2048 bytes)
+__device__ __forceinline__ uint64_t desc_mn(const bf16* box, int kk) {
+  return hopper::sw128_desc(box + kk * 16 * kBox, kBoxElems * 2, 1024);
+}
 
 template <int N>
 __device__ __forceinline__ void zero_acc(float* acc) {
@@ -422,26 +463,33 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap umap, const int* __restrict__ counts,
                    bf16* __restrict__ h, int C, int d, int f) {
   constexpr int NB = 2 * kBN1 / kBox;  // boxes of Wg, then of Wu
+  constexpr int B = kBM * kBK;
   extern __shared__ uint8_t smem_raw[];
   const int e = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN1;
   const int live = live_rows(counts, e, C);
   if (m0 >= live) return;  // a dead tile: phase 2 writes its zeros
   const int consumers = live - m0 > 64 ? 2 : 1;
-  Ring<NB> ring(smem_raw, consumers);
+  const BoxRing<NB> ring(smem_raw, consumers);
   const int nk = (d + kBK - 1) / kBK;
   const int wg = threadIdx.x / 128;
 
   if (wg == 0) {
-    // producer: one thread issues every load; the warpgroup gives up registers
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // producer: one thread issues every load
+    hopper::producer_regs();
     if (threadIdx.x == 0) {
-      const CUtensorMap* maps[NB] = {&gmap, &gmap, &umap, &umap};
-      const int cols[NB] = {n0, n0 + kBox, n0, n0 + kBox};
-      for (int kb = 0; kb < nk; ++kb) ring.load(kb, &xmap, kb * kBK, m0, e, maps, cols);
+      for (int kb = 0; kb < nk; ++kb) {
+        uint64_t* bar = ring.fill(kb);
+        bf16* st = ring.stage(kb);
+        hopper::tma_load_3d(st, &xmap, bar, kb * kBK, m0, e);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_3d(st + B + c * kBoxElems, c < NB / 2 ? &gmap : &umap, bar,
+                              n0 + c % (NB / 2) * kBox, kb * kBK, e);
+      }
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  hopper::consumer_regs();
   const int cw = wg - 1;  // rows [64 cw, 64 cw + 64) of the tile
   if (cw >= consumers) return;
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
@@ -449,18 +497,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   zero_acc<kBN1 / 2>(g);
   zero_acc<kBN1 / 2>(u);
   for (int kb = 0; kb < nk; ++kb) {
-    const int s = kb % kStages;
-    hopper::mbar_wait(&ring.full[s], (kb / kStages) & 1);
+    const bf16* st = ring.wait(kb);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t da = ring.desc_a(s, cw, kk);
-      hopper::wgmma_128(g, da, ring.desc_b(s, 0, kk));
-      hopper::wgmma_128(u, da, ring.desc_b(s, 2, kk));
+      const uint64_t da = desc_k(st + cw * 64 * kBK, kk);
+      hopper::wgmma_128(g, da, desc_mn(st + B, kk));
+      hopper::wgmma_128(u, da, desc_mn(st + B + NB / 2 * kBoxElems, kk));
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();  // the stage before this one is read
-    if (kb > 0 && t == 0) hopper::mbar_arrive(&ring.empty[(kb - 1) % kStages]);
+    ring.issued(kb, t);  // the stage before this one is read
   }
   hopper::wgmma_wait<0>();
   fence_acc<kBN1 / 2>(g);
@@ -495,6 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const __grid_constant__ CUtensorMap wmap, const int* __restrict__ counts,
                 bf16* __restrict__ y, int C, int d, int f) {
   constexpr int NB = BN / kBox;
+  constexpr int B = kBM * kBK;
   extern __shared__ uint8_t smem_raw[];
   const int e = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
   const int live = live_rows(counts, e, C);
@@ -505,25 +551,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
   const int consumers = live - m0 > 64 ? 2 : 1;
-  Ring<NB> ring(smem_raw, consumers);
+  const BoxRing<NB> ring(smem_raw, consumers);
   const int nk = (f + kBK - 1) / kBK;
   const int wg = threadIdx.x / 128;
 
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    hopper::producer_regs();
     if (threadIdx.x == 0) {
-      const CUtensorMap* maps[NB];
-      int cols[NB];
+      for (int kb = 0; kb < nk; ++kb) {
+        uint64_t* bar = ring.fill(kb);
+        bf16* st = ring.stage(kb);
+        hopper::tma_load_3d(st, &hmap, bar, kb * kBK, m0, e);
 #pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        maps[c] = &wmap;
-        cols[c] = n0 + c * kBox;
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_3d(st + B + c * kBoxElems, &wmap, bar, n0 + c * kBox, kb * kBK, e);
       }
-      for (int kb = 0; kb < nk; ++kb) ring.load(kb, &hmap, kb * kBK, m0, e, maps, cols);
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  hopper::consumer_regs();
   const int cw = wg - 1;
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   if (cw >= consumers) {  // its 64 rows are all past the count
@@ -537,15 +583,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc[BN / 2];
   zero_acc<BN / 2>(acc);
   for (int kb = 0; kb < nk; ++kb) {
-    const int s = kb % kStages;
-    hopper::mbar_wait(&ring.full[s], (kb / kStages) & 1);
+    const bf16* st = ring.wait(kb);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      hopper::wgmma_bn<BN>(acc, ring.desc_a(s, cw, kk), ring.desc_b(s, 0, kk));
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();
-    if (kb > 0 && t == 0) hopper::mbar_arrive(&ring.empty[(kb - 1) % kStages]);
+      hopper::wgmma_bn<BN>(acc, desc_k(st + cw * 64 * kBK, kk), desc_mn(st + B, kk));
+    ring.issued(kb, t);
   }
   hopper::wgmma_wait<0>();
   fence_acc<BN / 2>(acc);
@@ -627,10 +670,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int BN>
 cudaError_t launch_down(const CUtensorMap& hmap, const CUtensorMap& wmap, const int* counts,
                         bf16* y, int E, int C, int d, int f, cudaStream_t stream) {
-  using S = Smem<BN / kBox>;
-  static const cudaError_t allowed = allow_smem(moe_down_tc<BN>, S::dynamic);
+  using R = BoxRing<BN / kBox>;
+  static const cudaError_t allowed = allow_smem(moe_down_tc<BN>, R::dynamic);
   if (allowed != cudaSuccess) return allowed;
-  moe_down_tc<BN><<<dim3((d + BN - 1) / BN, (C + kBM - 1) / kBM, E), kThreads, S::dynamic,
+  moe_down_tc<BN><<<dim3((d + BN - 1) / BN, (C + kBM - 1) / kBM, E), kThreads, R::dynamic,
                     stream>>>(hmap, wmap, counts, y, C, d, f);
   return cudaGetLastError();
 }
@@ -643,11 +686,11 @@ cudaError_t launch(const void* x, const void* wg, const void* wu, const void* wd
       !make_map(&umap, {wu, E, d, f, kBK}) || !make_map(&hmap, {h, E, C, f, kBM}) ||
       !make_map(&wmap, {wd, E, f, d, kBK}))
     return cudaErrorInvalidValue;
-  using S1 = Smem<2 * kBN1 / kBox>;
-  static const cudaError_t allowed = allow_smem(moe_gate_up_tc, S1::dynamic);
+  using R1 = BoxRing<2 * kBN1 / kBox>;
+  static const cudaError_t allowed = allow_smem(moe_gate_up_tc, R1::dynamic);
   if (allowed != cudaSuccess) return allowed;
   moe_gate_up_tc<<<dim3((f + kBN1 - 1) / kBN1, (C + kBM - 1) / kBM, E), kThreads,
-                   S1::dynamic, stream>>>(xmap, gmap, umap, counts, static_cast<bf16*>(h), C,
+                   R1::dynamic, stream>>>(xmap, gmap, umap, counts, static_cast<bf16*>(h), C,
                                           d, f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -657,6 +700,407 @@ cudaError_t launch(const void* x, const void* wg, const void* wu, const void* wd
 }
 
 }  // namespace tc
+
+// -------------------------------------------------- bf16 backward: tensor cores
+
+namespace grad {
+
+using tc::bf16;
+using tc::BoxRing;
+using tc::desc_k;
+using tc::desc_mn;
+using tc::kBK;
+using tc::kBM;
+using tc::kBoxElems;
+using tc::kThreads;
+constexpr int kHidN = 64;  // columns of f a hidden block (g, u and dh each)
+
+// Launch 1: for the live rows of one (64 columns of f, 128-row tile,
+// expert) block, g = x Wg, u = x Wu and dh = dy Wd^T in fp32, then
+//   h = round(silu(g) u), dh = round(dh), dg = dh u silu'(g), du = dh silu(g)
+// into the scratch planes (h, dg hi, dg lo, du hi, du lo), each (E, C, f).
+// Stage: x and dy boxes of 128 rows x 64 of d, Wg and Wu boxes of 64 of d
+// x 64 of f (MN-major B), a Wd box of 64 of f x 64 of d (K-major B).
+constexpr int kHidStage = 2 * kBM * kBK + 3 * kBoxElems;
+using HidRing = tc::Ring<kHidStage>;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_grad_hidden_tc(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap dymap,
+                       const __grid_constant__ CUtensorMap gmap,
+                       const __grid_constant__ CUtensorMap umap,
+                       const __grid_constant__ CUtensorMap dmap,
+                       const int* __restrict__ counts, bf16* __restrict__ s, int E, int C,
+                       int d, int f) {
+  constexpr int X = 0, DY = kBM * kBK, G = 2 * kBM * kBK, U = G + kBoxElems,
+                D = U + kBoxElems;
+  extern __shared__ uint8_t smem_raw[];
+  const int e = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kHidN;
+  const int live = live_rows(counts, e, C);
+  if (m0 >= live) return;  // a dead tile: nothing of it is read again
+  const int consumers = live - m0 > 64 ? 2 : 1;
+  const HidRing ring(smem_raw, consumers);
+  const int nk = (d + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_regs();
+    if (threadIdx.x == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        uint64_t* bar = ring.fill(kb);
+        bf16* st = ring.stage(kb);
+        hopper::tma_load_3d(st + X, &xmap, bar, kb * kBK, m0, e);
+        hopper::tma_load_3d(st + DY, &dymap, bar, kb * kBK, m0, e);
+        hopper::tma_load_3d(st + G, &gmap, bar, n0, kb * kBK, e);
+        hopper::tma_load_3d(st + U, &umap, bar, n0, kb * kBK, e);
+        hopper::tma_load_3d(st + D, &dmap, bar, kb * kBK, n0, e);
+      }
+    }
+    return;
+  }
+  hopper::consumer_regs();
+  const int cw = wg - 1;
+  if (cw >= consumers) return;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  float g[kHidN / 2], u[kHidN / 2], dh[kHidN / 2];
+  tc::zero_acc<kHidN / 2>(g);
+  tc::zero_acc<kHidN / 2>(u);
+  tc::zero_acc<kHidN / 2>(dh);
+  for (int kb = 0; kb < nk; ++kb) {
+    const bf16* st = ring.wait(kb);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t ax = desc_k(st + X + cw * 64 * kBK, kk);
+      hopper::wgmma_bn<kHidN, 0, 1>(g, ax, desc_mn(st + G, kk));
+      hopper::wgmma_bn<kHidN, 0, 1>(u, ax, desc_mn(st + U, kk));
+      const uint64_t ady = desc_k(st + DY + cw * 64 * kBK, kk);
+      hopper::wgmma_bn<kHidN, 0, 0>(dh, ady, desc_k(st + D, kk));
+    }
+    ring.issued(kb, t);
+  }
+  hopper::wgmma_wait<0>();
+  tc::fence_acc<kHidN / 2>(g);
+  tc::fence_acc<kHidN / 2>(u);
+  tc::fence_acc<kHidN / 2>(dh);
+
+  // acc[4 j + 2 hh + q] is row warp * 16 + lane / 4 + 8 hh, column
+  // 8 j + 2 (lane % 4) + q of this warpgroup's 64 x 64
+  const int64_t plane = (int64_t)E * C * f;
+  const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+  const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= live) continue;
+    bf16* row = s + ((int64_t)e * C + r) * f;
+#pragma unroll
+    for (int j = 0; j < kHidN / 8; ++j) {
+      const int c = c0 + 8 * j;  // even, and f is a multiple of 8
+      if (c >= f) continue;
+      float out[5][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = 4 * j + 2 * hh + q;
+        const float gi = g[i], sg = 1.f / (1.f + expf(-gi)), act = gi * sg;
+        const float dhi = __bfloat162float(__float2bfloat16_rn(dh[i]));
+        const float dgi = dhi * u[i] * sg * (1.f + gi * (1.f - sg));
+        const float dui = dhi * act;
+        const float dg_hi = __bfloat162float(__float2bfloat16_rn(dgi));
+        const float du_hi = __bfloat162float(__float2bfloat16_rn(dui));
+        out[0][q] = act * u[i];
+        out[1][q] = dg_hi;
+        out[2][q] = dgi - dg_hi;
+        out[3][q] = du_hi;
+        out[4][q] = dui - du_hi;
+      }
+#pragma unroll
+      for (int p = 0; p < 5; ++p)
+        *reinterpret_cast<__nv_bfloat162*>(row + p * plane + c) =
+            __floats2bfloat162_rn(out[p][0], out[p][1]);
+    }
+  }
+}
+
+// Launch 2: dx = [dg hi, dg lo, du hi, du lo] [Wg, Wg, Wu, Wu]^T (depth 4 f)
+// for one (BN columns of d, 128-row tile, expert) block, rounded once;
+// rows at or past the count are written 0.  Stage: a scratch box of 128
+// rows x 64 of f (A, K-major) and BN / 64 boxes of 64 of d x 64 of f of
+// Wg or Wu (B, K-major).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_grad_input_tc(const __grid_constant__ CUtensorMap smap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap umap,
+                      const int* __restrict__ counts, bf16* __restrict__ dx, int E, int C,
+                      int d, int f) {
+  constexpr int NB = BN / 64;
+  constexpr int B = kBM * kBK;
+  extern __shared__ uint8_t smem_raw[];
+  const int e = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  const int live = live_rows(counts, e, C);
+  const int tile_end = min(m0 + kBM, C), col_end = min(n0 + BN, d);
+  const int64_t row_base = (int64_t)e * C;
+  if (m0 >= live) {  // a dead tile: zeros only
+    tc::zero_rows(dx, row_base, d, m0, tile_end, n0, col_end);
+    return;
+  }
+  const int consumers = live - m0 > 64 ? 2 : 1;
+  const BoxRing<NB> ring(smem_raw, consumers);
+  const int nkf = (f + kBK - 1) / kBK, nk = 4 * nkf;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_regs();
+    if (threadIdx.x == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int part = it / nkf, k0 = it % nkf * kBK;  // dg hi, dg lo, du hi, du lo
+        uint64_t* bar = ring.fill(it);
+        bf16* st = ring.stage(it);
+        hopper::tma_load_3d(st, &smap, bar, k0, m0, (1 + part) * E + e);
+        const CUtensorMap* w = part < 2 ? &gmap : &umap;
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_3d(st + B + c * kBoxElems, w, bar, k0, n0 + c * 64, e);
+      }
+    }
+    return;
+  }
+  hopper::consumer_regs();
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  if (cw >= consumers) {  // its 64 rows are all past the count
+    const int r0 = min(m0 + 64, tile_end), chunks = (col_end - n0) / 8;
+    for (int i = t; i < (tile_end - r0) * chunks; i += 128) {
+      const int r = r0 + i / chunks, c = n0 + i % chunks * 8;
+      *reinterpret_cast<uint4*>(dx + (row_base + r) * d + c) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  float acc[BN / 2];
+  tc::zero_acc<BN / 2>(acc);
+  for (int it = 0; it < nk; ++it) {
+    const bf16* st = ring.wait(it);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hopper::wgmma_bn<BN, 0, 0>(acc, desc_k(st + cw * 64 * kBK, kk), desc_k(st + B, kk));
+    ring.issued(it, t);
+  }
+  hopper::wgmma_wait<0>();
+  tc::fence_acc<BN / 2>(acc);
+
+  const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+  const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= tile_end) continue;
+    const bool on = r < live;
+    bf16* row = dx + (row_base + r) * d;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = c0 + 8 * j;
+      if (c >= col_end) continue;
+      const int i = 4 * j + 2 * hh;
+      *reinterpret_cast<__nv_bfloat162*>(row + c) =
+          __floats2bfloat162_rn(on ? acc[i] : 0.f, on ? acc[i + 1] : 0.f);
+    }
+  }
+}
+
+// Launch 3: the weights' gradients, one (128 rows, BN columns) tile of
+// dWg = x^T [dg hi; dg lo], dWu = x^T [du hi; du lo] or dWd = h^T dy
+// (product 0, 1, 2) of one expert a block, its depth the expert's live
+// rows: once through each of the product's parts (two, hi and lo, or one).
+// Stage: two boxes of 64 rows x 64 columns of A's tensor (x or h, MN-major)
+// and BN / 64 of B's (a scratch plane or dy, MN-major).  TMA brings the
+// whole 64-row tiles; the last, partial tile of each part is copied by
+// the consumers with the rows at or past the count as zeros (TMA fills
+// zeros only at C, and those rows of x, dy and the scratch hold anything).
+// one operand of a part: the tensor map and, for the partial tile, the
+// same tensor's base, its plane z in a (planes, C, cols) view and cols
+struct Operand {
+  const CUtensorMap* map;
+  const bf16* base;
+  int z, cols;
+};
+
+// The partial tile's box at (col0, rows [row0, row0 + 64)) of `o` into
+// `box` as TMA lays it out (128-byte swizzle: 16-byte chunk ch of row r at
+// chunk ch ^ (r % 8)); rows at or past `live` and columns past cols as 0.
+// By the 256 consumer threads, `i0` the thread's index among them.
+__device__ void copy_box(bf16* box, const Operand& o, int C, int live, int row0, int col0,
+                         int i0) {
+  for (int i = i0; i < 64 * 8; i += 256) {
+    const int r = i / 8, ch = i % 8, row = row0 + r, col = col0 + ch * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row < live && col < o.cols)
+      v = *reinterpret_cast<const uint4*>(o.base + ((int64_t)o.z * C + row) * o.cols + col);
+    *reinterpret_cast<uint4*>(box + r * 64 + ((ch ^ (r & 7)) * 8)) = v;
+  }
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_grad_weights_tc(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap dymap,
+                        const __grid_constant__ CUtensorMap smap, const bf16* __restrict__ x,
+                        const bf16* __restrict__ dy, const bf16* __restrict__ s,
+                        const int* __restrict__ counts, bf16* __restrict__ dwg,
+                        bf16* __restrict__ dwu, bf16* __restrict__ dwd, int E, int C, int d,
+                        int f) {
+  constexpr int NB = BN / 64;
+  constexpr int B = 2 * kBoxElems;
+  extern __shared__ uint8_t smem_raw[];
+  const int e = blockIdx.y;
+  // the tile: products 0 and 1 (d x f) first, their depth twice product 2's
+  const int gu_tiles = (d + kBM - 1) / kBM * ((f + BN - 1) / BN);
+  const int tile = blockIdx.x, prod = min(tile / gu_tiles, 2);
+  const int local = tile - prod * gu_tiles;
+  const int M = prod < 2 ? d : f, N = prod < 2 ? f : d;
+  const int m0 = local / ((N + BN - 1) / BN) * kBM, n0 = local % ((N + BN - 1) / BN) * BN;
+  const int parts = prod < 2 ? 2 : 1;
+  Operand a[2], b[2];
+  for (int p = 0; p < parts; ++p) {
+    a[p] = prod < 2 ? Operand{&xmap, x, e, d} : Operand{&smap, s, e, f};
+    b[p] = prod < 2 ? Operand{&smap, s, (1 + 2 * prod + p) * E + e, f}
+                    : Operand{&dymap, dy, e, d};
+  }
+  const int live = live_rows(counts, e, C);
+  const int whole = live / kBK, rem = live % kBK, nk = parts * whole;
+  const BoxRing<NB> ring(smem_raw, 2);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::producer_regs();
+    if (threadIdx.x == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int p = it / whole, k0 = it % whole * kBK;
+        uint64_t* bar = ring.fill(it);
+        bf16* st = ring.stage(it);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          hopper::tma_load_3d(st + c * kBoxElems, a[p].map, bar, m0 + c * 64, k0, a[p].z);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_3d(st + B + c * kBoxElems, b[p].map, bar, n0 + c * 64, k0, b[p].z);
+      }
+    }
+    return;
+  }
+  hopper::consumer_regs();
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  float acc[BN / 2];
+  tc::zero_acc<BN / 2>(acc);
+  for (int it = 0; it < nk; ++it) {
+    const bf16* st = ring.wait(it);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hopper::wgmma_bn<BN, 1, 1>(acc, desc_mn(st + cw * kBoxElems, kk), desc_mn(st + B, kk));
+    ring.issued(it, t);
+  }
+  hopper::wgmma_wait<0>();
+  if (rem > 0) {  // the partial tile of each part, through ring stage 0
+    bf16* st = ring.base;
+    for (int p = 0; p < parts; ++p) {
+      consumers_sync();  // both consumers' products out of stage 0 are done
+      const int i0 = threadIdx.x - 128;
+      for (int c = 0; c < 2; ++c)
+        copy_box(st + c * kBoxElems, a[p], C, live, whole * kBK, m0 + c * 64, i0);
+      for (int c = 0; c < NB; ++c)
+        copy_box(st + B + c * kBoxElems, b[p], C, live, whole * kBK, n0 + c * 64, i0);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // seen by wgmma
+      consumers_sync();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hopper::wgmma_bn<BN, 1, 1>(acc, desc_mn(st + cw * kBoxElems, kk), desc_mn(st + B, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+    }
+  }
+  tc::fence_acc<BN / 2>(acc);
+
+  // acc[4 j + 2 hh + q] is row warp * 16 + lane / 4 + 8 hh, column
+  // 8 j + 2 (lane % 4) + q of this warpgroup's 64 x BN
+  bf16* out = (prod == 0 ? dwg : prod == 1 ? dwu : dwd) + (int64_t)e * M * N;
+  const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+  const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = c0 + 8 * j;
+      if (c >= N) continue;
+      const int i = 4 * j + 2 * hh;
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)r * N + c) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch_input(const CUtensorMap& smap, const CUtensorMap& gmap,
+                         const CUtensorMap& umap, const int* counts, bf16* dx, int E, int C,
+                         int d, int f, cudaStream_t stream) {
+  using R = BoxRing<BN / 64>;
+  static const cudaError_t allowed = tc::allow_smem(moe_grad_input_tc<BN>, R::dynamic);
+  if (allowed != cudaSuccess) return allowed;
+  moe_grad_input_tc<BN><<<dim3((d + BN - 1) / BN, (C + kBM - 1) / kBM, E), kThreads,
+                          R::dynamic, stream>>>(smap, gmap, umap, counts, dx, E, C, d, f);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_weights(const CUtensorMap& xmap, const CUtensorMap& dymap,
+                           const CUtensorMap& smap, const bf16* x, const bf16* dy,
+                           const bf16* s, const int* counts, bf16* dwg, bf16* dwu, bf16* dwd,
+                           int E, int C, int d, int f, cudaStream_t stream) {
+  using R = BoxRing<BN / 64>;
+  static const cudaError_t allowed = tc::allow_smem(moe_grad_weights_tc<BN>, R::dynamic);
+  if (allowed != cudaSuccess) return allowed;
+  const int tiles = 2 * ((d + kBM - 1) / kBM) * ((f + BN - 1) / BN) +
+                    (f + kBM - 1) / kBM * ((d + BN - 1) / BN);
+  moe_grad_weights_tc<BN><<<dim3(tiles, E), kThreads, R::dynamic, stream>>>(
+      xmap, dymap, smap, x, dy, s, counts, dwg, dwu, dwd, E, C, d, f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
+                   const int* counts, const bf16* dy, bf16* s, bf16* dx, bf16* dwg, bf16* dwu,
+                   bf16* dwd, int E, int C, int d, int f, cudaStream_t stream) {
+  CUtensorMap x128, dy128, gmap, umap, dmap, s128, x64, dy64, s64;
+  if (!tc::make_map(&x128, {x, E, C, d, kBM}) || !tc::make_map(&dy128, {dy, E, C, d, kBM}) ||
+      !tc::make_map(&gmap, {wg, E, d, f, kBK}) || !tc::make_map(&umap, {wu, E, d, f, kBK}) ||
+      !tc::make_map(&dmap, {wd, E, f, d, kBK}) ||
+      !tc::make_map(&s128, {s, 5 * (int64_t)E, C, f, kBM}) ||
+      !tc::make_map(&x64, {x, E, C, d, kBK}) || !tc::make_map(&dy64, {dy, E, C, d, kBK}) ||
+      !tc::make_map(&s64, {s, 5 * (int64_t)E, C, f, kBK}))
+    return cudaErrorInvalidValue;
+  static const cudaError_t allowed = tc::allow_smem(moe_grad_hidden_tc, HidRing::dynamic);
+  if (allowed != cudaSuccess) return allowed;
+  moe_grad_hidden_tc<<<dim3((f + kHidN - 1) / kHidN, (C + kBM - 1) / kBM, E), kThreads,
+                       HidRing::dynamic, stream>>>(x128, dy128, gmap, umap, dmap, counts, s,
+                                                   E, C, d, f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = d > 128 ? launch_input<256>(s128, gmap, umap, counts, dx, E, C, d, f, stream)
+                : launch_input<128>(s128, gmap, umap, counts, dx, E, C, d, f, stream);
+  if (err != cudaSuccess) return err;
+  if (d > 128 && f > 128)
+    return launch_weights<256>(x64, dy64, s64, x, dy, s, counts, dwg, dwu, dwd, E, C, d, f,
+                               stream);
+  return launch_weights<128>(x64, dy64, s64, x, dy, s, counts, dwg, dwu, dwd, E, C, d, f,
+                             stream);
+}
+
+}  // namespace grad
 
 }  // namespace
 
@@ -685,6 +1129,31 @@ extern "C" int moe_gemm_launch(const void* x, const void* w_gate,
   if (dtype == 1)
     return tc::launch(x, w_gate, w_up, w_down, c, h, y, (int)E, (int)C, (int)d, (int)f, s);
   return cudaErrorInvalidValue;
+}
+
+// C entry point of the backward (bound with ctypes), bf16 only: x and dy
+// (E, C, d), w_gate and w_up (E, d, f), w_down (E, f, d), counts (E,) int32
+// on the device, the scratch (5, E, C, f) and the outputs dx (E, C, d),
+// dw_gate, dw_up (E, d, f) and dw_down (E, f, d), all contiguous and
+// 16-byte aligned.  Three launches on `stream`, in order.  Returns the
+// cudaError_t of the launches (0 on success); cudaErrorInvalidValue (1)
+// for a shape the kernel does not take.
+extern "C" int moe_gemm_grad_launch(const void* x, const void* w_gate, const void* w_up,
+                                    const void* w_down, const void* counts, const void* dy,
+                                    void* scratch, void* dx, void* dw_gate, void* dw_up,
+                                    void* dw_down, int64_t E, int64_t C, int64_t d, int64_t f,
+                                    void* stream) {
+  if (E < 1 || E > 65535 || C < 1 || (C + grad::kBM - 1) / grad::kBM > 65535 || d < 8 ||
+      d % 8 || f < 8 || f % 8 || d > (1 << 30) || f > (1 << 30))
+    return cudaErrorInvalidValue;
+  using grad::bf16;
+  return grad::launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w_gate),
+                      static_cast<const bf16*>(w_up), static_cast<const bf16*>(w_down),
+                      static_cast<const int*>(counts), static_cast<const bf16*>(dy),
+                      static_cast<bf16*>(scratch), static_cast<bf16*>(dx),
+                      static_cast<bf16*>(dw_gate), static_cast<bf16*>(dw_up),
+                      static_cast<bf16*>(dw_down), (int)E, (int)C, (int)d, (int)f,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The tiles of the two phases for the dtype given and a width d: out[0]

@@ -11,9 +11,14 @@ blocks each phase launches (bf16 runs the tensor-core body, fp32 the FMA
 body; ``kernel.cu``'s `moe_gemm_tiles` reports the same tiles).
 
 On the card the kernel runs inside `MoeGemm`, an autograd Function: its
-forward is the kernel, and its backward recomputes the product through
-the plain version and differentiates that.  The JAX package has no
-backward kernel either (its MoE differentiates three einsums).
+forward is the kernel.  Its backward, for bf16 tensors, is the backward
+kernel (``kernel.cu``'s `moe_gemm_grad_launch`, through `moe_gemm_grad_cuda`:
+the gradient over the live rows only, on the tensor cores, held to
+`moe_gemm_grad_ref`); for fp32 tensors it recomputes the product through
+the plain version and differentiates that, as the FMA forward's twin.
+`backward_launches` and `backward_plain` count the backward calls that
+took each route.  The JAX package has no backward kernel (its MoE
+differentiates three einsums).
 """
 from __future__ import annotations
 
@@ -67,14 +72,16 @@ def grid_plan(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> Plan:
     return Plan(body, Phase("gate_up", rows, c1, (-(-f // c1), rt, E)),
                 Phase("down", rows, c2, (-(-d // c2), rt, E)))
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke)
+launches = 0  # forward kernel launches since the last reset (read by chip_smoke)
+backward_launches = 0  # backward calls that took the backward kernel
+backward_plain = 0  # backward calls that took the plain recompute
 _count_guard = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, backward_launches, backward_plain
     with _count_guard:
-        launches = 0
+        launches = backward_launches = backward_plain = 0
 
 
 def _count_launch() -> None:
@@ -83,16 +90,30 @@ def _count_launch() -> None:
         launches += 1
 
 
+def _count_backward(plain: bool) -> None:
+    global backward_launches, backward_plain
+    with _count_guard:
+        if plain:
+            backward_plain += 1
+        else:
+            backward_launches += 1
+
+
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, w_gate, w_up, w_down, counts, h, y; E, C, d, f; dtype; stream
 ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 4 + [_I64, ctypes.c_void_p]
 
 
-def _entry():
-    fn = _build.library(NAME).moe_gemm_launch
+# x, w_gate, w_up, w_down, counts, dy, scratch, dx, dw_gate, dw_up, dw_down;
+# E, C, d, f; stream
+GRAD_ARGTYPES = [ctypes.c_void_p] * 11 + [_I64] * 4 + [ctypes.c_void_p]
+
+
+def _entry(name: str = "moe_gemm_launch", argtypes=ARGTYPES):
+    fn = getattr(_build.library(NAME), name)
     if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -162,29 +183,74 @@ def moe_gemm_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return y
 
 
+def moe_gemm_grad_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                       w_down: torch.Tensor, counts: torch.Tensor, dy: torch.Tensor):
+    """Launch the backward kernel (bf16 only); same contract as
+    `moe_gemm_grad_ref`: (dx, dw_gate, dw_up, dw_down).  The scratch
+    (5, E, C, f) holds h and the hi and lo halves of dg and du."""
+    _check(x, w_gate, w_up, w_down, counts)
+    if x.dtype != torch.bfloat16 or dy.dtype != x.dtype or dy.shape != x.shape \
+            or dy.device != x.device:
+        raise ValueError(f"the backward kernel takes bfloat16 x and dy of x's shape, got x "
+                         f"{x.dtype} {tuple(x.shape)}, dy {dy.dtype} {tuple(dy.shape)}")
+    dy = dy.contiguous()
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
+    E, C, d = x.shape
+    f = w_gate.shape[-1]
+    scratch = torch.empty((5, E, C, f), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    dwg, dwu, dwd = (torch.empty_like(w) for w in (w_gate, w_up, w_down))
+    fn = _entry("moe_gemm_grad_launch", GRAD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                 counts.data_ptr(), dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+                 dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), E, C, d, f, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm backward launch failed (cudaError {err})")
+    _count_backward(plain=False)
+    return dx, dwg, dwu, dwd
+
+
 class MoeGemm(torch.autograd.Function):
     """The expert GEMM whose forward is ``forward`` (the CUDA kernel; the
     tests pass the plain version to reach the wiring on the CPU) and whose
-    backward is autograd's through `moe_gemm_ref`, recomputed from the
-    saved x and weights (the span ``moe_gemm.recompute``).  Rows
-    at or past ``counts[e]`` get zero gradient (the plain version's
-    `where`); ``counts`` gets none."""
+    backward, inside the span ``moe_gemm.recompute``, follows the tensors'
+    dtype: bf16 takes ``backward`` where one is given (the backward kernel,
+    `moe_gemm_grad_cuda`, or a twin with its contract), and every other
+    call autograd's through `moe_gemm_ref`, recomputed from the saved x and
+    weights.  Rows at or past ``counts[e]`` get zero gradient; ``counts``
+    gets none."""
 
     @staticmethod
-    def forward(ctx, x, w_gate, w_up, w_down, counts, forward):
+    def forward(ctx, x, w_gate, w_up, w_down, counts, forward, backward=None):
         ctx.save_for_backward(x, w_gate, w_up, w_down, counts)
+        ctx.grad = backward
         return forward(x, w_gate, w_up, w_down, counts)
 
     @staticmethod
     def backward(ctx, dy):
-        with torch.enable_grad(), span("moe_gemm.recompute"):
+        need = ctx.needs_input_grad
+        with span("moe_gemm.recompute"):
             *ins, counts = ctx.saved_tensors
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(ins, ctx.needs_input_grad)]
-            y = moe_gemm_ref(*ins, counts)
-            wanted = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(y, wanted, dy))
-        return (*(next(got) if t.requires_grad else None for t in ins), None, None)
+            if ctx.grad is not None and ins[0].dtype == torch.bfloat16:
+                grads = [g if n else None
+                         for g, n in zip(ctx.grad(*ins, counts, dy), need)]
+            else:
+                grads = _plain_grad(ins, counts, dy, need)
+                _count_backward(plain=True)
+        return (*grads, *(None,) * (len(need) - 4))
+
+
+def _plain_grad(ins, counts, dy, need):
+    """Autograd's gradient through `moe_gemm_ref`, for the inputs in ``need``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
+        y = moe_gemm_ref(*ins, counts)
+        wanted = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(y, wanted, dy))
+    return [next(got) if t.requires_grad else None for t in ins]
 
 
 def moe_gemm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -200,7 +266,8 @@ def moe_gemm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     as it is, for CPU tensors.
     """
     if x.is_cuda:
-        return MoeGemm.apply(x, w_gate, w_up, w_down, counts, moe_gemm_cuda)
+        return MoeGemm.apply(x, w_gate, w_up, w_down, counts, moe_gemm_cuda,
+                             moe_gemm_grad_cuda)
     if x.device.type != "cpu":
         raise ValueError(f"no moe_gemm for device {x.device}")
     return moe_gemm_ref(x, w_gate, w_up, w_down, counts)

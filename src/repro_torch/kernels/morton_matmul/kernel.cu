@@ -329,8 +329,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x / 128;
 
   if (wg == 0) {
-    // producer: one thread issues every load; the warpgroup gives up registers
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // producer: one thread issues every load
+    hopper::producer_regs();
     if (threadIdx.x == 0) {
       for (int it = 0; it < subs * nk; ++it) {
         const int s = it % kStages, round = it / kStages;
@@ -346,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    hopper::consumer_regs();
     const int cw = wg - 1;                     // rows [64 cw, 64 cw + 64) of a sub-tile
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const bool leader = t == 0;

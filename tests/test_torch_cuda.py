@@ -20,7 +20,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.moe_gemm import ops as mg_ops
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm.ref import (moe_gemm_grad_f64, moe_gemm_grad_ref,
+                                             moe_gemm_ref)
 from repro_torch.kernels.morton_matmul import ops as mm_ops
 from repro_torch.kernels.morton_matmul.ref import morton_matmul_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -1074,26 +1075,88 @@ def test_ssd_scan_gradients_through_the_kernel(cuda, dtype, init):
 @pytest.mark.parametrize("shape", [(32, 640, 1024, 512), (3, 130, 24, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gemm_gradients_through_the_kernel(cuda, shape, dtype):
-    """The card's expert GEMM is differentiable: one launch forward, and the
-    gradients of x and the three weights are autograd's through the plain
-    version on the same tensors, bit for bit; rows past the counts (random
-    here) get zero gradient."""
+    """The card's expert GEMM is differentiable: one launch forward, and
+    the gradients of x and the three weights through the route its dtype
+    takes.  fp32: the plain recompute, autograd's through the plain
+    version on the same tensors, bit for bit.  bf16: the backward kernel,
+    no farther from the fp64 gradient than 1.05 x the plain bf16 route in
+    norm, leaf by leaf.  Rows past the counts (random here, their x junk)
+    get zero gradient."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     x, wg, wu, wd, counts = moe_inputs(gen, shape, dtype, cuda, junk=True)
     ins = [t.requires_grad_() for t in (x, wg, wu, wd)]
     dy = _randn(gen, x.shape, dtype, cuda)
-    before = mg_ops.launches
+    before = (mg_ops.launches, mg_ops.backward_launches, mg_ops.backward_plain)
     y = mg_ops.moe_gemm(*ins, counts)
-    assert mg_ops.launches == before + 1
+    assert mg_ops.launches == before[0] + 1
     want_y = moe_gemm_ref(*ins, counts)
     torch.testing.assert_close(y, want_y, **moe_tol(want_y))
     got = torch.autograd.grad(y, ins, dy)
     want = torch.autograd.grad(want_y, ins, dy)
-    assert mg_ops.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == dtype and torch.equal(g, w) and bool(torch.isfinite(g.float()).all())
+    kernel = dtype == torch.bfloat16
+    assert (mg_ops.launches, mg_ops.backward_launches, mg_ops.backward_plain) == (
+        before[0] + 1, before[1] + kernel, before[2] + (not kernel))
+    exact = moe_gemm_grad_f64(*ins, counts, dy) if kernel else None
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+        if kernel:
+            assert float((g.double() - exact[i]).norm()) <= 1.05 * float(
+                (w.double() - exact[i]).norm()), i
+        else:
+            assert torch.equal(g, w)
     dead = torch.arange(shape[1], device=cuda)[None, :] >= counts[:, None]
     assert not bool(got[0][dead].any()) and bool(got[0][~dead].any())
+
+
+def grad_inputs(gen, shape, dev, routed_tokens=None):
+    """bf16 tensors for the backward: `moe_inputs` with junk past the
+    counts, dy (junk past the counts too) and, with ``routed_tokens``,
+    counts from a uniform top-8 routing of that many tokens at capacity
+    factor 4.0 (a quarter of the rows live, granite's train-2k buffer)."""
+    x, wg, wu, wd, counts = moe_inputs(gen, shape, torch.bfloat16, dev, junk=True)
+    E, C = shape[:2]
+    if routed_tokens is not None:
+        picks = torch.rand((routed_tokens, E), generator=gen, device=dev).topk(8, -1).indices
+        counts = torch.bincount(picks.reshape(-1), minlength=E).to(torch.int32)
+    return x, wg, wu, wd, counts, _randn(gen, x.shape, torch.bfloat16, dev)
+
+
+@pytest.mark.parametrize("case", ["granite_cf4", "arctic_4_experts", "ragged"])
+def test_moe_gemm_backward_kernel_matches_its_plain_twin(cuda, case):
+    """The backward kernel against `moe_gemm_grad_ref` on the same tensors:
+    granite's widths with a capacity-4.0 buffer of 2,048 routed tokens,
+    arctic's widths on 4 experts, and a ragged (3, 130, 24, 40) whose d, f
+    and C end inside a tile; counts 0, C and past C among them (not in
+    granite's routed case), junk past the counts.  The two have the same
+    rounding points and sum in fp32 in other orders, so a value (or dh, h
+    or a split half inside) that lands the other side of a bf16 rounding
+    boundary moves by one ulp: each leaf lies within 2^-9 of the twin's in
+    norm (half a bf16 ulp; ~3e-4 measured at granite's widths) and every
+    element within 2^-5 of the leaf's largest |g| (~6e-3 measured), and no
+    farther from the fp64 gradient than 1.01 x the twin (equal to four
+    digits measured).  Rows past the counts get zero dx, and the same
+    tensors give the same gradients again, bit for bit; `backward_launches`
+    counts each call."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    shape, routed = {"granite_cf4": ((32, 2048, 1024, 512), 2048),
+                     "arctic_4_experts": ((4, 192, 7168, 4864), None),
+                     "ragged": ((3, 130, 24, 40), None)}[case]
+    args = grad_inputs(gen, shape, cuda, routed)
+    before = (mg_ops.backward_launches, mg_ops.backward_plain)
+    got = mg_ops.moe_gemm_grad_cuda(*args)
+    again = mg_ops.moe_gemm_grad_cuda(*args)
+    assert (mg_ops.backward_launches, mg_ops.backward_plain) == (before[0] + 2, before[1])
+    want = moe_gemm_grad_ref(*args)
+    exact = moe_gemm_grad_f64(*args)
+    for g, a, w, ex in zip(got, again, want, exact):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and torch.equal(g, a)
+        gf, wf = g.float(), w.float()
+        assert float((gf - wf).norm()) <= 2 ** -9 * float(wf.norm())
+        assert float((gf - wf).abs().max()) <= 2 ** -5 * float(wf.abs().max())
+        assert float((g.double() - ex).norm()) <= 1.01 * float((w.double() - ex).norm())
+    dead = torch.arange(shape[1], device=cuda)[None, :] >= args[4][:, None]
+    assert not bool(got[0][dead].any()) and bool(got[0][~dead].any())
+    assert not bool(got[1][args[4] <= 0].any())
 
 
 @pytest.mark.parametrize("capacity_factor", [1.25, 0.25])

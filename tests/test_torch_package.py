@@ -253,22 +253,35 @@ def test_ssd_scan_binding_matches_its_c_entry():
     assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
 
 
-def test_moe_gemm_binding_matches_its_c_entry():
-    """The ctypes argument list declares as many arguments as the C entry
-    point takes, and the wrapper passes that many."""
+def _binding_matches(kernel, entry, argtypes, wrapper):
     import inspect
     import re
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.moe_gemm import ops
 
-    src = _build.source_of("moe_gemm").read_text()
-    params = re.search(r'extern "C" int moe_gemm_launch\(([^)]*)\)', src).group(1)
-    assert len(params.split(",")) == len(ops.ARGTYPES)
-    tree = ast.parse(inspect.getsource(ops.moe_gemm_cuda))
+    src = _build.source_of(kernel).read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    assert len(params.split(",")) == len(argtypes)
+    tree = ast.parse(inspect.getsource(wrapper))
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Name) and n.func.id == "fn"]
-    assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
+    assert [len(c.args) for c in calls] == [len(argtypes)]
+
+
+def test_moe_gemm_binding_matches_its_c_entry():
+    """The ctypes argument list declares as many arguments as the C entry
+    point takes, and the wrapper passes that many."""
+    from repro_torch.kernels.moe_gemm import ops
+
+    _binding_matches("moe_gemm", "moe_gemm_launch", ops.ARGTYPES, ops.moe_gemm_cuda)
+
+
+def test_moe_gemm_grad_binding_matches_its_c_entry():
+    """The same for the backward's entry point and its wrapper."""
+    from repro_torch.kernels.moe_gemm import ops
+
+    _binding_matches("moe_gemm", "moe_gemm_grad_launch", ops.GRAD_ARGTYPES,
+                     ops.moe_gemm_grad_cuda)
 
 
 def test_morton_matmul_binding_matches_its_c_entry():
@@ -297,8 +310,8 @@ def test_moe_gemm_wrapper_never_reads_counts_on_the_host():
     from repro_torch.kernels.moe_gemm import ops
     from repro_torch.models import moe
 
-    for fn in (ops._check, ops.moe_gemm_cuda, ops.moe_gemm, moe.dispatch, moe.combine,
-               moe.moe):
+    for fn in (ops._check, ops.moe_gemm_cuda, ops.moe_gemm_grad_cuda, ops.MoeGemm.backward,
+               ops.moe_gemm, moe.dispatch, moe.combine, moe.moe):
         src = inspect.getsource(fn)
         for bad in (".item(", ".tolist(", ".cpu(", "int(counts", "nonzero"):
             assert bad not in src, (fn.__name__, bad)

@@ -46,8 +46,10 @@ from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,
                                opt_state_from_numpy, opt_state_to_numpy)
 from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.moe_gemm.ops import MoeGemm, moe_gemm
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm import ref as mg_ref
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_grad_f64, moe_gemm_grad_ref, moe_gemm_ref
 from repro_torch.kernels.ssd_scan import ref as ssd_ref_mod
 from repro_torch.kernels.ssd_scan.ops import SsdScan, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import causal_decay, ssd_scan_ref
@@ -624,6 +626,126 @@ def test_moe_gemm_function_backward_is_the_plain_gradient():
     assert not bool(got[0][dead].any()) and bool(got[0][~dead].all())
     (gwd,) = torch.autograd.grad(MoeGemm.apply(x.detach(), wg, wu, wd, counts, forward),
                                  (wd,), dy)
+    assert torch.equal(gwd, want[3])
+
+
+def _moe_grad_case(rng, shape, dtype):
+    """x, the weights (scaled by 1/sqrt(fan-in)), counts 0, partial, C and
+    past C, and dy; x and dy hold junk (finite) past the counts."""
+    E, C, d, f = shape
+    x = torch.from_numpy(rng.normal(size=(E, C, d)).astype(np.float32)).to(dtype)
+    wg, wu, wd = (torch.from_numpy(rng.normal(size=s).astype(np.float32) * s[1] ** -0.5
+                                   ).to(dtype) for s in ((E, d, f), (E, d, f), (E, f, d)))
+    counts = torch.tensor([0, C // 2 + 1, C, C + 3][:E], dtype=torch.int32)
+    dy = torch.from_numpy(rng.normal(size=(E, C, d)).astype(np.float32)).to(dtype)
+    return x, wg, wu, wd, counts, dy
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1].clamp_min(-125) - 8)
+
+
+@pytest.mark.parametrize("shape", [(4, 12, 16, 24), (4, 130, 24, 40), (3, 64, 8, 8)],
+                         ids=["small", "ragged_d_f_C", "narrow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_grad_ref_is_autograds_gradient(shape, dtype):
+    """The backward's contract (`moe_gemm_grad_ref`, what ``kernel.cu``'s
+    backward computes) against autograd through `moe_gemm_ref` on the same
+    tensors.  fp32: within 1e-6 relative (dg and du split exactly; sums in
+    another order).  bf16: the split keeps ~16 bits of dg and du where
+    autograd keeps 24, so an element lies within one bf16 ulp of autograd's
+    (the results' one rounding) and 2^-16 of the leaf's largest |g| (the
+    split's error, which an element near 0 by cancellation shows in ulps of
+    its own), and at most 2% of them differ at all.  Rows at or past the
+    count (junk in x and dy) get zero dx, and an expert of count 0 zero
+    weight gradients."""
+    x, wg, wu, wd, counts, dy = _moe_grad_case(np.random.default_rng(12), shape, dtype)
+    ins = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+    want = torch.autograd.grad(moe_gemm_ref(*ins, counts), ins, dy)
+    got = moe_gemm_grad_ref(x, wg, wu, wd, counts, dy)
+    C = shape[1]
+    dead = torch.arange(C)[None, :] >= counts[:, None]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * float(w.abs().max()))
+        else:
+            gf, wf = g.float(), w.float()
+            split = 2 ** -16 * float(wf.abs().max())
+            assert bool(((gf - wf).abs() <= _bf16_ulp(wf) + split).all())
+            assert float((gf != wf).float().mean()) <= 0.02
+    assert not bool(got[0][dead].any()) and bool(got[0][~dead].all())
+    assert all(not bool(g[0].any()) for g in got[1:])  # expert 0: count 0
+    assert all(bool(g[1:].any()) for g in got[1:])
+
+
+def test_moe_gemm_grad_f64_is_the_functions_gradient():
+    """`moe_gemm_grad_f64` at fp32 values against autograd through
+    `moe_gemm_ref` in fp32 (which rounds h to fp32 and sums in fp32): within
+    1e-5 relative in norm, with zero dx on the rows past the counts."""
+    x, wg, wu, wd, counts, dy = _moe_grad_case(np.random.default_rng(14), (4, 130, 24, 40),
+                                               torch.float32)
+    ins = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+    want = torch.autograd.grad(moe_gemm_ref(*ins, counts), ins, dy)
+    got = moe_gemm_grad_f64(x, wg, wu, wd, counts, dy)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert float((g - w.double()).norm()) <= 1e-5 * float(w.double().norm())
+    dead = torch.arange(130)[None, :] >= counts[:, None]
+    assert not bool(got[0][dead].any())
+
+
+def test_moe_gemm_grad_limits_tell_the_split_from_one_rounding(monkeypatch):
+    """The card's limits on the backward kernel (2^-9 of the twin in norm,
+    no farther from `moe_gemm_grad_f64` than 1.01 x the twin) fail a
+    backward that rounds dg and du to one bf16 each instead of splitting
+    them: its dx, dWg and dWu lie ~1.2 x the twin's distance from fp64 and
+    more than 2^-9 from the twin in norm; its dWd, which takes neither, is
+    the twin's."""
+    args = _moe_grad_case(np.random.default_rng(5), (4, 130, 24, 40), torch.bfloat16)
+    exact = moe_gemm_grad_f64(*args)
+    twin = moe_gemm_grad_ref(*args)
+    monkeypatch.setattr(mg_ref, "split", lambda v, dt: (v.to(dt), torch.zeros_like(v, dtype=dt)))
+    once = moe_gemm_grad_ref(*args)
+    for i, (t, o, ex) in enumerate(zip(twin, once, exact)):
+        t_gap, o_gap = float((t.double() - ex).norm()), float((o.double() - ex).norm())
+        from_twin = float((o.float() - t.float()).norm() / t.float().norm())
+        if i < 3:
+            assert o_gap > 1.1 * t_gap and from_twin > 2 ** -9, (i, o_gap / t_gap, from_twin)
+        else:
+            assert torch.equal(o, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_function_backward_routes_by_dtype(dtype):
+    """`MoeGemm` given a backward callable: bf16 tensors take it (once, on
+    the saved tensors and dy) and fp32 tensors the plain recompute (bit for
+    bit autograd's through `moe_gemm_ref`), each counted; an input that
+    needs no gradient gets none."""
+    x, wg, wu, wd, counts, dy = _moe_grad_case(np.random.default_rng(13), (4, 12, 16, 24),
+                                               dtype)
+    ins = [t.requires_grad_() for t in (x, wg, wu, wd)]
+    calls = []
+
+    def grad(*args):
+        calls.append(args)
+        return moe_gemm_grad_ref(*args)
+
+    before = (mg_ops.backward_launches, mg_ops.backward_plain)
+    y = MoeGemm.apply(*ins, counts, moe_gemm_ref, grad)
+    got = torch.autograd.grad(y, ins, dy)
+    if dtype == torch.bfloat16:
+        assert len(calls) == 1 and all(a is b for a, b in zip(calls[0], (*ins, counts, dy)))
+        want = moe_gemm_grad_ref(x.detach(), wg.detach(), wu.detach(), wd.detach(), counts, dy)
+        assert (mg_ops.backward_launches, mg_ops.backward_plain) == before
+    else:
+        assert calls == []
+        want = torch.autograd.grad(moe_gemm_ref(*ins, counts), ins, dy)
+        assert (mg_ops.backward_launches, mg_ops.backward_plain) == (before[0], before[1] + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    (gwd,) = torch.autograd.grad(MoeGemm.apply(x.detach(), wg, wu, wd, counts, moe_gemm_ref,
+                                               grad), (wd,), dy)
     assert torch.equal(gwd, want[3])
 
 
