@@ -11,6 +11,10 @@ faults' (training: half of each batch left out, the mean over the rest;
 serving: one served token altered, and every token of one request).  A state left unchanged reads 1 on
 ``update_gap`` by its definition and needs no run.  Benchmark runs do not
 run this.  One JSON line a seed, then a summary, on standard output.
+
+The cell's kind is found as the harness finds it (`harness.kind`); a kind
+that derives from neither `traffic.Train` nor `traffic.BatchServe` takes
+its readings with its own ``control_seed(control)``.
 """
 import os
 import pathlib
@@ -29,7 +33,6 @@ import torch  # noqa: E402
 
 from ocpbench import harness  # noqa: E402
 from ocpbench import traffic  # noqa: E402
-from ocpbench.traffic import KINDS  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 
 
@@ -65,11 +68,12 @@ def train_seed(tr, control: bool) -> dict:
 class Routing:
     """Each call's expert ids: the program's through its `observe` hook,
     the reference's around `moe_lm.route` (a look at where the two
-    disagree, not part of any check)."""
+    disagree, not part of any check).  A reference that routes nothing
+    (no ``route``) gives no look."""
 
     def __init__(self, reference):
         self.program, self.reference = [], []
-        self.module, self._route = reference, reference.route
+        self.module, self._route = reference, getattr(reference, "route", None)
 
     def observe(self, p, xt, disp):
         self.program.append(disp.expert_ids.sort(-1).values.cpu())
@@ -97,16 +101,20 @@ def serve_seed(sv, control: bool) -> dict:
     with torch.inference_mode(), moe_mod.observe(routing.observe):
         sv.window(0.0, False)  # one batch
     sv.free()
-    sv.reference.route = routing.route
-    try:
+    if routing._route is None:
         sv.check()
-    finally:
-        sv.reference.route = routing._route
+    else:
+        sv.reference.route = routing.route
+        try:
+            sv.check()
+        finally:
+            sv.reference.route = routing._route
     i = sv.sample()
     served = sv.served[i].to(sv.dev)
-    out = {"program": gap_stats(sv.reference.token_gaps(sv.ref, served)),
-           "look": {"routing_disagreement": routing.disagreement(
-               sv.m["n_layers"], sv.mix["new_tokens"] - 1)}}
+    out = {"program": gap_stats(sv.reference.token_gaps(sv.ref, served)), "look": {}}
+    if routing._route is not None:
+        out["look"]["routing_disagreement"] = routing.disagreement(
+            sv.m["n_layers"], sv.mix["new_tokens"] - 1)
     if control:
         low = sv.reference_logits(i, served, sv.params, "fp8")
         out["control"] = gap_stats(sv.reference.token_gaps(sv.ref, low.argmax(-1)))
@@ -118,6 +126,17 @@ def serve_seed(sv, control: bool) -> dict:
         out["altered_slot"] = gap_stats(sv.reference.token_gaps(sv.ref, altered))
     del sv.params, sv.ref
     return out
+
+
+def lookup(c: harness.Cell):
+    """(the cell's traffic class, the function that takes a seed's
+    readings with it)."""
+    cls = harness.kind(c.mix["kind"], c.here)
+    if issubclass(cls, traffic.Train):
+        return cls, train_seed
+    if issubclass(cls, traffic.BatchServe):
+        return cls, serve_seed
+    return cls, lambda t, control: t.control_seed(control)
 
 
 def main(argv=None) -> int:
@@ -132,13 +151,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     seeds = [(int(s), False) for s in args.seeds.split(",") if s]
     seeds += [(int(s), True) for s in args.control_seeds.split(",") if s]
+    cls, fn = lookup(c)
     rows = []
     for seed, control in seeds:
         t0 = time.perf_counter()
-        traffic = KINDS[c.mix["kind"]](c.config, c.mix, seed, dev)
-        fn = train_seed if c.mix["kind"] == "train" else serve_seed
-        row = dict(seed=seed, **fn(traffic, control), seconds=time.perf_counter() - t0)
-        del traffic
+        run = cls(c.config, c.mix, seed, dev, c.here)
+        row = dict(seed=seed, **fn(run, control), seconds=time.perf_counter() - t0)
+        del run
         torch.cuda.empty_cache()
         rows.append(row)
         print(json.dumps(row), flush=True)

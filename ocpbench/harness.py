@@ -1,17 +1,19 @@
 """One run of one cell: set-up, the measured window, the traced iteration,
 the check against the reference, and the result line.
 
-Everything particular to a configuration, a traffic mix, a cell's limits
-or a per-layer metric family is a file found by its name in
-``BENCHMARK.json``: ``configs/<file>`` (the ``file`` of the config entry),
-``mixes/<traffic>.json``, ``limits/<cell>.json`` and
-``layers/<family>.py`` (a metric's name up to its first dot).
+Everything particular to a configuration, a traffic mix or kind, a cell's
+limits or a per-layer metric family is a file found by its name in
+``BENCHMARK.json`` (`files`): ``configs/<file>`` (the ``file`` of the
+config entry, from the checkout's root), and under the benchmark's
+directory ``mixes/<traffic>.json``, ``limits/<cell>.json``,
+``layers/<family>.py`` (a metric's name up to its first dot),
+``kinds/<kind>.py`` and ``reference/<name>.py``.  A kernel that a mix names
+is counted through ``repro_torch.kernels.<name>.ops``.
 """
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
-import json
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -20,32 +22,17 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_decode import ops as fd_ops
-from repro_torch.kernels.moe_gemm import ops as mg_ops
-from repro_torch.kernels.cutout_gather import ops as cg_ops
 from repro_torch.models import moe as moe_mod
 
+from . import files
 from . import trace as trace_mod
 from .counts import moe_lm as counts
+from .files import HERE, load_json
 from .traffic import KINDS, now
 
-HERE = pathlib.Path(__file__).resolve().parent
-LAUNCH_COUNTERS = {"flash_attention": fa_ops, "flash_decode": fd_ops, "moe_gemm": mg_ops,
-                   "cutout_gather": cg_ops}
+# every run counts these, and the kernels its mix names (`counter`)
+COUNTED = ("flash_attention", "flash_decode", "moe_gemm", "cutout_gather")
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-
-
-def load_json(path: pathlib.Path) -> Dict:
-    with open(path) as fh:
-        return json.load(fh)
-
-
-def load_module(path: pathlib.Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @dataclasses.dataclass
@@ -58,9 +45,10 @@ class Cell:
     limits: Dict
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    here: pathlib.Path = HERE  # the benchmark's directory: kinds, readers, references
 
 
-def cell(bench: Dict, name: str, root: pathlib.Path) -> Cell:
+def cell(bench: Dict, name: str, root: pathlib.Path, here: pathlib.Path = HERE) -> Cell:
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
@@ -70,16 +58,26 @@ def cell(bench: Dict, name: str, root: pathlib.Path) -> Cell:
     per_layer = [m for m in bench["per_layer"]
                  if name in m.get("workloads", [name] if m["moves"] in reported else [])]
     return Cell(name=name, entry=entry, config=load_json(root / conf["file"]),
-                mix=load_json(HERE / "mixes" / f"{entry['traffic']}.json"),
-                limits=load_json(HERE / "limits" / f"{name}.json"),
-                end_to_end=e2e, per_layer=per_layer)
+                mix=load_json(here / "mixes" / f"{entry['traffic']}.json"),
+                limits=load_json(here / "limits" / f"{name}.json"),
+                end_to_end=e2e, per_layer=per_layer, here=here)
 
 
-def reader(family: str):
-    path = HERE / "layers" / f"{family}.py"
-    if not path.exists():
-        raise KeyError(f"no reader for the metric family {family!r} ({path})")
-    return load_module(path, f"ocpbench_layers_{family}")
+def reader(family: str, here: pathlib.Path = HERE):
+    """The reader of a per-layer metric family: ``layers/<family>.py``."""
+    return files.module(here, "layers", family)
+
+
+def kind(name: str, here: pathlib.Path = HERE):
+    """The traffic class of a mix's ``kind``: `traffic.KINDS`'s, else the
+    class ``Kind`` of ``kinds/<name>.py``."""
+    return KINDS[name] if name in KINDS else files.module(here, "kinds", name).Kind
+
+
+def counter(kernel: str):
+    """The launch counter of a kernel: its ``ops`` module (``launches``,
+    ``reset_launches``)."""
+    return importlib.import_module(f"repro_torch.kernels.{kernel}.ops")
 
 
 @dataclasses.dataclass
@@ -87,7 +85,7 @@ class Run:
     """What a traced run hands the readers: the trace, the launches and
     per-call shapes of the one traced iteration, and the window's host
     clock readings and MoE dispatches."""
-    model: Dict
+    model: Optional[Dict]  # None for a configuration without a model
     mix: Dict
     peaks: Optional[Dict[str, float]]
     trace: Optional[trace_mod.Summary]
@@ -115,24 +113,25 @@ def run_cell(c: Cell, seed: int, seconds: float, traced: bool, device: torch.dev
              t_start: float, log=print) -> Dict:
     """The run's result: the contract's keys, the checks last."""
     cuda = device.type == "cuda"
-    traffic = KINDS[c.mix["kind"]](c.config, c.mix, seed, device)
+    traffic = kind(c.mix["kind"], c.here)(c.config, c.mix, seed, device, c.here)
     traffic.setup()
-    for ops in LAUNCH_COUNTERS.values():
+    counters = {k: counter(k) for k in (*COUNTED, *c.mix["kernels"])}
+    for ops in counters.values():
         ops.reset_launches()
     t_window = now()
     setup_s = t_window - t_start
     with moe_mod.observe(traffic.dispatches) if traced else nullcontext():
         traffic.window(seconds, traced)
-        launched = {k: LAUNCH_COUNTERS[k].launches for k in c.mix["kernels"]}
+        launched = {k: counters[k].launches for k in c.mix["kernels"]}
         summary, launches = None, {}
         if traced:
-            for ops in LAUNCH_COUNTERS.values():
+            for ops in counters.values():
                 ops.reset_launches()
             traffic.dispatches.traced = True
             sync = traffic.sync if cuda else (lambda: None)
             _, events, wall = trace_mod.profile(traffic.iteration, sync)
             summary = trace_mod.summarize(events, wall)
-            launches = {k: ops.launches for k, ops in LAUNCH_COUNTERS.items()}
+            launches = {k: ops.launches for k, ops in counters.items()}
     traffic.dispatches.read()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     e2e = traffic.end_to_end()
@@ -152,12 +151,12 @@ def run_cell(c: Cell, seed: int, seconds: float, traced: bool, device: torch.dev
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
         name = torch.cuda.get_device_name(device) if cuda else "cpu"
-        run = Run(model=c.config["model"], mix=c.mix,
+        run = Run(model=c.config.get("model"), mix=c.mix,
                   peaks=counts.peaks(name) if cuda else None, trace=summary,
                   dispatches=traffic.dispatches.records, host=traffic.host,
                   calls=traffic.calls, launches=launches)
         for m in c.per_layer:
-            value = reader(m["name"].split(".")[0]).read(m["name"], run)
+            value = reader(m["name"].split(".")[0], c.here).read(m["name"], run)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     limits = c.limits

@@ -1,5 +1,10 @@
 """Smoke-width cells for the CPU tests: the real mixes with small sizes,
-the two configurations at the port's smoke widths, and limits for them."""
+the configurations at the port's smoke widths, and limits for them.
+
+A mix file's ``"smoke"`` block holds its small sizes, and a configuration
+file's ``"smoke"`` block its ``model`` at small widths and its CPU
+``limits`` by traffic kind; where a file has none, `SMALL`, `MODELS` and
+`LIMITS` hold them (the cells the benchmark started with)."""
 import json
 import pathlib
 
@@ -8,6 +13,7 @@ import torch
 from ocpbench import harness
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
+ROOT = HERE.parent
 
 GRANITE = dict(name="granite-smoke", family="moe", n_layers=2, d_model=64, n_heads=4,
                n_kv_heads=2, head_dim=16, d_ff=64, vocab=256, act="swiglu",
@@ -16,6 +22,7 @@ GRANITE = dict(name="granite-smoke", family="moe", n_layers=2, d_model=64, n_hea
                moe_dense_residual=False, router_aux_coef=0.01)
 ARCTIC = dict(GRANITE, name="arctic-smoke", d_ff=96, top_k=2, tie_embeddings=False,
               capacity_factor=1.25, moe_dense_residual=True)
+MODELS = {"granite-moe-1b-a400m": GRANITE, "arctic-480b-2l": ARCTIC}
 SMALL = {"train-2k": dict(batch=4, seq_len=32, corpus_docs=16, corpus_pad=4),
          "rag-2k": dict(batch=4, prompt=16, new_tokens=4, cache_len=24),
          "gen-512": dict(batch=4, prompt=8, new_tokens=12, cache_len=24)}
@@ -31,19 +38,24 @@ LIMITS = {"train": {"batch_mismatch": 0, "kernels_unlaunched": 0, "first_loss_ga
                           "worst_request_gap": 1e-3}}
 
 
-def bench():
-    return harness.load_json(HERE.parent / "BENCHMARK.json")
+def bench(root=ROOT):
+    return harness.load_json(root / "BENCHMARK.json")
 
 
-def cell(workload: str) -> harness.Cell:
-    """The cell ``workload`` of BENCHMARK.json at smoke widths."""
-    c = harness.cell(bench(), workload, HERE.parent)
-    traffic = c.entry["traffic"]
-    model = GRANITE if c.entry["config"].startswith("granite") else ARCTIC
-    mix = dict(c.mix, **SMALL[traffic])
-    return harness.Cell(c.name, c.entry, {"model": model, "reference": "moe_lm"}, mix,
-                        dict(LIMITS[mix["kind"]]),
-                        c.end_to_end, c.per_layer)
+def cell(workload: str, root=ROOT) -> harness.Cell:
+    """The cell ``workload`` of ``root``'s BENCHMARK.json at smoke widths
+    (the benchmark's files under ``root / "ocpbench"``)."""
+    c = harness.cell(bench(root), workload, root, here=root / "ocpbench")
+    small = c.config.get("smoke", {})
+    config = dict(c.config, **{k: v for k, v in small.items() if k != "limits"})
+    config.pop("smoke", None)
+    if "model" in c.config and "model" not in small:
+        config["model"] = MODELS[c.entry["config"]]
+    mix = dict(c.mix, **(c.mix["smoke"] if "smoke" in c.mix else SMALL[c.entry["traffic"]]))
+    mix.pop("smoke", None)
+    limits = small.get("limits", {}).get(mix["kind"]) or LIMITS[mix["kind"]]
+    return harness.Cell(c.name, c.entry, config, mix, dict(limits), c.end_to_end, c.per_layer,
+                        c.here)
 
 
 def run(workload: str, seed: int = 2 ** 33 + 7, seconds: float = 0.0, traced: bool = False,
@@ -54,8 +66,8 @@ def run(workload: str, seed: int = 2 ** 33 + 7, seconds: float = 0.0, traced: bo
                             time.perf_counter(), log=lambda *_: None)
 
 
-def workloads():
-    return [w["name"] for w in bench()["workloads"]]
+def workloads(root=ROOT):
+    return [w["name"] for w in bench(root)["workloads"]]
 
 
 def load(path):

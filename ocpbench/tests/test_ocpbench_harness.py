@@ -47,7 +47,7 @@ def test_traced_run_reports_per_layer_metrics(workload):
     # on the CPU only the host clock's and the program's counters read
     # anything: no device time, no peak
     host = {n for n in names if n.split(".")[0] in
-            ("data_ms", "prefill_ms", "decode_step_ms", "moe_drop_share")}
+            ("data_ms", "prefill_ms", "decode_step_ms", "moe_drop_share", "moe_experts_touched")}
     assert set(out["metrics"]) == host
     assert out["device"]["busy_s"] == 0 and out["device"]["window_s"] > 0
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
@@ -135,3 +135,64 @@ def test_the_command_refuses_without_a_card():
     assert out.returncode == 2
     assert out.stdout.strip() == ""
     assert "CUDA card" in out.stderr
+
+
+def spans_run(phase=None):
+    """A saved trace of a train step, a prefill and two decode steps with
+    the program's spans inside the benchmark's phase ranges."""
+    ev = trace.from_json(smoke.load(ROOT / "ocpbench/tests/data/trace_spans.json"))
+    families = ("moe_dispatch_ms", "moe_idle_ms", "moe_experts_touched")
+    recs = [dict(phase="decode", traced=False, counts=[1, 0, 0, 2, 0, 0, 1, 0], C=2, picks=4,
+                 dropped=0),
+            dict(phase="decode", traced=False, counts=[0, 1, 0, 2, 0, 0, 0, 0], C=2, picks=4,
+                 dropped=1),
+            dict(phase="prefill", traced=False, counts=[3, 1, 1, 1, 1, 1, 1, 4], C=3, picks=32,
+                 dropped=0)]
+    return harness.Run(model=smoke.GRANITE, mix={"phase_of": {f: phase for f in families}},
+                       peaks=counts.peaks("NVIDIA H100 80GB HBM3"),
+                       trace=trace.summarize(ev, window_s=3e-5), dispatches=recs, host={},
+                       calls={}, launches={})
+
+
+def test_span_readers_on_the_saved_trace():
+    # data.get_batch holds 100-1,900 ns on the host; the device ran 600-900
+    assert read("data_idle_ms.x", spans_run()) == pytest.approx(1500e-6)
+    # routing ops (route, dispatch, combine; not experts) by phase: the
+    # step's 400 + 400 + 200 ns, the prefill's 200 + 400 + 100, the two
+    # decode steps' 50 + 50 and 80 + 40 over 2 steps; everything at once
+    assert read("moe_dispatch_ms.x", spans_run("train")) == pytest.approx(1000e-6)
+    assert read("moe_dispatch_ms.x", spans_run("prefill")) == pytest.approx(700e-6)
+    assert read("moe_dispatch_ms.x", spans_run("decode")) == pytest.approx(110e-6)
+    assert read("moe_dispatch_ms.x", spans_run()) == pytest.approx(1920e-6)
+    # the prefill's four MoE spans cover 11,000-13,000 ns; the device ran
+    # 11,100-11,700, 11,900-12,500 and 12,700-12,800 of it; at decode
+    # 800 - 200 and 800 - 220 ns over 2 steps
+    assert read("moe_idle_ms.x", spans_run("prefill")) == pytest.approx(700e-6)
+    assert read("moe_idle_ms.x", spans_run("decode")) == pytest.approx(590e-6)
+    # 4 and 5 ops launched inside the two serve.decode_step spans (one op
+    # of the decode range lies outside both)
+    assert read("decode_launches.x", spans_run()) == pytest.approx(4.5)
+    # 3 and 2 experts with a pick in the two decode dispatches
+    assert read("moe_experts_touched.x", spans_run("decode")) == pytest.approx(2.5)
+    assert read("moe_experts_touched.x", spans_run("prefill")) == pytest.approx(8.0)
+
+
+def test_span_readers_read_nothing_without_the_device():
+    run = spans_run("prefill")
+    run.trace.ops, run.trace.busy = [], []  # a CPU run: ranges but no device op
+    for name in ("data_idle_ms.x", "moe_dispatch_ms.x", "moe_idle_ms.x", "decode_launches.x"):
+        assert read(name, run) is None, name
+    run.trace = None
+    run.dispatches = []
+    for name in ("data_idle_ms.x", "moe_dispatch_ms.x", "moe_idle_ms.x", "decode_launches.x",
+                 "moe_experts_touched.x"):
+        assert read(name, run) is None, name
+
+
+def test_the_command_keeps_python_bytecode_in_the_checkout():
+    child = ("import runpy, sys; runpy.run_path('ocpbench/run.py', run_name='x'); "
+             "print(sys.pycache_prefix, sys.dont_write_bytecode)")
+    out = subprocess.run([sys.executable, "-c", child], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == [str(ROOT / "build" / "pycache"), "False"]

@@ -9,10 +9,16 @@ plain lists, so a trace saved as JSON reads the same way (`from_json`).
 - ``busy_s``: the union of the intervals in which an operation ran on
   the device (kernels, copies, fills; overlapping work counts once);
 - ``ops``: each device operation with the host ranges that hold the host
-  call that launched it (the two share a correlation id): the
-  benchmark's ``ocpbench.*`` ranges and the program's own;
+  call that launched it (the two share a correlation id): every named
+  range of the trace, the benchmark's ``ocpbench.*`` ranges and each span
+  that the program opens (`repro_torch.obs.trace.span`), so that a reader
+  of a new span is a new file;
 - ``ranges``: the device time launched inside each named range, and
   (`Summary.idle_s`) the device's waits between the ops of one range;
+- ``spans``: each range's host intervals, and ``busy``: the merged
+  intervals in which the device ran something, so that
+  (`Summary.idle_within`) the device's idle time inside host intervals
+  can be read;
 - ``breakdown``: the operations that took most device time, and the
   longest idle gaps by the innermost host event under each.
 """
@@ -23,8 +29,9 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-# the host ranges a device op is attributed to: the benchmark's phases and
-# the program's own (train step parts, the kernels' backward recomputes)
+# the host ranges reported even where the trace holds none (their device
+# time 0): the benchmark's phases and the program's train step parts and
+# kernel recomputes; every other named range of a trace is reported beside
 RANGES = ("ocpbench.prefill", "ocpbench.decode", "ocpbench.train_step",
           "ocpbench.get_batch", "train_step.forward", "train_step.backward",
           "train_step.optimizer", "flash_attention.recompute", "moe_gemm.recompute",
@@ -112,6 +119,8 @@ class Summary:
     ops: List[Op]
     ranges: Dict[str, float]
     breakdown: Dict[str, list]
+    spans: Dict[str, List[Tuple[int, int]]]  # each range's host intervals, in order
+    busy: List[Tuple[int, int]]  # the device's busy intervals, merged, in order
 
     def device_s(self, match: Callable[[str], bool], within: Optional[str] = None) -> float:
         """Device seconds of the ops whose name ``match``es, launched
@@ -129,6 +138,34 @@ class Summary:
             return None
         busy, _ = union_s(ivs)
         return (max(b for _, b in ivs) - min(a for a, _ in ivs)) / 1e9 - busy
+
+    def within(self, names: Sequence[str], inside: Optional[str] = None) -> List[Op]:
+        """The ops launched inside any of the ranges ``names``, and inside
+        range ``inside`` where given."""
+        names = frozenset(names)
+        return [o for o in self.ops
+                if o.ranges & names and (inside is None or inside in o.ranges)]
+
+    def idle_within(self, names: Sequence[str], inside: Optional[str] = None) -> Optional[float]:
+        """Seconds of the host intervals of the ranges ``names`` (those that
+        lie inside an interval of range ``inside``, where given; their
+        union) in which no operation ran on the device.  None where the
+        trace holds no such interval or no device operation."""
+        ivs = [iv for n in names for iv in self.spans.get(n, ())]
+        if inside is not None:
+            outer = self.spans.get(inside, [])
+            ivs = [(a, b) for a, b in ivs if any(oa <= a and b <= ob for oa, ob in outer)]
+        if not ivs or not self.busy:
+            return None
+        total, merged = union_s(ivs)
+        starts = [a for a, _ in self.busy]
+        covered = 0
+        for a, b in merged:
+            i = max(bisect.bisect_right(starts, a) - 1, 0)
+            while i < len(self.busy) and self.busy[i][0] < b:
+                covered += max(0, min(b, self.busy[i][1]) - max(a, self.busy[i][0]))
+                i += 1
+        return total - covered / 1e9
 
 
 def _short(name: str, n: int = 96) -> str:
@@ -150,8 +187,7 @@ def _under(ev: Events, host, host_starts, t: int) -> str:
 def summarize(ev: Events, window_s: float) -> Summary:
     spans: Dict[str, List[Tuple[int, int]]] = {n: [] for n in RANGES}
     for n, a, b in ev.ranges:
-        if n in spans:
-            spans[n].append((a, b))
+        spans.setdefault(n, []).append((a, b))
     starts = {}
     for n in spans:
         spans[n].sort()
@@ -169,7 +205,7 @@ def summarize(ev: Events, window_s: float) -> Summary:
 
     ops = [Op(n, (b - a) / 1e9, holding(ev.launches.get(corr)), a, b)
            for n, a, b, corr in ev.device]
-    ranges = {n: sum(o.seconds for o in ops if n in o.ranges) for n in RANGES}
+    ranges = {n: sum(o.seconds for o in ops if n in o.ranges) for n in spans}
     busy, merged = union_s([(a, b) for _, a, b, _ in ev.device])
 
     by_name: Dict[str, float] = {}
@@ -189,4 +225,4 @@ def summarize(ev: Events, window_s: float) -> Summary:
     breakdown = {"device_ops": [[_short(n), s] for n, s in top_ops],
                  "idle_gaps": [[_short(n), s] for n, s in idle]}
     return Summary(window_s=window_s, busy_s=busy, ops=ops, ranges=ranges,
-                   breakdown=breakdown)
+                   breakdown=breakdown, spans=spans, busy=merged)

@@ -15,11 +15,16 @@ drives it there through every shape the window uses, runs the window
 (`window`), one more iteration under the profiler in a traced run
 (`iteration`), and after the program is freed (`free`) holds what the
 window produced to the plain reference (`check`).
+
+A kind that `KINDS` does not hold is a file ``kinds/<kind>.py`` under the
+benchmark's directory, whose class ``Kind`` the harness drives alike
+(`harness.kind`): it supplies ``setup``, ``window``, ``iteration``,
+``sync``, ``end_to_end``, ``free`` and ``check``, and ``attempted``,
+``failed``, ``window_s``, ``host``, ``calls`` and ``dispatches``.
 """
 from __future__ import annotations
 
 import gc
-import importlib
 import math
 import time
 from typing import Dict, List, Optional
@@ -36,7 +41,7 @@ from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.serve.serve_step import make_prefill_step, make_serve_step
 from repro_torch.train.train_step import make_train_step
 
-from . import weights
+from . import files, weights
 
 
 def now() -> float:
@@ -92,12 +97,13 @@ class Dispatches:
 
 class Traffic:
     """What both kinds share: the run's settings, the configuration's plain
-    reference (the module its ``reference`` key names under
-    ``ocpbench/reference/``) and the program's handles."""
+    reference (the module its ``reference`` key names under ``reference/``
+    of the benchmark's directory ``here``) and the program's handles."""
 
-    def __init__(self, config: Dict, mix: Dict, seed: int, device: torch.device):
+    def __init__(self, config: Dict, mix: Dict, seed: int, device: torch.device,
+                 here=files.HERE):
         self.m, self.mix, self.seed, self.dev = config["model"], mix, seed, device
-        self.reference = importlib.import_module(f"ocpbench.reference.{config['reference']}")
+        self.reference = files.module(here, "reference", config["reference"])
         self.cfg = ModelConfig(**self.m)
         self.dispatches = Dispatches()
         self.host: Dict[str, List[float]] = {}
@@ -108,7 +114,7 @@ class Traffic:
             torch.cuda.synchronize(self.dev)
 
     def draw_weights(self) -> Dict:
-        tree = weights.draw(self.m, self.seed, self.dev)
+        tree = weights.draw(self.m, self.seed, self.dev, self.reference)
         check_tree(tree, model_specs(self.cfg))
         return tree
 
@@ -234,7 +240,7 @@ class Train(Traffic):
         def fp32(t):
             return {k: fp32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
 
-        params = fp32(weights.draw(self.m, self.seed, self.dev))
+        params = fp32(weights.draw(self.m, self.seed, self.dev, self.reference))
         init = {p: w.clone() for p, w in self.reference.tree_paths(params)}
         out = self.reference.train_steps(self.m, self.hyper(), params, self.reference_batches(),
                                  self.mix["microbatches"], precision, keep_rows=keep_rows)
@@ -372,7 +378,7 @@ class BatchServe(Traffic):
 
     def check(self) -> Dict[str, float]:
         i = self.sample()
-        self.params = weights.draw(self.m, self.seed, self.dev)
+        self.params = weights.draw(self.m, self.seed, self.dev, self.reference)
         served = self.served[i].to(self.dev)
         self.ref = self.reference_logits(i, served, self.params)
         # the mean and not the widest gap: in the second layer about 1

@@ -1,13 +1,14 @@
 """Weights drawn from the seed, on the device, in the dtype they are served in.
 
 The tree is the one `repro_torch.models.LM` takes (the layers' leaves
-stacked on a leading axis); `shapes` lists it from a configuration's
-``model`` block alone, and the harness holds it to the program's own specs
-before handing it over.  Every normal leaf is N(0, 0.02) (the program's
-own initial scale), the norms' weights ones.  The bf16 leaves are views
-of one buffer and the fp32 ones of another, each filled by a few calls of
-a generator on the device (at most 2**30 values a call); the reference
-draws the same tree again from the same seed.
+stacked on a leading axis).  A configuration's plain reference that
+defines ``shapes(m)`` lists its tree itself; otherwise `shapes` here lists
+the MoE LM's from the ``model`` block alone.  The harness holds the tree
+to the program's own specs before handing it over.  Every normal leaf is
+N(0, 0.02) (the program's own initial scale), the norms' weights ones.
+The bf16 leaves are views of one buffer and the fp32 ones of another, each
+filled by a few calls of a generator on the device (at most 2**30 values a
+call); the reference draws the same tree again from the same seed.
 """
 from __future__ import annotations
 
@@ -59,11 +60,12 @@ def _numel(shape) -> int:
     return n
 
 
-def draw(m: Dict, seed: int, device) -> Dict:
+def draw(m: Dict, seed: int, device, reference=None) -> Dict:
     """The weights of the model ``m`` states, drawn from ``seed``: a nested
-    dict of tensors on ``device``."""
+    dict of tensors on ``device``; the leaves are ``reference.shapes(m)``
+    where the reference module defines it."""
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
-    leaves = shapes(m)
+    leaves = getattr(reference, "shapes", shapes)(m)
     offsets, total = {}, {}
     for path, shape, dt, init in leaves:
         if init == "normal":
