@@ -11,6 +11,10 @@ x, B and C are slices of one projection and go to the scan as strided
 views, without a copy.  `ssm_block` can also return what decode needs next:
 the final state and the conv tail, so a prefill builds its cache from the
 forward pass.  `ssm_decode_step` updates the cache in place.
+
+Spans (`obs.trace.span`): `ssm_block` enters ``ssm.inputs``, ``ssm.scan``
+and ``ssm.output`` once a call, around its three parts; `ssm_decode_step`
+enters ``ssm.decode`` once a call.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.trace import span
 from .config import ModelConfig
 from .layers import rms_norm
 from ..train.sharding import constrain
@@ -101,10 +106,13 @@ def ssm_block(p, cfg: ModelConfig, x: torch.Tensor, *, return_cache: bool = Fals
     """Full-sequence Mamba-2 mixer.  x (B, S, d) -> (B, S, d); with
     ``return_cache`` also the final state (B, H, P, N) fp32 and the conv
     tail (B, conv_width - 1, d_inner + 2N)."""
-    z, xbc, xs, dt, A, Bm, Cm = ssm_inputs(p, cfg, x)
-    y, state = ssd_scan(xs, dt, A, Bm, Cm,
-                        chunk=min(cfg.ssm_chunk, x.shape[1]))
-    out = ssm_output(p, cfg, z, xs, y)
+    with span("ssm.inputs"):
+        z, xbc, xs, dt, A, Bm, Cm = ssm_inputs(p, cfg, x)
+    with span("ssm.scan"):
+        y, state = ssd_scan(xs, dt, A, Bm, Cm,
+                            chunk=min(cfg.ssm_chunk, x.shape[1]))
+    with span("ssm.output"):
+        out = ssm_output(p, cfg, z, xs, y)
     if not return_cache:
         return out
     return out, state, conv_tail(xbc, cfg.conv_width)
@@ -117,25 +125,26 @@ def ssm_decode_step(p, cfg: ModelConfig, x: torch.Tensor, state: torch.Tensor,
     conv_state (B, conv_width - 1, d_inner + 2N).  Returns (y, state,
     conv_state), the two caches updated IN PLACE (the JAX reference returns
     new arrays; here no step copies the cache)."""
-    Bsz = x.shape[0]
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    di = cfg.d_inner
-    z = x @ p.w_z
-    xbc_t = (x @ p.w_xBC)[:, 0]                            # (B, d_conv)
-    hist = torch.cat([conv_state, xbc_t[:, None]], dim=1)
-    conv = (hist * p.conv_w[None]).sum(dim=1) + p.conv_b
-    conv = F.silu(conv.float()).to(x.dtype)                # (B, d_conv)
-    xs = conv[:, :di].reshape(Bsz, H, P).float()
-    Bv = conv[:, di:di + N].float()
-    Cv = conv[:, di + N:].float()
-    dt = F.softplus((x[:, 0] @ p.w_dt).float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
-    decay = torch.exp(dt * A)                              # (B, H)
-    state.mul_(decay[..., None, None]).add_(
-        (dt[..., None] * xs)[..., None] * Bv[:, None, None, :])
-    y = state_readout(state, Cv)                           # (B, H, P)
-    y = y + p.D[:, None] * xs
-    y = y.reshape(Bsz, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.norm, cfg.norm_eps)
-    conv_state.copy_(hist[:, 1:])
-    return y @ p.w_out, state, conv_state
+    with span("ssm.decode"):
+        Bsz = x.shape[0]
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        di = cfg.d_inner
+        z = x @ p.w_z
+        xbc_t = (x @ p.w_xBC)[:, 0]                            # (B, d_conv)
+        hist = torch.cat([conv_state, xbc_t[:, None]], dim=1)
+        conv = (hist * p.conv_w[None]).sum(dim=1) + p.conv_b
+        conv = F.silu(conv.float()).to(x.dtype)                # (B, d_conv)
+        xs = conv[:, :di].reshape(Bsz, H, P).float()
+        Bv = conv[:, di:di + N].float()
+        Cv = conv[:, di + N:].float()
+        dt = F.softplus((x[:, 0] @ p.w_dt).float() + p.dt_bias)
+        A = -torch.exp(p.A_log)
+        decay = torch.exp(dt * A)                              # (B, H)
+        state.mul_(decay[..., None, None]).add_(
+            (dt[..., None] * xs)[..., None] * Bv[:, None, None, :])
+        y = state_readout(state, Cv)                           # (B, H, P)
+        y = y + p.D[:, None] * xs
+        y = y.reshape(Bsz, 1, di).to(x.dtype)
+        y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.norm, cfg.norm_eps)
+        conv_state.copy_(hist[:, 1:])
+        return y @ p.w_out, state, conv_state

@@ -6,7 +6,9 @@ MoE call enters ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
 ``moe.combine`` once, on the plain path and on the sharded one
 (`models.moe._moe_sharded`, DTensors over the fake 2 x 2 mesh); each decode
 step enters ``serve.decode_step`` once and each `DataPipeline.get_batch`
-``data.get_batch`` once; a train step still enters ``train_step.forward``,
+``data.get_batch`` once; each Mamba-2 mixer call enters ``ssm.inputs``,
+``ssm.scan`` and ``ssm.output`` once, and each of its decode steps
+``ssm.decode``; a train step still enters ``train_step.forward``,
 ``.backward`` and ``.optimizer``, and the kernels' backwards
 ``moe_gemm.recompute`` and ``flash_attention.recompute``, under the names
 the benchmark's readers look for.
@@ -192,3 +194,52 @@ def test_the_scan_backward_enters_its_recompute():
     (gx,), entered = profiled(run)
     assert gx.shape == x.shape
     assert entered.get("ssd_scan.recompute") == 1
+
+
+SSM_SPANS = ("ssm.inputs", "ssm.scan", "ssm.output")
+
+
+def mamba(**overrides):
+    cfg = get_smoke_config("mamba2-370m").scaled(dtype="float32", **overrides)
+    return cfg, build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def test_each_ssm_block_enters_its_three_spans_once():
+    cfg, model = mamba()
+    with torch.no_grad():
+        _, entered = profiled(lambda: model(tokens(cfg, S=2 * cfg.ssm_chunk)))
+    for name in SSM_SPANS:
+        assert entered.get(name) == cfg.n_layers, name
+    assert "ssm.decode" not in entered
+
+
+def test_each_ssm_decode_step_enters_its_span_once():
+    cfg, model = mamba()
+    prefill, step = make_prefill_step(model, cfg), make_serve_step(model, cfg)
+    prompts = tokens(cfg, S=6)
+
+    def serve():
+        logits, cache = prefill(prompts, cache_len=10)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        for j in range(3):
+            tok, _, cache = step(cache, tok, 6 + j)
+        return tok
+
+    with torch.inference_mode():
+        _, entered = profiled(serve)
+    assert entered.get("ssm.decode") == 3 * cfg.n_layers
+    for name in SSM_SPANS:  # the prefill's pass
+        assert entered.get(name) == cfg.n_layers, name
+
+
+def test_an_ssm_train_step_enters_the_mixer_spans_twice_a_layer():
+    """Under ``block`` each layer's mixer runs again in the backward."""
+    cfg, model = mamba()
+    assert cfg.remat == "block"
+    step = make_train_step(model, cfg, AdamWConfig(), n_microbatches=2)
+    opt = adamw_init(model.param_tree())
+    toks = tokens(cfg, B=4, S=cfg.ssm_chunk + 5)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _, entered = profiled(lambda: step(opt, batch))
+    for name in SSM_SPANS:
+        assert entered.get(name) == 2 * 2 * cfg.n_layers, name
