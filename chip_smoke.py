@@ -437,7 +437,13 @@ from repro_torch.kernels import _bench, _build  # noqa: E402
 from repro_torch.kernels.cutout_gather import ops as gather_ops  # noqa: E402
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (GRAD_F64, GRAD_MAX,  # noqa: E402
+                                                     GRAD_NORM, GRAD_VS_F64, LSE_ATOL,
+                                                     flash_attention_grad_f64,
+                                                     flash_attention_grad_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref, grad_gaps,
+                                                     outside_grad_limits)
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import bench as mg_bench  # noqa: E402
@@ -4238,8 +4244,8 @@ def training_path(tc, dev, cfg, model, opt, pipe, report):
 
 
 # the kernels a family's training forward launches (the backward
-# differentiates their plain versions, but for the MoE's bf16 expert GEMM,
-# which has a backward kernel)
+# differentiates their plain versions, but for bf16 causal attention at D
+# 64 and 128 and the MoE's bf16 expert GEMM, which have backward kernels)
 TRAIN_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention", "moe_gemm"),
                  "ssm": ("ssd_scan",), "hybrid": ("flash_attention",),
                  "encdec": ("flash_attention",)}
@@ -4262,9 +4268,11 @@ def kernel_calls(cfg):
 def check_training_launches(tc, cfg, counts):
     """Each of the family's kernels exactly `kernel_calls` x the policy's
     forward passes (2 under ``block``) per microbatch and step;
-    `cutout_gather` at least once a step (the pipeline's rows).  The MoE's
-    bf16 backward through `moe_gemm`'s backward kernel once a layer per
-    microbatch and step, and never through the plain recompute."""
+    `cutout_gather` at least once a step (the pipeline's rows).  The dense
+    and MoE families' bf16 attention (causal, D 64) through
+    `flash_attention`'s gradient kernels, and the MoE's bf16 expert GEMM
+    through `moe_gemm`'s backward kernel, once a layer per microbatch and
+    step, and never through the plain recompute."""
     want = kernel_calls(cfg) * REMAT_PASSES[cfg.remat] * tc["microbatches"] * tc["steps"]
     bad = {k: counts[k] for k in TRAIN_KERNELS[cfg.family] if counts[k] != want}
     if bad or counts["cutout_gather"] < tc["steps"]:
@@ -4273,16 +4281,18 @@ def check_training_launches(tc, cfg, counts):
                            f"({kernel_calls(cfg)} calls x {REMAT_PASSES[cfg.remat]} passes "
                            f"under remat {cfg.remat!r} x microbatches x steps) and "
                            f"cutout_gather >= {tc['steps']}")
-    if cfg.family == "moe":
-        backward = dict(backward_launches=mg_ops.backward_launches,
-                        backward_plain=mg_ops.backward_plain)
+    backward_ops = {"dense": (fa_ops,), "moe": (fa_ops, mg_ops)}.get(cfg.family, ())
+    for ops_ in backward_ops:
+        backward = dict(backward_launches=ops_.backward_launches,
+                        backward_plain=ops_.backward_plain)
         want_b = dict(backward_launches=cfg.n_layers * tc["microbatches"] * tc["steps"],
                       backward_plain=0)
+        name = ops_.NAME
         if backward != want_b:
-            raise RuntimeError(f"{cfg.name} training: moe_gemm backward calls {backward}, "
+            raise RuntimeError(f"{cfg.name} training: {name} backward calls {backward}, "
                                f"want {want_b} (layers x microbatches x steps through the "
                                f"backward kernel)")
-        counts.update({f"moe_gemm.{k}": v for k, v in backward.items()})
+        counts.update({f"{name}.{k}": v for k, v in backward.items()})
 
 
 def train_flops(cfg, seq_len, seqs):
@@ -4480,21 +4490,32 @@ def training_phase(tc, dev, name, report, by_path):
 
 # B2's gradient where the hybrid's window binds (Skv > window: at the
 # training phase's 2,048 positions the window of 2,048 masks nothing) and
-# the encoder-decoder's unmasked attention at Sq != Skv: (B, Sq, Skv, H, K,
-# D, causal, window)
+# the encoder-decoder's unmasked attention at Sq != Skv, which take the
+# plain recompute; then the shapes the gradient kernels take in bf16: a
+# train-2k microbatch (its fp64 gradient taken a sequence at a time),
+# arctic's 56 over 8 at D 128, and a window that binds at D 64: (B, Sq, Skv,
+# H, K, D, causal, window)
 ATTN_GRAD_FULL = [(2, 4096, 4096, 10, 1, 256, True, 2048), (2, 2048, 512, 16, 16, 64, False, None),
-                  (2, 512, 2048, 16, 16, 64, False, None)]
+                  (2, 512, 2048, 16, 16, 64, False, None), (8, 2048, 2048, 16, 8, 64, True, None),
+                  (1, 2048, 2048, 56, 8, 128, True, None), (2, 2048, 2048, 16, 8, 64, True, 512)]
 ATTN_GRAD_TINY = [(1, 64, 64, 10, 1, 256, True, 32), (1, 32, 16, 4, 4, 16, False, None),
-                  (1, 16, 32, 4, 4, 16, False, None)]
+                  (1, 16, 32, 4, 4, 16, False, None), (1, 64, 64, 4, 2, 64, True, None),
+                  (1, 48, 48, 7, 1, 128, True, 16)]
 
 
 def attention_grad_checks(shapes, dev, report, errs):
     """`flash_attention`'s differentiable route (the kernel inside
-    `FlashAttention` on the card, one launch) against the plain version on
-    the same tensors, bf16 and fp32: the forward within phase 6's
-    tolerances, and dq, dk and dv equal bit for bit (the Function's
-    backward differentiates the plain version from its saved inputs),
-    finite and nonzero."""
+    `FlashAttention` on the card, one forward launch) against the plain
+    version on the same tensors, bf16 and fp32: the forward within phase
+    6's tolerances; where the call takes the plain recompute, dq, dk and dv
+    equal bit for bit (the Function's backward differentiates the plain
+    version from its saved inputs); where it takes the gradient kernels
+    (bf16 causal self-attention at D 64 and 128, `grad_kernel_takes`),
+    the logsumexp entry's out bit-equal to the route's and its lse within
+    `LSE_ATOL` of `flash_attention_lse_ref`'s, and dq, dk, dv within the
+    ``GRAD_*`` limits of `flash_attention_grad_ref` (`outside_grad_limits`:
+    near the twin, and both near `flash_attention_grad_f64`); finite and
+    nonzero, each backward counted on its route."""
     gen = torch.Generator(device=dev).manual_seed(28)
     rows = {}
     for B, Sq, Skv, H, K, D, causal, window in shapes:
@@ -4504,16 +4525,20 @@ def attention_grad_checks(shapes, dev, report, errs):
                                            (B, Sq, H, D)))
             qkv = [t.requires_grad_() for t in (q, k, v)]
             attn = dict(causal=causal, window=window)
-            before = fa_ops.launches
+            kernel = dev.type == "cuda" and fa_ops.grad_kernel_takes(q, k, causal=causal)
+            before = (fa_ops.launches, fa_ops.backward_launches, fa_ops.backward_plain)
             out = fa_ops.flash_attention(*qkv, **attn)
-            want = flash_attention_ref(*qkv, scale=D ** -0.5, **attn)
+            with torch.set_grad_enabled(not kernel):  # the plain route's gradient only
+                want = flash_attention_ref(*qkv, scale=D ** -0.5, **attn)
             got_g = torch.autograd.grad(out, qkv, dout)
-            want_g = torch.autograd.grad(want, qkv, dout)
             sync(dev)
             label = (f"flash_attention gradient {B} x {Sq} x {Skv}, H {H}, K {K}, D {D}, "
                      f"{'causal' if causal else 'unmasked'}, window {window}, {str(dt)[6:]}")
-            if dev.type == "cuda" and fa_ops.launches != before + 1:
-                raise RuntimeError(f"{label}: {fa_ops.launches - before} launches, want 1")
+            counted = (fa_ops.launches - before[0], fa_ops.backward_launches - before[1],
+                       fa_ops.backward_plain - before[2])
+            if dev.type == "cuda" and counted != (1, int(kernel), int(not kernel)):
+                raise RuntimeError(f"{label}: (launches, backward_launches, backward_plain) "
+                                   f"{counted}, want (1, {int(kernel)}, {int(not kernel)})")
             mean_abs = float(want.float().abs().mean())
             tol = (dict(atol=FULL_WIDTH_BF16_ATOL_SHARE * mean_abs, rtol=BF16_TOL["rtol"])
                    if dt == torch.bfloat16 else FP32_TOL)
@@ -4523,17 +4548,46 @@ def attention_grad_checks(shapes, dev, report, errs):
                 raise RuntimeError(f"{label}: kernel != plain\n{e}") from None
             err = float((out.float() - want.float()).abs().max())
             errs.append(err)
-            for name, g, w in zip("qkv", got_g, want_g):
-                if not (torch.equal(g, w) and bool(torch.isfinite(g.float()).all())
-                        and bool((g != 0).any())):
-                    raise RuntimeError(f"{label}: d{name} differs from the plain route's, or "
-                                       f"is not finite, or is zero")
+            row = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
+            if kernel:
+                plain = dict(scale=D ** -0.5, **attn)
+                q, k, v, o = (t.detach() for t in (*qkv, out))
+                o_lse, lse = fa_ops.flash_attention_cuda(q, k, v, lse=True, **plain)
+                if not torch.equal(o_lse, o):
+                    raise RuntimeError(f"{label}: the logsumexp entry's out is not the route's")
+                row["lse_max_abs_err"] = lse_err = float(
+                    (lse - flash_attention_lse_ref(q, k, **plain)).abs().max())
+                if not lse_err <= LSE_ATOL:
+                    raise RuntimeError(f"{label}: lse {lse_err:.3g} from flash_attention_lse_ref, "
+                                       f"limit {LSE_ATOL:.3g}")
+                twin = flash_attention_grad_ref(q, k, v, o, lse, dout, **plain)
+                exact = flash_attention_grad_f64(q, k, v, dout, **plain)
+                row["grads"] = grads = grad_gaps(got_g, twin, exact)
+                del twin, exact, lse, o_lse
+                if outside := outside_grad_limits(grads):
+                    raise RuntimeError(f"{label}: {outside} outside the limits of "
+                                       f"flash_attention_grad_ref: {grads}")
+                how = f"lse {lse_err:.3g} from the plain logsumexp (limit {LSE_ATOL:.3g}); " + (
+                    "; ".join(
+                        f"{n} {r['rel_norm']:.3g} of the twin in norm (limit {GRAD_NORM:.3g}), "
+                        f"{r['max_share']:.3g} of max |g| (limit {GRAD_MAX:.3g}), vs fp64 "
+                        f"kernel {r['kernel_vs_f64']:.4g} twin {r['twin_vs_f64']:.4g} (limits "
+                        f"{GRAD_VS_F64:.3g} x the twin, {GRAD_F64:.3g})" for n, r in grads.items()))
+            else:
+                want_g = torch.autograd.grad(want, qkv, dout)
+                if not all(torch.equal(g, w) for g, w in zip(got_g, want_g)):
+                    raise RuntimeError(f"{label}: a gradient differs from the plain route's")
+                del want_g
+                how = "dq, dk, dv bit-equal to the plain route's"
+            for name, g in zip("qkv", got_g):
+                if not (bool(torch.isfinite(g.float()).all()) and bool((g != 0).any())):
+                    raise RuntimeError(f"{label}: d{name} is not finite, or is zero")
             if window is not None and Skv <= window:
                 raise RuntimeError(f"{label}: the window does not bind")
-            rows[label] = dict(max_abs_err=err, mean_abs_out=mean_abs, **tol)
+            rows[label] = row
             log(f"{label}: forward max |kernel - plain| {err:.3g} (mean |out| {mean_abs:.3g}); "
-                f"dq, dk, dv bit-equal to the plain route's, finite, nonzero")
-            del q, k, v, dout, qkv, out, want, got_g, want_g
+                f"{'gradient kernels' if kernel else 'plain recompute'}: {how}; finite, nonzero")
+            del q, k, v, dout, qkv, out, want, got_g
     report["attention_grad_checks"] = rows
 
 

@@ -63,6 +63,23 @@
 // 64-wide head would otherwise be bound by.  cp.async moves 16-byte chunks,
 // so q, k and v must have 16-byte aligned bases and strides a multiple of
 // 8 elements (the wrapper hands over aligned copies otherwise).
+//
+// Gradient (bf16, causal self-attention, D 64 or 128, any window).  No TPU
+// kernel: the JAX package's gradient is XLA's autodiff of jnp code, which
+// the port's plain recompute (ops.py) repeats over (B, K, G, S, S) fp32
+// scores.  It needs five products per live (query head, key) pair, 10 * D
+// operations: S = q k^T again, dP = dO v^T, dV = P^T dO, dQ = dS k, dK =
+// dS^T q, bound by the tensor rate.  FlashAttention-2's split, written once
+// with no atomics: attn_grad_delta takes delta = rowsum(dO o) in fp32;
+// attn_grad_dkdv_tc holds 64 keys a block and walks the forward's packed
+// row tiles; attn_grad_dq_tc holds a row tile and walks the forward's key
+// tiles, recomputing S and dP (seven products in all).  The forward's
+// `flash_attention_lse_launch` leaves each row's logsumexp in base 2, so P
+// = exp2(s scale log2 e - lse) needs no second pass.  P is rounded to bf16
+// before dV, dS before dQ and dK; every sum is fp32 (ref.py's
+// flash_attention_grad_ref rounds at the same places).  The mma.sync,
+// ldmatrix and cp.async conventions, the dead-tile and edge tests are the
+// forward's body's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -344,12 +361,13 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t ro
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
     flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, Strides qs,
-                       Strides ks, Strides vs, Strides os, int Sq, int Skv, int G, int Bq,
-                       int causal, int window, float scale) {
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                       Strides os, int Sq, int Skv, int G, int Bq, int causal, int window,
+                       float scale) {
   using C = Cfg<D>;
   constexpr int KB = C::KB, LD = C::LD, CPR = C::CPR;
   extern __shared__ float4 smem4[];
@@ -527,28 +545,487 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
     for (int t = 0; t < D / 8; ++t)
       *reinterpret_cast<__nv_bfloat162*>(orow + t * 8) =
           __floats2bfloat162_rn(o[t][2 * h] / den, o[t][2 * h + 1] / den);
+    // (B, H, Sq), base 2: the gradient's p = exp2(s - lse); after the row's
+    // output, whose accumulators are then free
+    if constexpr (LSE) {
+      const int64_t row = (int64_t)b * gridDim.y * G + kh * G + r % G;
+      if (qd == 0) lse[row * Sq + q0 + r / G] = m[h] + log2f(l[h]);
+    }
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strides qs,
-                   Strides ks, Strides vs, Strides os, int B, int Sq, int Skv, int K,
-                   int G, int causal, int window, float scale, cudaStream_t stream) {
+template <int D, bool LSE = false>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   Strides qs, Strides ks, Strides vs, Strides os, int B, int Sq, int Skv,
+                   int K, int G, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Cfg<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_tc<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_tc<D, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   const int Bq = kRows / G;
   const dim3 grid((Sq + Bq - 1) / Bq, K, B);
-  flash_attention_tc<D><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_tc<D, LSE><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os, Sq, Skv, G,
-      Bq, causal, window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, qs, ks, vs, os, Sq, Skv,
+      G, Bq, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace tc
+
+// -------------------------------------------------- bf16 gradient: tensor cores
+
+namespace grad {
+
+using bf16 = __nv_bfloat16;
+using tc::kThreads;  // 4 warps of 16 rows (dQ) or 16 keys (dK, dV)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKeys = 64;  // keys a dK/dV block owns; keys a tile of the dQ walk
+constexpr int kRc = 32;    // (query, head) rows a dK/dV product step takes
+
+template <int D>
+struct Cfg {
+  static constexpr int LD = D + 8;  // as the forward's rows: ldmatrix on distinct banks
+  static constexpr int CPR = D / 8;
+  static constexpr bool REG = D <= 64;  // the block's own operands' fragments in registers
+  // K and V, and two buffers each of q and dO (dK/dV); q and dO, and two
+  // buffers each of K and V (dQ); 64 rows of D + 8 each
+  static constexpr size_t tiles = (size_t)6 * 64 * LD * sizeof(bf16);
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// delta[b, h, i] = sum_d dO . O over the row (query i, head h), in fp32 from
+// the bf16 values: D / 8 lanes a row, 16 bytes each, summed by xor shuffles
+template <int D>
+__global__ void __launch_bounds__(256)
+    attn_grad_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    float* __restrict__ delta, Strides os, Strides ds, int S, int H,
+                    int64_t rows) {
+  constexpr int L = D / 8;
+  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t row = t / L;  // (b, i, h), h fastest
+  const int c = (int)(t % L);
+  float acc = 0.f;
+  int64_t b = 0;
+  int i = 0, h = 0;
+  if (row < rows) {
+    h = (int)(row % H);
+    i = (int)((row / H) % S);
+    b = row / ((int64_t)H * S);
+    const uint4 a = *reinterpret_cast<const uint4*>(o + b * os.b + (int64_t)i * os.s +
+                                                    (int64_t)h * os.h + c * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + b * ds.b + (int64_t)i * ds.s +
+                                                    (int64_t)h * ds.h + c * 8);
+    const bf16* pa = reinterpret_cast<const bf16*>(&a);
+    const bf16* pg = reinterpret_cast<const bf16*>(&g);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(pa[e]), __bfloat162float(pg[e]), acc);
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) delta[(b * H + h) * S + i] = acc;
+}
+
+// dK and dV of 64 keys of one kv head: warp w owns keys 16 w .. 16 w + 15.
+// The block walks the tiles of 64 (query, head) rows, packed as the
+// forward packs them (Bq = 64 / G queries, all G heads of the kv head),
+// from the first that sees one of its keys (the diagonal) to the last the
+// window lets see one; q, dO and the rows' lse and delta double-buffered by
+// cp.async.  Each step of kRc rows: S^T = K q^T and dP^T = V dO^T (keys x
+// rows), P^T = exp2(S^T scale log2 e - lse) masked, dS^T = P^T (dP^T -
+// delta); dV += P^T dO with P^T rounded to bf16, dK += dS^T q with dS^T
+// rounded to bf16, both fp32 in registers, from the accumulator fragments
+// as A operands as the forward feeds p.  Rows past the queries (padding,
+// the last tile) are zeros in q, dO, lse and delta and add nothing.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attn_grad_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, Strides qs, Strides ks,
+                      Strides vs, Strides dos, Strides dks, Strides dvs, int S, int G,
+                      int Bq, int window, float scale) {
+  using C = Cfg<D>;
+  constexpr int LD = C::LD, CPR = C::CPR;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [64][LD]
+  bf16* Vs = Ks + kKeys * LD;                 // [64][LD]
+  bf16* Qs = Vs + kKeys * LD;                 // [2][64][LD]
+  bf16* Os = Qs + 2 * kRows * LD;             // [2][64][LD]: dO
+  float* Ls = reinterpret_cast<float*>(Os + 2 * kRows * LD);  // [2][64]: lse
+  float* Es = Ls + 2 * kRows;                                 // [2][64]: delta
+
+  const int kh = blockIdx.y, b = blockIdx.z, H = gridDim.y * G;
+  const int k0 = blockIdx.x * kKeys;  // the first key tiles walk the most rows: launched first
+  const int k_hi = min(k0 + kKeys, S) - 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, qd = lane % 4;
+  const float scale2 = scale * kLog2e;
+
+  tc::load_rows<D>(Ks, k + b * ks.b + kh * ks.h + (int64_t)k0 * ks.s, ks.s, kKeys, k_hi - k0 + 1);
+  tc::load_rows<D>(Vs, v + b * vs.b + kh * vs.h + (int64_t)k0 * vs.s, vs.s, kKeys, k_hi - k0 + 1);
+  hopper::cp_async_commit();
+
+  // the row tiles [t0, t1) that see a key of [k0, k_hi]: causal, the last
+  // query at or past k0; under a window, the first query within it of k_hi
+  const int n_qt = (S + Bq - 1) / Bq;
+  const int t0 = k0 / Bq;
+  const int t1 = window > 0 ? min(n_qt, (window + k_hi + Bq - 1) / Bq) : n_qt;
+
+  auto load_q = [&](int t, int buf) {
+    const int q0 = t * Bq, nrows = min(Bq, S - q0) * G;
+    bf16* qd_ = Qs + buf * kRows * LD;
+    bf16* od_ = Os + buf * kRows * LD;
+    for (int i = threadIdx.x; i < kRows * CPR; i += kThreads) {
+      const int r = i / CPR, c = i - (i / CPR) * CPR;
+      const bool ok = r < nrows;
+      const int64_t qi = q0 + r / G, h = kh * G + r % G;
+      hopper::cp_async16(qd_ + r * LD + c * 8, ok ? q + b * qs.b + qi * qs.s + h * qs.h + c * 8 : q,
+                         ok);
+      hopper::cp_async16(od_ + r * LD + c * 8,
+                         ok ? dout + b * dos.b + qi * dos.s + h * dos.h + c * 8 : dout, ok);
+    }
+    if (threadIdx.x < kRows) {
+      const int r = threadIdx.x;
+      const bool ok = r < nrows;
+      const int64_t at = ((int64_t)b * H + kh * G + r % G) * S + q0 + r / G;
+      cp_async4(Ls + buf * kRows + r, ok ? lse + at : lse, ok);
+      cp_async4(Es + buf * kRows + r, ok ? delta + at : delta, ok);
+    }
+  };
+
+  // this thread's two keys of its warp's 16 (the accumulators' rows)
+  const int key[2] = {k0 + warp * 16 + lane / 4, k0 + warp * 16 + lane / 4 + 8};
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
+  uint32_t kf[C::REG ? D / 16 : 1][4], vf[C::REG ? D / 16 : 1][4];
+  const int arow = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // A fragments' rows
+
+  if (t0 < t1) load_q(t0, 0);
+  hopper::cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) load_q(t + 1, buf ^ 1);  // flies during this tile's products
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();  // K, V and tile t have landed
+    __syncthreads();
+    if constexpr (C::REG) {
+      if (t == t0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hopper::ldmatrix_x4(kf[kk], Ks + arow + kk * 16);
+          hopper::ldmatrix_x4(vf[kk], Vs + arow + kk * 16);
+        }
+      }
+    }
+    const bf16* Qt = Qs + buf * kRows * LD;
+    const bf16* Ot = Os + buf * kRows * LD;
+    const float* Lt = Ls + buf * kRows;
+    const float* Et = Es + buf * kRows;
+    const int q0 = t * Bq, q_last = min(q0 + Bq, S) - 1;
+    // a row before a key, or past the window: the forward's edge test
+    const bool edge = q0 < k0 + kKeys - 1 || (window > 0 && q_last - k0 >= window);
+
+#pragma unroll
+    for (int rc = 0; rc < kRows; rc += kRc) {
+      float s[kRc / 8][4], dp[kRc / 8][4];
+#pragma unroll
+      for (int n = 0; n < kRc / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        if constexpr (C::REG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ak[e] = kf[kk][e], av[e] = vf[kk][e];
+        } else {
+          hopper::ldmatrix_x4(ak, Ks + arow + kk * 16);
+          hopper::ldmatrix_x4(av, Vs + arow + kk * 16);
+        }
+#pragma unroll
+        for (int n = 0; n < kRc / 8; n += 2) {
+          const int at = (rc + n * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                         ((lane / 8) % 2) * 8;
+          uint32_t bq[4], bo[4];
+          hopper::ldmatrix_x4(bq, Qt + at);
+          hopper::mma_bf16_16816(s[n], ak, bq);
+          hopper::mma_bf16_16816(s[n + 1], ak, bq + 2);
+          hopper::ldmatrix_x4(bo, Ot + at);
+          hopper::mma_bf16_16816(dp[n], av, bo);
+          hopper::mma_bf16_16816(dp[n + 1], av, bo + 2);
+        }
+      }
+      // P^T and dS^T on the fragments, rounded to bf16 as A operands
+      uint32_t pf[kRc / 16][4], sf[kRc / 16][4];
+#pragma unroll
+      for (int n = 0; n < kRc / 8; ++n) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = rc + n * 8 + 2 * qd + (e & 1);
+          float x = exp2f(s[n][e] * scale2 - Lt[r]);
+          if (edge) {
+            const int qp = q0 + r / G, kp = key[e / 2];
+            if (qp < kp || (window > 0 && qp - kp >= window)) x = 0.f;
+          }
+          p[e] = x;
+          ds[e] = x * (dp[n][e] - Et[r]);
+        }
+        pf[n / 2][(n % 2) * 2] = hopper::pack_bf16(p[0], p[1]);
+        pf[n / 2][(n % 2) * 2 + 1] = hopper::pack_bf16(p[2], p[3]);
+        sf[n / 2][(n % 2) * 2] = hopper::pack_bf16(ds[0], ds[1]);
+        sf[n / 2][(n % 2) * 2 + 1] = hopper::pack_bf16(ds[2], ds[3]);
+      }
+      // dV += P^T dO, dK += dS^T q: dO and q by ldmatrix.trans from their rows
+#pragma unroll
+      for (int kt = 0; kt < kRc / 16; ++kt) {
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          const int at = (rc + kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + n * 8 +
+                         (lane / 16) * 8;
+          uint32_t bo[4], bq[4];
+          hopper::ldmatrix_x4_trans(bo, Ot + at);
+          hopper::mma_bf16_16816(dva[n], pf[kt], bo);
+          hopper::mma_bf16_16816(dva[n + 1], pf[kt], bo + 2);
+          hopper::ldmatrix_x4_trans(bq, Qt + at);
+          hopper::mma_bf16_16816(dka[n], sf[kt], bq);
+          hopper::mma_bf16_16816(dka[n + 1], sf[kt], bq + 2);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is refilled at the next tile
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= S) continue;
+    bf16* kr = dk + b * dks.b + (int64_t)key[h] * dks.s + kh * dks.h + 2 * qd;
+    bf16* vr = dv + b * dvs.b + (int64_t)key[h] * dvs.s + kh * dvs.h + 2 * qd;
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(kr + t * 8) =
+          __floats2bfloat162_rn(dka[t][2 * h] * scale, dka[t][2 * h + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vr + t * 8) =
+          __floats2bfloat162_rn(dva[t][2 * h], dva[t][2 * h + 1]);
+    }
+  }
+}
+
+// dQ of one tile of 64 (query, head) rows, packed as the forward packs
+// them: warp w owns rows 16 w .. 16 w + 15.  The block walks the forward's
+// live key tiles (64 keys, double-buffered by cp.async): S = q K^T and dP =
+// dO V^T, P = exp2(S scale log2 e - lse) masked, dS = P (dP - delta), dQ +=
+// dS K with dS rounded to bf16 (K by ldmatrix.trans), fp32 in registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attn_grad_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, Strides qs, Strides ks, Strides vs, Strides dos,
+                    Strides dqs, int S, int G, int Bq, int window, float scale) {
+  using C = Cfg<D>;
+  constexpr int KB = kKeys, LD = C::LD, CPR = C::CPR;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [64][LD]
+  bf16* Os = Qs + kRows * LD;                 // [64][LD]: dO
+  bf16* Ks = Os + kRows * LD;                 // [2][KB][LD]
+  bf16* Vs = Ks + 2 * KB * LD;                // [2][KB][LD]
+
+  const int kh = blockIdx.y, b = blockIdx.z, H = gridDim.y * G;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Bq;  // the last rows walk the most keys: first
+  const int nq = min(Bq, S - q0), nrows = nq * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, qd = lane % 4;
+  const float scale2 = scale * kLog2e;
+
+  for (int i = threadIdx.x; i < kRows * CPR; i += kThreads) {
+    const int r = i / CPR, c = i - (i / CPR) * CPR;
+    const bool ok = r < nrows;
+    const int64_t qi = q0 + r / G, h = kh * G + r % G;
+    hopper::cp_async16(Qs + r * LD + c * 8, ok ? q + b * qs.b + qi * qs.s + h * qs.h + c * 8 : q,
+                       ok);
+    hopper::cp_async16(Os + r * LD + c * 8,
+                       ok ? dout + b * dos.b + qi * dos.s + h * dos.h + c * 8 : dout, ok);
+  }
+  hopper::cp_async_commit();
+
+  // this thread's two rows, their query positions, lse and delta
+  const int rows[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
+  int qpos[2];
+  float L[2], E[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rows[h];
+    qpos[h] = q0 + r / G;
+    const int64_t at = ((int64_t)b * H + kh * G + r % G) * S + qpos[h];
+    L[h] = r < nrows ? lse[at] : 0.f;
+    E[h] = r < nrows ? delta[at] : 0.f;
+  }
+
+  // the forward's live kv tiles [j0, j1)
+  const int q_lo = q0, q_hi = q0 + nq - 1;
+  const int j1 = min((S + KB - 1) / KB, q_hi / KB + 1);
+  int j0 = 0;
+  if (window > 0)
+    while (j0 < j1 && q_lo - (min((j0 + 1) * KB, S) - 1) >= window) ++j0;
+
+  const bf16* kb = k + b * ks.b + kh * ks.h;
+  const bf16* vb = v + b * vs.b + kh * vs.h;
+  auto load_kv = [&](int j, int buf) {
+    const int live = min(KB, S - j * KB);
+    tc::load_rows<D>(Ks + buf * KB * LD, kb + (int64_t)j * KB * ks.s, ks.s, KB, live);
+    tc::load_rows<D>(Vs + buf * KB * LD, vb + (int64_t)j * KB * vs.s, vs.s, KB, live);
+  };
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) dqa[t][0] = dqa[t][1] = dqa[t][2] = dqa[t][3] = 0.f;
+  uint32_t qf[C::REG ? D / 16 : 1][4], of[C::REG ? D / 16 : 1][4];
+  const int arow = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+
+  if (j0 < j1) load_kv(j0, 0);
+  hopper::cp_async_commit();
+  for (int j = j0; j < j1; ++j) {
+    const int buf = (j - j0) & 1;
+    if (j + 1 < j1) load_kv(j + 1, buf ^ 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();  // q, dO and tile j have landed
+    __syncthreads();
+    const bf16* Kt = Ks + buf * KB * LD;
+    const bf16* Vt = Vs + buf * KB * LD;
+    if constexpr (C::REG) {
+      if (j == j0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hopper::ldmatrix_x4(qf[kk], Qs + arow + kk * 16);
+          hopper::ldmatrix_x4(of[kk], Os + arow + kk * 16);
+        }
+      }
+    }
+
+    float s[KB / 8][4], dp[KB / 8][4];
+#pragma unroll
+    for (int t = 0; t < KB / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      if constexpr (C::REG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aq[e] = qf[kk][e], ao[e] = of[kk][e];
+      } else {
+        hopper::ldmatrix_x4(aq, Qs + arow + kk * 16);
+        hopper::ldmatrix_x4(ao, Os + arow + kk * 16);
+      }
+#pragma unroll
+      for (int t = 0; t < KB / 8; t += 2) {
+        const int at = (t * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t bk[4], bv[4];
+        hopper::ldmatrix_x4(bk, Kt + at);
+        hopper::mma_bf16_16816(s[t], aq, bk);
+        hopper::mma_bf16_16816(s[t + 1], aq, bk + 2);
+        hopper::ldmatrix_x4(bv, Vt + at);
+        hopper::mma_bf16_16816(dp[t], ao, bv);
+        hopper::mma_bf16_16816(dp[t + 1], ao, bv + 2);
+      }
+    }
+
+    const int k_lo = j * KB;
+    const bool edge = k_lo + KB - 1 > q_lo || (window > 0 && q_hi - k_lo >= window) ||
+                      k_lo + KB > S;
+    uint32_t sf[KB / 16][4];
+#pragma unroll
+    for (int t = 0; t < KB / 8; ++t) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = exp2f(s[t][e] * scale2 - L[e / 2]);
+        if (edge) {
+          const int pos = k_lo + t * 8 + 2 * qd + (e & 1), qp = qpos[e / 2];
+          if (pos >= S || qp < pos || (window > 0 && qp - pos >= window)) x = 0.f;
+        }
+        ds[e] = x * (dp[t][e] - E[e / 2]);
+      }
+      sf[t / 2][(t % 2) * 2] = hopper::pack_bf16(ds[0], ds[1]);
+      sf[t / 2][(t % 2) * 2 + 1] = hopper::pack_bf16(ds[2], ds[3]);
+    }
+    // dQ += dS K, K by ldmatrix.trans from its (key, d) rows
+#pragma unroll
+    for (int kt = 0; kt < KB / 16; ++kt) {
+#pragma unroll
+      for (int t = 0; t < D / 8; t += 2) {
+        uint32_t bk[4];
+        hopper::ldmatrix_x4_trans(
+            bk, Kt + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + t * 8 + (lane / 16) * 8);
+        hopper::mma_bf16_16816(dqa[t], sf[kt], bk);
+        hopper::mma_bf16_16816(dqa[t + 1], sf[kt], bk + 2);
+      }
+    }
+    __syncthreads();  // this buffer is refilled at the next tile
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rows[h];
+    if (r >= nrows) continue;
+    bf16* row = dq + b * dqs.b + (int64_t)qpos[h] * dqs.s + (int64_t)(kh * G + r % G) * dqs.h +
+                2 * qd;
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(row + t * 8) =
+          __floats2bfloat162_rn(dqa[t][2 * h] * scale, dqa[t][2 * h + 1] * scale);
+  }
+}
+
+struct Grad {
+  const bf16 *q, *k, *v, *out, *dout;
+  const float* lse;
+  float* delta;
+  bf16 *dq, *dk, *dv;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+};
+
+template <int D>
+cudaError_t launch(const Grad& a, int B, int S, int K, int G, int window, float scale,
+                   cudaStream_t st) {
+  const int H = K * G;
+  const int64_t rows = (int64_t)B * S * H, threads = rows * (D / 8);
+  attn_grad_delta<D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      a.out, a.dout, a.delta, a.os, a.dos, S, H, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t kv_bytes = Cfg<D>::tiles + 4 * kRows * sizeof(float);
+  constexpr size_t q_bytes = Cfg<D>::tiles;
+  err = cudaFuncSetAttribute(attn_grad_dkdv_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_grad_dq_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return err;
+  const int Bq = kRows / G;
+  attn_grad_dkdv_tc<D><<<dim3((S + kKeys - 1) / kKeys, K, B), kThreads, kv_bytes, st>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.qs, a.ks, a.vs, a.dos, a.dks,
+      a.dvs, S, G, Bq, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_grad_dq_tc<D><<<dim3((S + Bq - 1) / Bq, K, B), kThreads, q_bytes, st>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.qs, a.ks, a.vs, a.dos, a.dqs, S, G, Bq,
+      window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace grad
 
 }  // namespace
 
@@ -587,18 +1064,91 @@ extern "C" int flash_attention_launch(
               c = (int)causal, w = (int)window;
     switch (D) {
       case 16:
-        return tc::launch<16>(q, k, v, out, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
+        return tc::launch<16>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 32:
-        return tc::launch<32>(q, k, v, out, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
+        return tc::launch<32>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 64:
-        return tc::launch<64>(q, k, v, out, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
+        return tc::launch<64>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 128:
-        return tc::launch<128>(q, k, v, out, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
+        return tc::launch<128>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 256:
-        return tc::launch<256>(q, k, v, out, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
+        return tc::launch<256>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       default:
         return cudaErrorInvalidValue;
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// As flash_attention_launch, for bf16 at D 64 or 128 only (the shapes the
+// gradient kernels take), and beside the output, which is that entry's bit
+// for bit, each (query, head) row's logsumexp of its scaled scores in base
+// 2 (m + log2 l) into lse (B, K * G, Sq) fp32.
+extern "C" int flash_attention_lse_launch(
+    const void* q, const void* k, const void* v, void* out, float* lse, int64_t B,
+    int64_t Sq, int64_t Skv, int64_t K, int64_t G, int64_t D, int64_t qsb,
+    int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
+    int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
+    int64_t osh, int64_t causal, int64_t window, float scale, int64_t dtype,
+    void* stream) {
+  if (dtype != 1 || (D != 64 && D != 128) || lse == nullptr) return cudaErrorInvalidValue;
+  if (G < 1 || G > kRows || (Sq > Skv && (causal || window > 0))) return cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || K <= 0) return cudaSuccess;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if ((bases & 15) || ((qsb | qss | qsh | ksb | kss | ksh | vsb | vss | vsh | osb | oss | osh) & 7))
+    return cudaErrorInvalidValue;
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int b = (int)B, sq = (int)Sq, skv = (int)Skv, kk = (int)K, g = (int)G, c = (int)causal,
+            w = (int)window;
+  return D == 64 ? tc::launch<64, true>(q, k, v, out, lse, qs, ks, vs, os, b, sq, skv, kk, g, c,
+                                        w, scale, s)
+                 : tc::launch<128, true>(q, k, v, out, lse, qs, ks, vs, os, b, sq, skv, kk, g,
+                                         c, w, scale, s);
+}
+
+// The gradient of causal bf16 self-attention (Sq = Skv = S) at D 64 or 128,
+// with an optional sliding window (window <= 0: none): from q, k, v, the
+// forward's out and lse (flash_attention_lse_launch's) and dout, all
+// (B, S, heads, D) with the given element strides, into dq (B, S, K * G, D)
+// and dk, dv (B, S, K, D).  delta (B, K * G, S) fp32 is scratch.  Three
+// launches on the stream: attn_grad_delta, attn_grad_dkdv_tc and
+// attn_grad_dq_tc; each output is written once, with no atomics.  Bases
+// 16-byte aligned and strides multiples of 8 elements, as the forward's
+// tensor-core body; cudaErrorInvalidValue (1) otherwise.
+extern "C" int attn_grad_launch(
+    const void* q, const void* k, const void* v, const void* out, const void* dout,
+    const float* lse, float* delta, void* dq, void* dk, void* dv, int64_t B, int64_t S,
+    int64_t K, int64_t G, int64_t D, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+    int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
+    int64_t oss, int64_t osh, int64_t dosb, int64_t doss, int64_t dosh, int64_t dqsb,
+    int64_t dqss, int64_t dqsh, int64_t dksb, int64_t dkss, int64_t dksh, int64_t dvsb,
+    int64_t dvss, int64_t dvsh, int64_t window, float scale, void* stream) {
+  if ((D != 64 && D != 128) || G < 1 || G > kRows) return cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || K <= 0) return cudaSuccess;
+  const uintptr_t bases =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+      reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  const int64_t strides = qsb | qss | qsh | ksb | kss | ksh | vsb | vss | vsh | osb | oss | osh |
+                          dosb | doss | dosh | dqsb | dqss | dqsh | dksb | dkss | dksh | dvsb |
+                          dvss | dvsh;
+  if ((bases & 15) || (strides & 7) || lse == nullptr || delta == nullptr)
+    return cudaErrorInvalidValue;
+  using grad::bf16;
+  const grad::Grad a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v),    static_cast<const bf16*>(out),
+                     static_cast<const bf16*>(dout), lse,
+                     delta,                          static_cast<bf16*>(dq),
+                     static_cast<bf16*>(dk),         static_cast<bf16*>(dv),
+                     {qsb, qss, qsh},                {ksb, kss, ksh},
+                     {vsb, vss, vsh},                {osb, oss, osh},
+                     {dosb, doss, dosh},             {dqsb, dqss, dqsh},
+                     {dksb, dkss, dksh},             {dvsb, dvss, dvsh}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int w = window > 0 ? (int)window : 0;
+  return D == 64 ? grad::launch<64>(a, (int)B, (int)S, (int)K, (int)G, w, scale, s)
+                 : grad::launch<128>(a, (int)B, (int)S, (int)K, (int)G, w, scale, s);
 }

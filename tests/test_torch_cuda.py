@@ -16,7 +16,11 @@ from repro_torch.core.store import DeviceCuboidStore
 from repro_torch.kernels.cutout_gather import ops
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (LSE_ATOL, flash_attention_grad_f64,
+                                                     flash_attention_grad_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref, grad_gaps,
+                                                     outside_grad_limits)
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.moe_gemm import ops as mg_ops
@@ -307,25 +311,77 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, causal, window
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_gradients_through_the_kernel(cuda, shape, dtype):
     """The card's route is differentiable: the forward is the kernel (one
-    launch), and dq, dk, dv are autograd's through the plain version on the
-    same tensors (bit for bit: the backward recomputes the plain version),
-    finite and nonzero."""
+    launch).  Where the gradient kernels cover the call (bf16 at D 64 and
+    128) dq, dk, dv are theirs, within the twin's limits of
+    `flash_attention_grad_ref` on the same tensors; elsewhere they are
+    autograd's through the plain version (bit for bit: the backward
+    recomputes the plain version); finite and nonzero, each route counted."""
     B, Sq, Skv, H, K, D = shape
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (_randn(gen, s, dtype, cuda).requires_grad_()
                for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
     dout = _randn(gen, (B, Sq, H, D), dtype, cuda)
-    before = fa_ops.launches
+    before = (fa_ops.launches, fa_ops.backward_launches, fa_ops.backward_plain)
     out = fa_ops.flash_attention(q, k, v, causal=True)
-    assert fa_ops.launches == before + 1
+    assert fa_ops.launches == before[0] + 1
     want_out = flash_attention_ref(q, k, v, causal=True, scale=D ** -0.5)
     torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
     got = torch.autograd.grad(out, (q, k, v), dout)
-    want = torch.autograd.grad(want_out, (q, k, v), dout)
-    assert fa_ops.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == dtype and torch.equal(g, w)
+    kernel = fa_ops.grad_kernel_takes(q, k, causal=True)
+    assert kernel == (dtype == torch.bfloat16 and D in (64, 128))
+    if kernel:
+        attn = dict(causal=True, scale=D ** -0.5)
+        _, lse = fa_ops.flash_attention_cuda(q.detach(), k.detach(), v.detach(), lse=True,
+                                             **attn)
+        want = flash_attention_grad_ref(q.detach(), k.detach(), v.detach(), out.detach(), lse,
+                                        dout, **attn)
+        _grad_within_the_twins_limits(got, want, flash_attention_grad_f64(q, k, v, dout, **attn))
+    else:
+        want = torch.autograd.grad(want_out, (q, k, v), dout)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert (fa_ops.backward_launches, fa_ops.backward_plain) == (
+        before[1] + kernel, before[2] + (not kernel))
+    assert fa_ops.launches == before[0] + 1 + kernel
+    for g in got:
+        assert g.dtype == dtype
         assert bool(torch.isfinite(g.float()).all()) and bool((g != 0).any())
+
+
+def _grad_within_the_twins_limits(got, want, exact):
+    """The gradient kernels against `flash_attention_grad_ref` on the same
+    tensors, within `ref.py`'s ``GRAD_*`` limits."""
+    gaps = grad_gaps(got, want, exact)
+    assert not outside_grad_limits(gaps), gaps
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((2, 200, 6, 2, 64), None),      # a ragged last tile of keys and of rows
+    ((1, 130, 7, 1, 128), None),     # G 7: a padding row in every row tile
+    ((2, 300, 4, 2, 64), 50),        # a window that binds
+    ((1, 257, 14, 2, 128), 100),     # G 7 under a window, ragged
+    ((1, 2048, 16, 8, 64), None)])   # a train-2k sequence's heads
+def test_flash_attention_grad_kernels_match_the_twin(cuda, shape, window):
+    """bf16 causal self-attention: the logsumexp entry's output is the
+    plain entry's bit for bit and its lse within 1e-4 of
+    `flash_attention_lse_ref`'s; `flash_attention_grad_cuda`'s dq, dk, dv
+    within the twin's limits of `flash_attention_grad_ref` on the same
+    tensors; one forward launch each, no launch counted for the gradient."""
+    B, S, H, K, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    q, k, v, dout = (_randn(gen, s, torch.bfloat16, cuda)
+                     for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D)))
+    attn = dict(causal=True, scale=D ** -0.5, window=window)
+    before = fa_ops.launches
+    plain_out = fa_ops.flash_attention_cuda(q, k, v, **attn)
+    out, lse = fa_ops.flash_attention_cuda(q, k, v, lse=True, **attn)
+    assert torch.equal(out, plain_out)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **attn), rtol=0,
+                               atol=LSE_ATOL)
+    got = fa_ops.flash_attention_grad_cuda(q, k, v, out, lse, dout, **attn)
+    assert fa_ops.launches == before + 2
+    want = flash_attention_grad_ref(q, k, v, out, lse, dout, **attn)
+    _grad_within_the_twins_limits(got, want, flash_attention_grad_f64(q, k, v, dout, **attn))
 
 
 @pytest.mark.parametrize("case", [

@@ -284,6 +284,35 @@ def test_moe_gemm_grad_binding_matches_its_c_entry():
                      ops.moe_gemm_grad_cuda)
 
 
+@pytest.mark.parametrize("entry,argtypes", [
+    ("flash_attention_launch", "ARGTYPES"), ("flash_attention_lse_launch", "LSE_ARGTYPES"),
+    ("attn_grad_launch", "GRAD_ARGTYPES")])
+def test_flash_attention_bindings_match_their_c_entries(entry, argtypes):
+    """Each of `flash_attention`'s ctypes argument lists declares as many
+    arguments as its C entry point takes, and the wrapper's argument tuple
+    (built here from CPU tensors) fills all of them but the stream."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    src = _build.source_of("flash_attention").read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    types = getattr(ops, argtypes)
+    assert len(params.split(",")) == len(types)
+    q, out, dout, dq = (torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16) for _ in range(4))
+    k, v, dk, dv = (torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16) for _ in range(4))
+    lse, delta = torch.zeros(2, 4, 16), torch.zeros(2, 4, 16)
+    if entry == "attn_grad_launch":
+        args = ops.grad_args(q, k, v, out, dout, lse, delta, dq, dk, dv, scale=0.125, window=8)
+        assert args[10:15] == (2, 16, 2, 2, 64) and args[-2:] == (8, 0.125)
+    else:
+        args = ops.launch_args(q, k, v, out, causal=True, scale=0.125, window=None)
+        args = args[:4] + (lse.data_ptr(),) + args[4:] if entry != "flash_attention_launch" \
+            else args
+    assert len(args) == len(types) - 1
+
+
 def test_morton_matmul_binding_matches_its_c_entry():
     """The ctypes argument list declares as many arguments as the C entry
     point takes, and the wrapper passes that many."""

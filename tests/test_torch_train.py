@@ -4,7 +4,9 @@ the train step against the JAX package on the same numpy inputs.
 The JAX model is the default one (``use_flash_kernel=False``): `jax.grad`
 cannot go through the Pallas kernel, and its gradient is XLA's autodiff of
 `blockwise_attention`.  The port's CPU attention is the plain version,
-which the card's kernel route differentiates too (`FlashAttention`).
+which the card's kernel route differentiates too where the gradient
+kernels do not cover a call (`FlashAttention`); `flash_attention_grad_ref`,
+those kernels' twin, is held to autograd through it.
 
 The MoE and ssm families (granite-moe-1b-a400m and mamba2-370m at their
 smoke widths) are held the same way: the JAX MoE differentiates its
@@ -22,6 +24,7 @@ port's does not).  Losses and grad norms of the train step within rtol
 with eps 1e-8 an element whose gradient is ~0 moves by about +-lr either
 way, whichever way its rounding falls.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -44,8 +47,14 @@ from repro.train.train_step import loss_fn as j_loss_fn
 from repro.train.train_step import make_train_step as j_make_train_step
 from repro_torch.carry import (lm_params_from_numpy, lm_params_to_numpy,
                                opt_state_from_numpy, opt_state_to_numpy)
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (GRAD_F64, LOG2E,
+                                                     flash_attention_grad_f64,
+                                                     flash_attention_grad_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref, grad_gaps,
+                                                     outside_grad_limits)
 from repro_torch.kernels.moe_gemm import ops as mg_ops
 from repro_torch.kernels.moe_gemm.ops import MoeGemm, moe_gemm
 from repro_torch.kernels.moe_gemm import ref as mg_ref
@@ -385,6 +394,188 @@ def test_flash_attention_on_the_cpu_is_the_plain_version():
     out = flash_attention(q, k, k, causal=True)
     assert out.grad_fn is not None and "FlashAttention" not in type(out.grad_fn).__name__
     assert torch.equal(out, flash_attention_ref(q, k, k, causal=True, scale=0.25))
+
+
+def _attention_case(rng, B, S, H, K, D, dtype):
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+                     for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D)))
+    return q, k, v, dout
+
+
+def _forward_with_lse(calls):
+    """A plain forward with the kernel entries' contract: ``lse=True`` also
+    returns `flash_attention_lse_ref`; each call's keywords recorded."""
+    def forward(q, k, v, **kw):
+        calls.append(kw)
+        attn = {n: kw[n] for n in ("causal", "scale", "window")}
+        out = flash_attention_ref(q, k, v, **attn)
+        return (out, flash_attention_lse_ref(q, k, **attn)) if kw.get("lse") else out
+    return forward
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 24, 4, 4, 16, None),    # G 1
+    (2, 24, 2, 2, 64, None),    # G 1, D 64
+    (1, 40, 8, 4, 16, None),    # G 2
+    (1, 33, 4, 2, 64, None),    # G 2, D 64 (train-2k's group and width)
+    (2, 20, 7, 1, 16, None),    # G 7
+    (1, 17, 7, 1, 64, None),    # G 7, D 64
+    (2, 48, 4, 2, 16, 8),       # a window that binds
+    (1, 40, 14, 2, 64, 12)])    # G 7, D 64 under a window
+def test_flash_attention_grad_ref_is_the_plain_gradient_in_fp32(shape):
+    """`flash_attention_grad_ref` in fp32 (its roundings to the dtype are
+    then none) from the forward's output and `flash_attention_lse_ref`:
+    autograd's gradient through `flash_attention_ref`, within 1e-5 of each
+    gradient's norm, on causal self-attention."""
+    B, S, H, K, D, window = shape
+    q, k, v, dout = _attention_case(np.random.default_rng(33), B, S, H, K, D, torch.float32)
+    attn = dict(causal=True, scale=D ** -0.5, window=window)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_ref(*qkv, **attn)
+    want = torch.autograd.grad(out, qkv, dout)
+    lse = flash_attention_lse_ref(q, k, **attn)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    got = flash_attention_grad_ref(q, k, v, out.detach(), lse, dout, **attn)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g - w).norm()) <= 1e-5 * float(w.norm())
+
+
+def test_flash_attention_lse_ref_is_the_base_2_logsumexp():
+    """`flash_attention_lse_ref` at a row: log2 of the sum of 2^(s log2 e)
+    over its live keys, s the scaled score."""
+    q, k, _, _ = _attention_case(np.random.default_rng(34), 1, 12, 4, 2, 16, torch.float32)
+    lse = flash_attention_lse_ref(q, k, causal=True, scale=0.25, window=5)
+    i, h = 9, 3  # query 9 sees keys 5..9 under the window; head 3 is kv head 1
+    s = (q[0, i, h] @ k[0, 5:10, 1].T) * 0.25
+    assert torch.allclose(lse[0, h, i], torch.log2(torch.exp(s).sum()), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_flash_attention_grad_f64_is_the_functions_gradient(window):
+    """`flash_attention_grad_f64`, taken a sequence at a time, on fp32
+    inputs: autograd's gradient through `flash_attention_ref` in fp32,
+    within 1e-5 of each gradient's norm, over three sequences."""
+    B, S, H, K, D = 3, 30, 4, 2, 16
+    q, k, v, dout = _attention_case(np.random.default_rng(36), B, S, H, K, D, torch.float32)
+    attn = dict(causal=True, scale=D ** -0.5, window=window)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*qkv, **attn), qkv, dout)
+    got = flash_attention_grad_f64(q, k, v, dout, **attn)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert float((g - w.double()).norm()) <= 1e-5 * float(w.norm())
+
+
+@pytest.mark.parametrize("fault", ["natural base", "rows shifted by one", "window one wider",
+                                   "offset by one"])
+def test_flash_attention_grad_limits_catch_a_logsumexp_both_sides_share(fault):
+    """A wrong logsumexp that the gradient kernels and the twin would share
+    moves both alike: the twin from that lse lies at 0 from itself, and only
+    ``GRAD_F64``, the bound on the distance from the fp64 gradient, fails
+    it.  The sound twin in bf16 lies within every ``GRAD_*`` limit, at
+    under half of ``GRAD_F64``."""
+    B, S, H, K, D, window = 2, 96, 14, 2, 64, 20
+    q, k, v, dout = _attention_case(np.random.default_rng(35), B, S, H, K, D, torch.bfloat16)
+    attn = dict(causal=True, scale=D ** -0.5, window=window)
+    out = flash_attention_ref(q, k, v, **attn)
+    lse = flash_attention_lse_ref(q, k, **attn)
+    exact = flash_attention_grad_f64(q, k, v, dout, **attn)
+    sound = grad_gaps(*[flash_attention_grad_ref(q, k, v, out, lse, dout, **attn)] * 2, exact)
+    assert not outside_grad_limits(sound)
+    assert all(r["twin_vs_f64"] < GRAD_F64 / 2 for r in sound.values()), sound
+    wrong = {"natural base": lambda: lse / LOG2E,
+             "rows shifted by one": lambda: torch.roll(lse, 1, dims=-1),
+             "window one wider": lambda: flash_attention_lse_ref(
+                 q, k, **dict(attn, window=window + 1)),
+             "offset by one": lambda: lse + 1}[fault]()
+    bad = flash_attention_grad_ref(q, k, v, out, wrong, dout, **attn)
+    gaps = grad_gaps(bad, bad, exact)
+    assert all(r["rel_norm"] == 0 and r["max_share"] == 0 for r in gaps.values())
+    assert outside_grad_limits(gaps), gaps
+
+
+@pytest.mark.parametrize("case", [
+    dict(dtype=torch.bfloat16, shape=(2, 16, 16, 4, 2, 64), causal=True, window=None,
+         kernel=True),
+    dict(dtype=torch.bfloat16, shape=(1, 24, 24, 14, 2, 128), causal=True, window=8,
+         kernel=True),
+    dict(dtype=torch.float32, shape=(2, 16, 16, 4, 2, 64), causal=True, window=None,
+         kernel=False),
+    dict(dtype=torch.bfloat16, shape=(2, 16, 16, 4, 2, 32), causal=True, window=None,
+         kernel=False),  # D outside the kernels' instances
+    dict(dtype=torch.bfloat16, shape=(2, 16, 16, 4, 2, 64), causal=False, window=None,
+         kernel=False),
+    dict(dtype=torch.bfloat16, shape=(1, 8, 24, 4, 2, 64), causal=True, window=None,
+         kernel=False)])  # Sq < Skv
+def test_flash_attention_function_backward_routes_by_dtype_and_shape(case):
+    """`FlashAttention` given a backward callable: bf16 causal
+    self-attention at D 64 or 128 takes it (once, on the saved q, k, v, out,
+    lse and dout, the forward asked for its logsumexp) and its gradients
+    are the callable's; every other call takes the plain recompute (bit for
+    bit autograd's through `flash_attention_ref`, the forward asked for no
+    logsumexp), each counted; an input that needs no gradient gets none."""
+    B, Sq, Skv, H, K, D = case["shape"]
+    rng = np.random.default_rng(35)
+    dt = case["dtype"]
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dt)
+                     for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D), (B, Sq, H, D)))
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    attn = dict(causal=case["causal"], scale=D ** -0.5, window=case["window"])
+    calls, grads = [], []
+
+    def grad(*args, **kw):
+        grads.append((args, kw))
+        return flash_attention_grad_ref(*args, **kw)
+
+    before = (fa_ops.backward_launches, fa_ops.backward_plain)
+    out = FlashAttention.apply(*qkv, attn["causal"], attn["scale"], attn["window"],
+                               _forward_with_lse(calls), grad)
+    got = torch.autograd.grad(out, qkv, dout)
+    if case["kernel"]:
+        assert calls == [dict(attn, lse=True)]
+        assert len(grads) == 1 and grads[0][1] == attn
+        saved = grads[0][0]
+        assert all(a is b for a, b in zip(saved[:3], qkv)) and saved[5] is dout
+        assert torch.equal(saved[3], out)
+        assert torch.equal(saved[4], flash_attention_lse_ref(q, k, **{
+            n: attn[n] for n in ("causal", "scale", "window")}))
+        want = flash_attention_grad_ref(*(t.detach() for t in qkv), out.detach(), saved[4],
+                                        dout, **attn)
+        assert (fa_ops.backward_launches, fa_ops.backward_plain) == before
+    else:
+        assert calls == [attn] and grads == []
+        want = torch.autograd.grad(flash_attention_ref(*qkv, **attn), qkv, dout)
+        assert (fa_ops.backward_launches, fa_ops.backward_plain) == (before[0], before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and torch.equal(g, w)
+    (dk,) = torch.autograd.grad(FlashAttention.apply(
+        q.detach(), k, v.detach(), attn["causal"], attn["scale"], attn["window"],
+        _forward_with_lse([]), grad), (k,), dout)
+    assert torch.equal(dk, want[1])
+
+
+def test_flash_attention_forward_asks_for_its_logsumexp_only_under_autograd():
+    """`attend` passes the backward callable, and so the forward's
+    logsumexp entry, only where autograd records the call: not under
+    ``torch.inference_mode`` or ``torch.no_grad``, nor when no input
+    requires a gradient; the output is the same either way."""
+    q, k, v, _ = _attention_case(np.random.default_rng(36), 1, 16, 4, 2, 64, torch.bfloat16)
+    attn = (True, 0.125, None)
+    runs = {}
+    for name in ("inference", "no_grad", "no_input", "recorded"):
+        calls = []
+        qkv = [t.clone().requires_grad_(name != "no_input") for t in (q, k, v)]
+        ctx = {"inference": torch.inference_mode, "no_grad": torch.no_grad}.get(
+            name, contextlib.nullcontext)
+        with ctx():
+            out = fa_ops.attend(*qkv, *attn, _forward_with_lse(calls), flash_attention_grad_ref)
+        runs[name] = (calls, out.detach())
+    for name in ("inference", "no_grad", "no_input"):
+        assert [c.get("lse", False) for c in runs[name][0]] == [False], name
+    assert [c.get("lse", False) for c in runs["recorded"][0]] == [True]
+    for calls, out in runs.values():
+        assert torch.equal(out, runs["recorded"][1])
 
 
 # ----------------------------------------------- the MoE and ssm families ----
