@@ -433,6 +433,7 @@ from repro_torch.core.compact import compact_store  # noqa: E402
 from repro_torch.core.store import (CuboidStore, DeviceCuboidStore,  # noqa: E402
                                     DirectoryBackend)
 from repro_torch.core.wal import LogBackend, TierPolicy, tiered_store  # noqa: E402
+from repro_torch.device import h100_peaks  # noqa: E402
 from repro_torch.kernels import _bench, _build  # noqa: E402
 from repro_torch.kernels.cutout_gather import ops as gather_ops  # noqa: E402
 from repro_torch.kernels.cutout_gather.ref import cutout_gather_ref  # noqa: E402
@@ -666,16 +667,6 @@ def log(msg: str) -> None:
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def hbm_peak_bytes_per_s(name: str) -> float:
-    """Published memory rate of the H100 (NVIDIA data sheet)."""
-    return 2.0e12 if "PCIe" in name else 3.35e12  # PCIe, else SXM
-
-
-def bf16_peak_flops(name: str) -> float:
-    """Published dense bf16 tensor rate of the H100 (NVIDIA data sheet)."""
-    return 756e12 if "PCIe" in name else 989e12  # PCIe, else SXM
 
 
 # which body of a kernel a dtype runs: flash_attention, morton_matmul,
@@ -2897,7 +2888,7 @@ def attention_timings(sc, dev, cfg, name, report):
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(16)
     bf = torch.bfloat16
-    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    flops, hbm = h100_peaks(name).bf16_flops, h100_peaks(name).hbm_bytes_per_s
     scale = D ** -0.5
     out = {}
 
@@ -3104,7 +3095,7 @@ def ssd_timing(sc, dev, cfg, name, report):
     ops_ = B * H * sum(2 * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P) for q in qs)
     bytes_ = (2 * x.numel() + 4 * B * S * H * P + 2 * 2 * B * S * N + 4 * dt.numel()
               + 4 * H + 4 * B * H * P * N)
-    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    flops, hbm = h100_peaks(name).bf16_flops, h100_peaks(name).hbm_bytes_per_s
     bound = max(ops_ / flops, bytes_ / hbm) * 1e3
     sass = _bench.sass_counts(_build._target("ssd_scan"), ("HMMA", "FFMA"))
     t = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
@@ -3318,7 +3309,7 @@ def moe_timing(dev, name, report, x, wg, wu, wd, counts):
     product: no single PyTorch call computes this function); and the
     host's time to enqueue one decode-step call (the decode path is
     host-bound)."""
-    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    flops, hbm = h100_peaks(name).bf16_flops, h100_peaks(name).hbm_bytes_per_s
     out = {}
     for label, args in (("prefill", (x, wg, wu, wd, counts)),
                         ("decode_step", mg_bench.inputs(32, dev))):
@@ -3436,7 +3427,7 @@ def morton_timing(dev, name, report):
     lib = event_times(dev, lambda i=0: torch.matmul(a, b))
     ops_ = 2 * M * N * K
     bytes_ = a.element_size() * (M * K + K * N + M * N)
-    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    flops, hbm = h100_peaks(name).bf16_flops, h100_peaks(name).hbm_bytes_per_s
     bound = max(ops_ / flops, bytes_ / hbm) * 1e3
     ms = times["256x256x256"]["morton"][0]
     t = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
@@ -3575,7 +3566,7 @@ def hybrid_kernel_checks(hc, dev, cfg, model, cache, report, errs):
 def attention_timing(dev, name, label, kernel, plain, library, ops_, bytes_, shape, **extra):
     """One attention kernel at one shape: kernel, plain version and one
     PyTorch call for the same function (CUDA events), beside the bound."""
-    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    flops, hbm = h100_peaks(name).bf16_flops, h100_peaks(name).hbm_bytes_per_s
     ms = event_times(dev, lambda i=0: kernel())
     plain_ms = event_times(dev, lambda i=0: plain())
     lib = event_times(dev, lambda i=0: library())
@@ -4372,7 +4363,7 @@ def training_profile(tc, dev, cfg, model, opt, pipe, name, report, first=100):
     flops = train_flops(cfg, tc["seq_len"], tc["batch"])
     total = sum(flops.values())
     step_s = report[tc["key"]]["median_step_s"]
-    peak = bf16_peak_flops(name)
+    peak = h100_peaks(name).bf16_flops
     split.update(model_flops=total, flops=flops, model_tflops=total / step_s / 1e12,
                  bf16_peak_share=total / step_s / peak)
     report[tc["key"]]["split"] = split
@@ -4820,7 +4811,7 @@ def moe_gemm_timing(dev, name, label, args, idx, reps):
     weights), 3 bf16 bmm over the whole buffer (no skipping) and the bound:
     the live rows' products, and the bytes of the rows, the output and the
     weights of the experts with a nonzero count."""
-    flops, hbm = bf16_peak_flops(name), hbm_peak_bytes_per_s(name)
+    flops, hbm = h100_peaks(name).bf16_flops, h100_peaks(name).hbm_bytes_per_s
     x, wg, wu, wd, counts = args
     E, C, d = x.shape
     f = wg.shape[-1]
@@ -5066,7 +5057,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     name = torch.cuda.get_device_name(0)
-    peak = hbm_peak_bytes_per_s(name)
+    peak = h100_peaks(name).hbm_bytes_per_s
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     report = {"card": smi}

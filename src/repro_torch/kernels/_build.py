@@ -2,8 +2,9 @@
 
 Each kernel is one ``.cu`` file with a plain C entry point.  It is compiled
 by ``nvcc`` into a shared library under ``build/repro_torch_ext/`` (listed
-in ``.gitignore`` through ``build/``) and bound with ctypes: the wrapper
-passes ``data_ptr()`` integers and PyTorch's current stream.  No PyTorch
+in ``.gitignore`` through ``build/``) and bound with ctypes (`entry`): the
+wrapper passes ``data_ptr()`` integers and PyTorch's current stream
+(`launch`), and every C entry returns a ``cudaError_t`` (`check`).  No PyTorch
 header is included, so a build takes seconds rather than the minutes a
 ``torch/extension.h`` translation unit costs.
 
@@ -31,7 +32,9 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
+
+import torch
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -44,6 +47,7 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_guard = threading.Lock()
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -134,6 +138,32 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built if needed."""
     build([name])
     return _libs[name]
+
+
+def entry(kernel: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of kernel ``kernel``'s library, typed once with
+    ``argtypes`` and an int return (untyped ctypes would cut pointers to 32
+    bits) and kept for later calls."""
+    fn = _entries.get((kernel, name))
+    if fn is None:
+        fn = getattr(library(kernel), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[kernel, name] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (non-zero)."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed (cudaError {err})")
+
+
+def launch(fn, device: torch.device, *args, what: str) -> None:
+    """``fn(*args, stream)`` with ``device``'s current stream, under
+    ``torch.cuda.device(device)``; raises if the launch failed."""
+    with torch.cuda.device(device):
+        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), what)
 
 
 def main() -> int:

@@ -30,10 +30,11 @@ import torch
 
 from .. import _bench, _build
 from ...core.cuboid import CuboidGrid
+from ...device import h100_peaks
 from . import ops
 from .ref import cutout_gather_ref
 
-PEAK = 3.35e12  # H100 SXM HBM bytes/s (NVIDIA data sheet)
+PEAK = h100_peaks().hbm_bytes_per_s  # H100 SXM
 
 
 def cases(dev):

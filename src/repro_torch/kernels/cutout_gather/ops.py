@@ -8,7 +8,6 @@ that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -16,25 +15,15 @@ import torch
 
 from ...core import morton
 from ...core.cuboid import CuboidGrid
-from .. import _build
+from .. import _build, _wrap
 from .ref import cutout_gather_ref
 
 NAME = "cutout_gather"
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke)
-_count_guard = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_guard:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_guard:
-        launches += 1
+# kernel launches since the last reset (read by ocpbench's harness and chip_smoke)
+_counts = _wrap.Counts(__name__, "launches")
+reset_launches = _counts.reset
+__getattr__ = _counts.get
 
 
 def build_plan(grid: CuboidGrid, lo: Sequence[int], hi: Sequence[int]
@@ -61,14 +50,9 @@ def _unit_bytes(esize: int, extents: Sequence[int], ptrs: Sequence[int]) -> int:
 
 
 _I64 = ctypes.c_int64
-
-
-def _entry():
-    fn = _build.library(NAME).cutout_gather_launch
-    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 3 + [_I64] * 16 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+# out, packed, plan; X, Y, Z, T; the offset; the cuboid; gy, gz, gt; unit;
+# stream
+ARGTYPES = [ctypes.c_void_p] * 3 + [_I64] * 16 + [ctypes.c_void_p]
 
 
 def cutout_gather_cuda(packed: torch.Tensor, plan: torch.Tensor, gshape,
@@ -100,15 +84,11 @@ def cutout_gather_cuda(packed: torch.Tensor, plan: torch.Tensor, gshape,
         return out
     unit = _unit_bytes(esize, (ct, ot, T), (packed.data_ptr(), out.data_ptr()))
     per = unit // esize
-    fn = _entry()
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = fn(out.data_ptr(), packed.data_ptr(), plan.data_ptr(),
-                 X, Y, Z, T // per, ox, oy, oz, ot // per, cx, cy, cz, ct // per,
-                 gy, gz, gt, unit, stream)
-    if err != 0:
-        raise RuntimeError(f"cutout_gather launch failed (cudaError {err})")
-    _count_launch()
+    _build.launch(_build.entry(NAME, "cutout_gather_launch", ARGTYPES), packed.device,
+                  out.data_ptr(), packed.data_ptr(), plan.data_ptr(),
+                  X, Y, Z, T // per, ox, oy, oz, ot // per, cx, cy, cz, ct // per,
+                  gy, gz, gt, unit, what="cutout_gather launch")
+    _counts.add("launches")
     return out
 
 

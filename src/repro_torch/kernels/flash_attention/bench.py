@@ -40,13 +40,14 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from ...device import h100_peaks
 from .. import _bench, _build
 from . import ops
 from .ref import (flash_attention_grad_f64, flash_attention_grad_ref, flash_attention_ref,
                   grad_gaps)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = h100_peaks().hbm_bytes_per_s  # H100 SXM
+BF16_FLOPS = h100_peaks().bf16_flops
 SHAPES = {"dense prefill (smollm-135m)": (32, 2048, 9, 3, 64),
           "MoE prefill (granite-moe-1b-a400m)": (32, 2048, 16, 8, 64)}
 GRAD_SHAPES = {"train-2k microbatch (granite-moe-1b-a400m)": (8, 2048, 16, 8, 64),
@@ -60,7 +61,7 @@ def _bind(lib: pathlib.Path):
 
     def attention(q, k, v, scale):
         out = torch.empty_like(q)
-        err = fn(*ops.launch_args(q, k, v, out, causal=True, scale=scale, window=None),
+        err = fn(*ops.launch_args(q, k, v, out, None, causal=True, scale=scale, window=None),
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_attention launch failed (cudaError {err})")

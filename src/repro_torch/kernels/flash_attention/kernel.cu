@@ -73,8 +73,8 @@
 // with no atomics: attn_grad_delta takes delta = rowsum(dO o) in fp32;
 // attn_grad_dkdv_tc holds 64 keys a block and walks the forward's packed
 // row tiles; attn_grad_dq_tc holds a row tile and walks the forward's key
-// tiles, recomputing S and dP (seven products in all).  The forward's
-// `flash_attention_lse_launch` leaves each row's logsumexp in base 2, so P
+// tiles, recomputing S and dP (seven products in all).  The forward
+// (`flash_attention_launch` given an lse) leaves each row's logsumexp in base 2, so P
 // = exp2(s scale log2 e - lse) needs no second pass.  P is rounded to bf16
 // before dV, dS before dQ and dK; every sum is fp32 (ref.py's
 // flash_attention_grad_ref rounds at the same places).  The mma.sync,
@@ -1033,15 +1033,20 @@ cudaError_t launch(const Grad& a, int B, int S, int K, int G, int window, float 
 // (B, Skv, K, D), out (B, Sq, K * G, D) with the given element strides and
 // a contiguous D axis.  dtype 0 = float32 (the fp32 body), 1 = bfloat16
 // (the tensor-core body: bases 16-byte aligned, strides multiples of 8).  window <= 0
-// means none.  Returns the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidValue (1) for a shape the kernel has no instance for.
+// means none.  lse, where not null, also takes each (query, head) row's
+// logsumexp of its scaled scores in base 2 (m + log2 l), (B, K * G, Sq)
+// fp32, beside an out that is bit for bit as without: only bf16 at D 64 or
+// 128 (the shapes the gradient kernels take).  Returns the cudaError_t of
+// the launch (0 on success); cudaErrorInvalidValue (1) for a shape the
+// kernel has no instance for.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int64_t B,
+    const void* q, const void* k, const void* v, void* out, float* lse, int64_t B,
     int64_t Sq, int64_t Skv, int64_t K, int64_t G, int64_t D, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
     int64_t osh, int64_t causal, int64_t window, float scale, int64_t dtype,
     void* stream) {
+  if (lse != nullptr && (dtype != 1 || (D != 64 && D != 128))) return cudaErrorInvalidValue;
   // Sq > Skv places query 0 before key 0: only the causal and window masks
   // read that offset, so unmasked (cross) attention takes any Sq
   if (G < 1 || G > kRows || (Sq > Skv && (causal || window > 0))) return cudaErrorInvalidValue;
@@ -1068,8 +1073,14 @@ extern "C" int flash_attention_launch(
       case 32:
         return tc::launch<32>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 64:
+        if (lse)
+          return tc::launch<64, true>(q, k, v, out, lse, qs, ks, vs, os, b, sq, skv, kk, g, c, w,
+                                      scale, s);
         return tc::launch<64>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 128:
+        if (lse)
+          return tc::launch<128, true>(q, k, v, out, lse, qs, ks, vs, os, b, sq, skv, kk, g, c, w,
+                                       scale, s);
         return tc::launch<128>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
       case 256:
         return tc::launch<256>(q, k, v, out, nullptr, qs, ks, vs, os, b, sq, skv, kk, g, c, w, scale, s);
@@ -1080,37 +1091,9 @@ extern "C" int flash_attention_launch(
   return cudaErrorInvalidValue;
 }
 
-// As flash_attention_launch, for bf16 at D 64 or 128 only (the shapes the
-// gradient kernels take), and beside the output, which is that entry's bit
-// for bit, each (query, head) row's logsumexp of its scaled scores in base
-// 2 (m + log2 l) into lse (B, K * G, Sq) fp32.
-extern "C" int flash_attention_lse_launch(
-    const void* q, const void* k, const void* v, void* out, float* lse, int64_t B,
-    int64_t Sq, int64_t Skv, int64_t K, int64_t G, int64_t D, int64_t qsb,
-    int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-    int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
-    int64_t osh, int64_t causal, int64_t window, float scale, int64_t dtype,
-    void* stream) {
-  if (dtype != 1 || (D != 64 && D != 128) || lse == nullptr) return cudaErrorInvalidValue;
-  if (G < 1 || G > kRows || (Sq > Skv && (causal || window > 0))) return cudaErrorInvalidValue;
-  if (B <= 0 || Sq <= 0 || K <= 0) return cudaSuccess;
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  if ((bases & 15) || ((qsb | qss | qsh | ksb | kss | ksh | vsb | vss | vsh | osb | oss | osh) & 7))
-    return cudaErrorInvalidValue;
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int b = (int)B, sq = (int)Sq, skv = (int)Skv, kk = (int)K, g = (int)G, c = (int)causal,
-            w = (int)window;
-  return D == 64 ? tc::launch<64, true>(q, k, v, out, lse, qs, ks, vs, os, b, sq, skv, kk, g, c,
-                                        w, scale, s)
-                 : tc::launch<128, true>(q, k, v, out, lse, qs, ks, vs, os, b, sq, skv, kk, g,
-                                         c, w, scale, s);
-}
-
 // The gradient of causal bf16 self-attention (Sq = Skv = S) at D 64 or 128,
 // with an optional sliding window (window <= 0: none): from q, k, v, the
-// forward's out and lse (flash_attention_lse_launch's) and dout, all
+// forward's out and lse (flash_attention_launch's) and dout, all
 // (B, S, heads, D) with the given element strides, into dq (B, S, K * G, D)
 // and dk, dv (B, S, K, D).  delta (B, K * G, S) fp32 is scratch.  Three
 // launches on the stream: attn_grad_delta, attn_grad_dkdv_tc and

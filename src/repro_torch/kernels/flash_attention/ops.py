@@ -11,26 +11,24 @@ contiguous copy (`chunk_ready`), counted in `aligned_copies`.
 On the card the kernel runs inside `FlashAttention`, an autograd Function:
 its forward is the kernel.  Where autograd records the call and the
 gradient kernels cover it (`grad_kernel_takes`: bf16, causal
-self-attention, D 64 or 128, any window), the forward is the entry that
-also leaves each row's logsumexp, and the backward is
-``kernel.cu``'s gradient (`flash_attention_grad_cuda`, held to
-`flash_attention_grad_ref`).  Every other call's backward recomputes
-attention through the plain version and differentiates that, the gradient
-of the function the kernel computes, with its casts (the JAX package has
-no backward kernel: its gradient is XLA's autodiff of jnp code).
-`backward_launches` and `backward_plain` count the backward calls that
-took each route; neither adds to `launches`.
+self-attention, D 64 or 128, any window), the forward also leaves each
+row's logsumexp, and the backward is ``kernel.cu``'s gradient
+(`flash_attention_grad_cuda`, held to `flash_attention_grad_ref`).  Every
+other call's backward recomputes attention through the plain version and
+differentiates that (`_wrap.plain_grad`), the gradient of the function the
+kernel computes, with its casts (the JAX package has no backward kernel:
+its gradient is XLA's autodiff of jnp code).  `backward_launches` and
+`backward_plain` count the backward calls that took each route; neither
+adds to `launches`.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
-from ...obs.trace import span
-from .. import _build
+from .. import _build, _wrap
 from .ref import flash_attention_ref
 
 NAME = "flash_attention"
@@ -38,60 +36,31 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 GRAD_HEAD_DIMS = (64, 128)  # the gradient kernels' instances
 MAX_GROUP = 64  # query heads per kv head: one block holds them all
 
-launches = 0  # forward kernel launches since the last reset (read by chip_smoke)
-aligned_copies = 0  # bf16 inputs copied for 16-byte chunks since the last reset
-backward_launches = 0  # backward calls that took the gradient kernels
-backward_plain = 0  # backward calls that took the plain recompute
-_count_guard = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches, aligned_copies, backward_launches, backward_plain
-    with _count_guard:
-        launches = aligned_copies = backward_launches = backward_plain = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_guard:
-        launches += 1
-
-
-def _count_backward(plain: bool) -> None:
-    global backward_launches, backward_plain
-    with _count_guard:
-        if plain:
-            backward_plain += 1
-        else:
-            backward_launches += 1
-
+# forward kernel launches, bf16 inputs copied for 16-byte chunks, and
+# backward calls that took the gradient kernels or the plain recompute,
+# since the last reset (read by ocpbench's harness and chip_smoke)
+_counts = _wrap.Counts(__name__, "launches", "aligned_copies", "backward_launches",
+                       "backward_plain")
+reset_launches = _counts.reset
+__getattr__ = _counts.get
 
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# q, k, v, out; B, Sq, Skv, K, G, D; 12 strides; causal, window; scale;
-# dtype; stream
-ARGTYPES = [ctypes.c_void_p] * 4 + [_I64] * 20 + [ctypes.c_float, _I64, ctypes.c_void_p]
-# the same with lse after out
-LSE_ARGTYPES = ARGTYPES[:4] + [ctypes.c_void_p] + ARGTYPES[4:]
+# q, k, v, out, lse (null: none); B, Sq, Skv, K, G, D; 12 strides; causal,
+# window; scale; dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 20 + [ctypes.c_float, _I64, ctypes.c_void_p]
 # q, k, v, out, dout, lse, delta, dq, dk, dv; B, S, K, G, D; 24 strides;
 # window; scale; stream
 GRAD_ARGTYPES = [ctypes.c_void_p] * 10 + [_I64] * 30 + [ctypes.c_float, ctypes.c_void_p]
 
 
-def _entry(name: str = "flash_attention_launch", argtypes=ARGTYPES):
-    fn = getattr(_build.library(NAME), name)
-    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def launch_args(q, k, v, out, *, causal: bool, scale: float, window: Optional[int]):
+def launch_args(q, k, v, out, lse, *, causal: bool, scale: float, window: Optional[int]):
     """The C entry's arguments but the stream, for tensors the wrapper has
-    checked."""
+    checked; ``lse`` None asks for no logsumexp."""
     B, Sq, H, D = q.shape
     _, Skv, K, _ = k.shape
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, K,
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Skv, K,
             H // K, D, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             int(causal), window or 0, scale, _DTYPES[q.dtype])
 
@@ -109,11 +78,9 @@ def chunk_ready(t: torch.Tensor) -> bool:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    global aligned_copies
     if chunk_ready(t):
         return t
-    with _count_guard:
-        aligned_copies += 1
+    _counts.add("aligned_copies")
     return t.clone(memory_format=torch.contiguous_format)
 
 
@@ -129,9 +96,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool, scale: float, window: Optional[int] = None,
                          lse: bool = False):
     """Launch the CUDA kernel; same contract as `flash_attention_ref`.
-    With ``lse`` (bf16 at D 64 or 128 only), the entry that also writes each
+    With ``lse`` (bf16 at D 64 or 128 only), the kernel also writes each
     row's logsumexp: (out, lse (B, H, Sq) fp32 in base 2), the out bit for
-    bit the other entry's."""
+    bit as without."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on the same CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -166,18 +133,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return (out, logsumexp) if lse else out
     if q.dtype == torch.bfloat16:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    args = launch_args(q, k, v, out, causal=causal, scale=scale, window=window)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if lse:
-            fn = _entry("flash_attention_lse_launch", LSE_ARGTYPES)
-            err = fn(*args[:4], logsumexp.data_ptr(), *args[4:], stream)
-        else:
-            fn = _entry()
-            err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed (cudaError {err})")
-    _count_launch()
+    _build.launch(_build.entry(NAME, "flash_attention_launch", ARGTYPES), q.device,
+                  *launch_args(q, k, v, out, logsumexp, causal=causal, scale=scale,
+                               window=window), what="flash_attention launch")
+    _counts.add("launches")
     return (out, logsumexp) if lse else out
 
 
@@ -224,14 +183,10 @@ def flash_attention_grad_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk, dv
-    fn = _entry("attn_grad_launch", GRAD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*grad_args(q, k, v, out, dout, lse, delta, dq, dk, dv, scale=scale,
-                            window=window), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed (cudaError {err})")
-    _count_backward(plain=False)
+    _build.launch(_build.entry(NAME, "attn_grad_launch", GRAD_ARGTYPES), q.device,
+                  *grad_args(q, k, v, out, dout, lse, delta, dq, dk, dv, scale=scale,
+                             window=window), what="flash_attention backward launch")
+    _counts.add("backward_launches")
     return dq, dk, dv
 
 
@@ -244,10 +199,10 @@ class FlashAttention(torch.autograd.Function):
     ``backward`` (the gradient kernels, `flash_attention_grad_cuda`, or a
     twin with their contract) on the saved q, k, v, out and lse; every
     other call's backward is autograd's through `flash_attention_ref`,
-    recomputed from the saved q, k and v, which holds the plain version's
-    (B, K, G, Sq, Skv) fp32 scores and probabilities for one layer at a
-    time.  `attend` gives ``backward`` only where autograd records the
-    call."""
+    recomputed from the saved q, k and v (`_wrap.plain_grad`), which holds
+    the plain version's (B, K, G, Sq, Skv) fp32 scores and probabilities for
+    one layer at a time.  `attend` gives ``backward`` only where autograd
+    records the call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, window: Optional[int],
@@ -264,17 +219,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        if ctx.grad is not None:
-            with span("flash_attention.recompute"):
-                grads = ctx.grad(*ctx.saved_tensors, dout, **ctx.attn)
-            dq, dk, dv = (g if n else None for g, n in zip(grads, ctx.needs_input_grad))
-        else:
-            with torch.enable_grad(), span("flash_attention.recompute"):
-                qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-                out = flash_attention_ref(*qkv, **ctx.attn)
-                dq, dk, dv = torch.autograd.grad(out, qkv, dout)
-            _count_backward(plain=True)
-        return dq, dk, dv, None, None, None, None, None
+        grads = _wrap.function_grads(ctx, "flash_attention.recompute", flash_attention_ref,
+                                     (dout,), **ctx.attn)
+        if ctx.grad is None:
+            _counts.add("backward_plain")
+        return grads
 
 
 def attend(q, k, v, causal: bool, scale: float, window: Optional[int], forward, backward):

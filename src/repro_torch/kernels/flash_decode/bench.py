@@ -29,11 +29,12 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from ...device import h100_peaks
 from .. import _bench, _build
 from . import ops
 from .ref import flash_decode_ref
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+HBM_BYTES_PER_S = h100_peaks().hbm_bytes_per_s  # H100 SXM
 SHAPES = {"dense decode (smollm-135m)": (32, 2176, 9, 3, 64),
           "MoE decode (granite-moe-1b-a400m)": (32, 2176, 16, 8, 64)}
 PROMPT = 2048  # the serving paths' prompt: lengths 2,048-2,175 over the run's 128 steps

@@ -13,50 +13,30 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _wrap
 from .ref import as_lens, flash_decode_ref
 
 NAME = "flash_decode"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID = 65535  # kv heads and batch are the grid's y and z
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke)
-_count_guard = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_guard:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_guard:
-        launches += 1
-
+# kernel launches since the last reset (read by ocpbench's harness and chip_smoke)
+_counts = _wrap.Counts(__name__, "launches")
+reset_launches = _counts.reset
+__getattr__ = _counts.get
 
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
 # q, k, v, lens, out, part_o, part_m, part_l; B, S, K, G, D, 10 strides,
 # nsplit; scale; dtype; stream
 ARGTYPES = [ctypes.c_void_p] * 8 + [_I64] * 16 + [ctypes.c_float, _I64, ctypes.c_void_p]
-
-
-def _entry():
-    fn = _build.library(NAME).flash_decode_launch
-    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# D, G, dtype; out (positions a stage, stages, shared memory)
+STAGES_ARGTYPES = [_I64, _I64, _I64, ctypes.POINTER(_I64)]
 
 
 def launch_args(q, k_cache, v_cache, lens, out, nsplit: int, scale: float, parts=(None,) * 3):
@@ -127,13 +107,9 @@ def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> SplitPlan:
 def kernel_stages(D: int, G: int, dtype: torch.dtype) -> Tuple[int, int, int]:
     """What the built kernel reports for (D, G, dtype): (positions a stage,
     stages, shared memory of a block), to hold `stage_plan` to."""
-    fn = _build.library(NAME).flash_decode_stages
-    fn.argtypes = [_I64, _I64, _I64, ctypes.POINTER(_I64)]
-    fn.restype = ctypes.c_int
     out = (_I64 * 3)()
-    err = fn(D, G, _DTYPES[dtype], out)
-    if err != 0:
-        raise RuntimeError(f"flash_decode_stages failed (cudaError {err})")
+    fn = _build.entry(NAME, "flash_decode_stages", STAGES_ARGTYPES)
+    _build.check(fn(D, G, _DTYPES[dtype], out), "flash_decode_stages")
     return tuple(out)
 
 
@@ -181,13 +157,10 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*launch_args(q, k_cache, v_cache, lens, out, nsplit, scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode launch failed (cudaError {err})")
-    _count_launch()
+    _build.launch(_build.entry(NAME, "flash_decode_launch", ARGTYPES), dev,
+                  *launch_args(q, k_cache, v_cache, lens, out, nsplit, scale),
+                  what="flash_decode launch")
+    _counts.add("launches")
     return out
 
 

@@ -43,12 +43,13 @@ import sys
 import torch
 
 from ...configs import get_config
+from ...device import h100_peaks
 from ...models.moe import capacity
-from .. import _bench, _build
+from .. import _bench, _build, _wrap
 from . import ops, ref
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = h100_peaks().hbm_bytes_per_s  # H100 SXM
+BF16_FLOPS = h100_peaks().bf16_flops
 
 
 def _bind(lib: pathlib.Path):
@@ -127,10 +128,10 @@ def backward(dev) -> None:
             f"{n} {gap(g, w)}" for n, g, w in zip(("dx", "dWg", "dWu", "dWd"), got, want)),
             flush=True)
         del got, want
-        need = (True,) * 4
+        need = (True,) * 4 + (False,)
         for name, fn in (("kernel", lambda: ops.moe_gemm_grad_cuda(*args)),
-                         ("plain recompute", lambda: ops._plain_grad(
-                             [x, wg, wu, wd], counts, dy, need))):
+                         ("plain recompute", lambda: _wrap.plain_grad(
+                             ref.moe_gemm_ref, args[:5], need, (dy,)))):
             ms = _bench.event_ms(fn, reps=5 if name != "kernel" else 25)
             print(f"backward cf {cf} {name}: {ms:.4f} ms at E {E}, C {C}, d {d}, f {f}, "
                   f"{rows} live rows; bound {bound:.4f} ms by operations "

@@ -14,24 +14,22 @@ On the card the kernel runs inside `MoeGemm`, an autograd Function: its
 forward is the kernel.  Its backward, for bf16 tensors, is the backward
 kernel (``kernel.cu``'s `moe_gemm_grad_launch`, through `moe_gemm_grad_cuda`:
 the gradient over the live rows only, on the tensor cores, held to
-`moe_gemm_grad_ref`); for fp32 tensors it recomputes the product through
-the plain version and differentiates that, as the FMA forward's twin.
-`backward_launches` and `backward_plain` count the backward calls that
-took each route.  The JAX package has no backward kernel (its MoE
-differentiates three einsums).
+`moe_gemm_grad_ref`; `grad_kernel_takes`); for fp32 tensors it recomputes
+the product through the plain version and differentiates that
+(`_wrap.plain_grad`), as the FMA forward's twin.  `backward_launches` and
+`backward_plain` count the backward calls that took each route.  The JAX
+package has no backward kernel (its MoE differentiates three einsums).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
-from ...obs.trace import span
-from .. import _build
+from .. import _build, _wrap
 from .ref import moe_gemm_ref
 
 NAME = "moe_gemm"
@@ -72,63 +70,36 @@ def grid_plan(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> Plan:
     return Plan(body, Phase("gate_up", rows, c1, (-(-f // c1), rt, E)),
                 Phase("down", rows, c2, (-(-d // c2), rt, E)))
 
-launches = 0  # forward kernel launches since the last reset (read by chip_smoke)
-backward_launches = 0  # backward calls that took the backward kernel
-backward_plain = 0  # backward calls that took the plain recompute
-_count_guard = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches, backward_launches, backward_plain
-    with _count_guard:
-        launches = backward_launches = backward_plain = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_guard:
-        launches += 1
-
-
-def _count_backward(plain: bool) -> None:
-    global backward_launches, backward_plain
-    with _count_guard:
-        if plain:
-            backward_plain += 1
-        else:
-            backward_launches += 1
-
+# forward kernel launches, and backward calls that took the backward kernel
+# or the plain recompute, since the last reset (read by ocpbench's harness
+# and chip_smoke)
+_counts = _wrap.Counts(__name__, "launches", "backward_launches", "backward_plain")
+reset_launches = _counts.reset
+__getattr__ = _counts.get
 
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, w_gate, w_up, w_down, counts, h, y; E, C, d, f; dtype; stream
 ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 4 + [_I64, ctypes.c_void_p]
-
-
 # x, w_gate, w_up, w_down, counts, dy, scratch, dx, dw_gate, dw_up, dw_down;
 # E, C, d, f; stream
 GRAD_ARGTYPES = [ctypes.c_void_p] * 11 + [_I64] * 4 + [ctypes.c_void_p]
-
-
-def _entry(name: str = "moe_gemm_launch", argtypes=ARGTYPES):
-    fn = getattr(_build.library(NAME), name)
-    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+# dtype, d; out (body, phase-1 rows, columns, phase-2 rows, columns)
+TILES_ARGTYPES = [_I64, _I64, ctypes.POINTER(_I64)]
 
 
 def kernel_tiles(dtype: torch.dtype, d: int) -> Tuple[str, int, int, int, int]:
     """What the built kernel reports for this dtype and d: (body, phase-1
     rows, columns, phase-2 rows, columns), to hold `grid_plan` to."""
-    fn = _build.library(NAME).moe_gemm_tiles
-    fn.argtypes = [_I64, _I64, ctypes.POINTER(_I64)]
-    fn.restype = ctypes.c_int
     out = (_I64 * 5)()
-    err = fn(_DTYPES[dtype], d, out)
-    if err != 0:
-        raise RuntimeError(f"moe_gemm_tiles failed (cudaError {err})")
+    fn = _build.entry(NAME, "moe_gemm_tiles", TILES_ARGTYPES)
+    _build.check(fn(_DTYPES[dtype], d, out), "moe_gemm_tiles")
     return ("fma", "wgmma")[out[0]], *out[1:]
+
+
+def grad_kernel_takes(x: torch.Tensor) -> bool:
+    """Whether the backward kernel covers a call on these tensors: bf16."""
+    return x.dtype == torch.bfloat16
 
 
 def _check(x, w_gate, w_up, w_down, counts) -> None:
@@ -171,15 +142,11 @@ def moe_gemm_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     f = w_gate.shape[-1]
     h = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-                 counts.data_ptr(), h.data_ptr(), y.data_ptr(), E, C, d, f,
-                 _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"moe_gemm launch failed (cudaError {err})")
-    _count_launch()
+    _build.launch(_build.entry(NAME, "moe_gemm_launch", ARGTYPES), x.device,
+                  x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                  counts.data_ptr(), h.data_ptr(), y.data_ptr(), E, C, d, f,
+                  _DTYPES[x.dtype], what="moe_gemm launch")
+    _counts.add("launches")
     return y
 
 
@@ -201,56 +168,38 @@ def moe_gemm_grad_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
     scratch = torch.empty((5, E, C, f), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     dwg, dwu, dwd = (torch.empty_like(w) for w in (w_gate, w_up, w_down))
-    fn = _entry("moe_gemm_grad_launch", GRAD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-                 counts.data_ptr(), dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
-                 dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), E, C, d, f, stream)
-    if err != 0:
-        raise RuntimeError(f"moe_gemm backward launch failed (cudaError {err})")
-    _count_backward(plain=False)
+    _build.launch(_build.entry(NAME, "moe_gemm_grad_launch", GRAD_ARGTYPES), x.device,
+                  x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                  counts.data_ptr(), dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+                  dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), E, C, d, f,
+                  what="moe_gemm backward launch")
+    _counts.add("backward_launches")
     return dx, dwg, dwu, dwd
 
 
 class MoeGemm(torch.autograd.Function):
     """The expert GEMM whose forward is ``forward`` (the CUDA kernel; the
     tests pass the plain version to reach the wiring on the CPU) and whose
-    backward, inside the span ``moe_gemm.recompute``, follows the tensors'
-    dtype: bf16 takes ``backward`` where one is given (the backward kernel,
-    `moe_gemm_grad_cuda`, or a twin with its contract), and every other
-    call autograd's through `moe_gemm_ref`, recomputed from the saved x and
-    weights.  Rows at or past ``counts[e]`` get zero gradient; ``counts``
-    gets none."""
+    backward, inside the span ``moe_gemm.recompute``, is chosen at
+    forward: where ``backward`` is given and `grad_kernel_takes` the tensors
+    (bf16), ``backward`` (the backward kernel, `moe_gemm_grad_cuda`, or a
+    twin with its contract) on the saved tensors and dy; every other call
+    autograd's through `moe_gemm_ref`, recomputed from the saved x and
+    weights (`_wrap.plain_grad`).  Rows at or past ``counts[e]`` get zero
+    gradient; ``counts`` gets none."""
 
     @staticmethod
     def forward(ctx, x, w_gate, w_up, w_down, counts, forward, backward=None):
         ctx.save_for_backward(x, w_gate, w_up, w_down, counts)
-        ctx.grad = backward
+        ctx.grad = backward if backward is not None and grad_kernel_takes(x) else None
         return forward(x, w_gate, w_up, w_down, counts)
 
     @staticmethod
     def backward(ctx, dy):
-        need = ctx.needs_input_grad
-        with span("moe_gemm.recompute"):
-            *ins, counts = ctx.saved_tensors
-            if ctx.grad is not None and ins[0].dtype == torch.bfloat16:
-                grads = [g if n else None
-                         for g, n in zip(ctx.grad(*ins, counts, dy), need)]
-            else:
-                grads = _plain_grad(ins, counts, dy, need)
-                _count_backward(plain=True)
-        return (*grads, *(None,) * (len(need) - 4))
-
-
-def _plain_grad(ins, counts, dy, need):
-    """Autograd's gradient through `moe_gemm_ref`, for the inputs in ``need``."""
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
-        y = moe_gemm_ref(*ins, counts)
-        wanted = [t for t in ins if t.requires_grad]
-        got = iter(torch.autograd.grad(y, wanted, dy))
-    return [next(got) if t.requires_grad else None for t in ins]
+        grads = _wrap.function_grads(ctx, "moe_gemm.recompute", moe_gemm_ref, (dy,))
+        if ctx.grad is None:
+            _counts.add("backward_plain")
+        return grads
 
 
 def moe_gemm(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -19,9 +19,10 @@ and Hilbert walks have clamped cells), in bf16 and fp32, at blocks 128 x
 - the plain version (``ref.py``: the fp32 product rounded to the dtype)
   and ``torch.matmul`` in the working dtype (a yardstick the port never
   calls), the same way;
-- the bound: 2 M N K operations at 989 TFLOP/s (bf16 tensor cores) or 67
-  TFLOP/s (fp32 on the CUDA cores: TF32 would change the function), or the
-  operands and result once at 3.35 TB/s, whichever is longer;
+- the bound: 2 M N K operations at the H100 SXM's bf16 tensor rate or
+  its fp32 rate on the CUDA cores (TF32 would change the function), or the
+  operands and result once at its memory rate (`device.h100_peaks`),
+  whichever is longer;
 - the orders' outputs bit-identical and within tolerance of the plain
   version (`rel_tol`: the JAX test's, grown with K past its K 512 in
   fp32), and a traced call per order (each tile once; the
@@ -41,13 +42,13 @@ import sys
 
 import torch
 
-from ...device import resolve_device
+from ...device import h100_peaks, resolve_device
 from .. import _bench, _build
 from . import ops
 from .ref import morton_matmul_ref
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = h100_peaks().hbm_bytes_per_s  # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: h100_peaks().bf16_flops, torch.float32: h100_peaks().fp32_flops}
 SHAPES = [(8192, 8192, 8192), (6000, 10000, 4000)]
 BLOCKS = [(128, 128, 64), (256, 256, 256)]
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
@@ -30,41 +29,24 @@ import numpy as np
 import torch
 
 from ...core import morton
-from .. import _build
+from .. import _build, _wrap
 from .ref import morton_matmul_ref
 
 NAME = "morton_matmul"
 ORDERS = ("morton", "hilbert", "rowmajor")
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke)
-padded_copies = 0  # bf16 operands copied for TMA since the last reset
-_count_guard = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches, padded_copies
-    with _count_guard:
-        launches = padded_copies = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_guard:
-        launches += 1
-
+# kernel launches and bf16 operands copied for TMA since the last reset
+# (read by ocpbench's harness and chip_smoke)
+_counts = _wrap.Counts(__name__, "launches", "padded_copies")
+reset_launches = _counts.reset
+__getattr__ = _counts.get
 
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # a, b, out, tiles, trace; M, N, K, bm, bn, bk, n_tiles; dtype; stream
 ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 7 + [_I64, ctypes.c_void_p]
-
-
-def _entry():
-    fn = _build.library(NAME).morton_matmul_launch
-    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# dtype; out (blocks an SM)
+BLOCKS_ARGTYPES = [_I64, ctypes.POINTER(ctypes.c_int)]
 
 
 # ------------------------------------------------------------ tile grid ----
@@ -217,13 +199,11 @@ def tma_copy(t: torch.Tensor) -> torch.Tensor:
     """A fresh (aligned) copy of matrix ``t`` whose rows are padded with
     zeros to a multiple of 16 bytes: the layout the kernel's bf16 body
     reads (rows of K or N rounded up to a multiple of 8 elements)."""
-    global padded_copies
     per = TMA_ALIGN // t.element_size()
     rows, cols = t.shape
     out = torch.zeros((rows, -(-cols // per) * per), dtype=t.dtype, device=t.device)
     out[:, :cols] = t
-    with _count_guard:
-        padded_copies += 1
+    _counts.add("padded_copies")
     return out
 
 
@@ -257,15 +237,11 @@ def morton_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
         a = a if tma_ready(a) else tma_copy(a)
         b = b if tma_ready(b) else tma_copy(b)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    fn = _entry()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), tiles.data_ptr(),
-                 None if trace is None else trace.data_ptr(), M, N, K, bm, bn, bk,
-                 nm * nn, _DTYPES[a.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"morton_matmul launch failed (cudaError {err})")
-    _count_launch()
+    _build.launch(_build.entry(NAME, "morton_matmul_launch", ARGTYPES), a.device,
+                  a.data_ptr(), b.data_ptr(), out.data_ptr(), tiles.data_ptr(),
+                  None if trace is None else trace.data_ptr(), M, N, K, bm, bn, bk,
+                  nm * nn, _DTYPES[a.dtype], what="morton_matmul launch")
+    _counts.add("launches")
     return out
 
 
@@ -292,11 +268,7 @@ def morton_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
 
 def blocks_per_sm(dtype: torch.dtype) -> int:
     """Blocks of the kernel one SM of the current card holds at once."""
-    fn = _build.library(NAME).morton_matmul_blocks_per_sm
-    fn.argtypes = [_I64, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
-    err = fn(_DTYPES[dtype], ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"morton_matmul occupancy query failed (cudaError {err})")
+    fn = _build.entry(NAME, "morton_matmul_blocks_per_sm", BLOCKS_ARGTYPES)
+    _build.check(fn(_DTYPES[dtype], ctypes.byref(out)), "morton_matmul occupancy query")
     return out.value

@@ -11,20 +11,19 @@ launch (``kernel.cu``'s `ssd_scan_tc_plan` reports the same).
 
 On the card the kernel runs inside `SsdScan`, an autograd Function: its
 forward is the kernel, and its backward recomputes the scan through the
-plain version and differentiates that.  The JAX package has no backward
-kernel either (its training path differentiates the jnp chunked scan).
+plain version and differentiates that (`_wrap.plain_grad`).  The JAX
+package has no backward kernel either (its training path differentiates
+the jnp chunked scan).
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
-from ...obs.trace import span
-from .. import _build
+from .. import _build, _wrap
 from .ref import ssd_scan_ref
 
 NAME = "ssd_scan"
@@ -69,48 +68,28 @@ def tc_plan(B: int, H: int, P: int, N: int) -> TcPlan:
     return TcPlan((H, B), smem, blocks, TC_ROWS // 16)
 
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke)
-_count_guard = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_guard:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_guard:
-        launches += 1
-
+# kernel launches since the last reset (read by ocpbench's harness and chip_smoke)
+_counts = _wrap.Counts(__name__, "launches")
+reset_launches = _counts.reset
+__getattr__ = _counts.get
 
 _I64 = ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, dt, A, B, C, y, state; B, S, H, P, N, Q; the strides of x, dt, B, C;
 # dtype; stream
 ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 6 + [_I64] * 10 + [_I64, ctypes.c_void_p]
-
-
-def _entry():
-    fn = _build.library(NAME).ssd_scan_launch
-    if fn.argtypes is None:  # untyped ctypes would cut pointers to 32 bits
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# P, N; out (shared memory, blocks an SM by the launch bounds and by the
+# occupancy calculator, warps)
+PLAN_ARGTYPES = [_I64, _I64, ctypes.POINTER(_I64)]
 
 
 def kernel_tc_plan(P: int, N: int) -> Tuple[int, int, int, int]:
     """What the built kernel reports for its bf16 body at P and N:
     (shared-memory bytes a block, blocks an SM by its launch bounds, blocks
     an SM by CUDA's occupancy calculator, warps a block)."""
-    fn = _build.library(NAME).ssd_scan_tc_plan
-    fn.argtypes = [_I64, _I64, ctypes.POINTER(_I64)]
-    fn.restype = ctypes.c_int
     out = (_I64 * 4)()
-    err = fn(P, N, out)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan_tc_plan failed (cudaError {err})")
+    fn = _build.entry(NAME, "ssd_scan_tc_plan", PLAN_ARGTYPES)
+    _build.check(fn(P, N, out), "ssd_scan_tc_plan")
     return tuple(out)
 
 
@@ -159,17 +138,14 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     N = B.shape[-1]
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N,
-                 min(chunk, S), x.stride(0), x.stride(1), x.stride(2),
-                 dt.stride(0), dt.stride(1), dt.stride(2), B.stride(0),
-                 B.stride(1), C.stride(0), C.stride(1), _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed (cudaError {err})")
-    _count_launch()
+    _build.launch(_build.entry(NAME, "ssd_scan_launch", ARGTYPES), x.device,
+                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                  C.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N,
+                  min(chunk, S), x.stride(0), x.stride(1), x.stride(2),
+                  dt.stride(0), dt.stride(1), dt.stride(2), B.stride(0),
+                  B.stride(1), C.stride(0), C.stride(1), _DTYPES[x.dtype],
+                  what="ssd_scan launch")
+    _counts.add("launches")
     return y, state
 
 
@@ -177,7 +153,8 @@ class SsdScan(torch.autograd.Function):
     """The scan whose forward is ``forward`` (the CUDA kernel; the tests
     pass the plain version to reach the wiring on the CPU) and whose
     backward is autograd's through `ssd_scan_ref`, recomputed from the
-    saved x, dt, A, B and C (the span ``ssd_scan.recompute``).
+    saved x, dt, A, B and C (`_wrap.plain_grad`, in the span
+    ``ssd_scan.recompute``).
     x, B and C may be strided views of one tensor (the mixer's conv
     output): they are saved as they are, and autograd adds the three
     gradients into that tensor's.  The final state's cotangent is None
@@ -192,15 +169,8 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        with torch.enable_grad(), span("ssd_scan.recompute"):
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            y, state = ssd_scan_ref(*ins, chunk=ctx.chunk)
-            outs, cots = zip(*[(o, g) for o, g in ((y, dy), (state, dstate))
-                               if g is not None])
-            wanted = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(outs, wanted, cots))
-        return (*(next(got) if t.requires_grad else None for t in ins), None, None)
+        return _wrap.function_grads(ctx, "ssd_scan.recompute", ssd_scan_ref, (dy, dstate),
+                                    chunk=ctx.chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

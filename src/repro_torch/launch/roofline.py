@@ -34,8 +34,9 @@ DTensor's ops reach the counter as the local ops on this rank's shards):
   over the step on fake tensors, the step's inputs included (XLA's
   ``memory_analysis``: arguments + temporaries + outputs - aliases).
 
-Hardware: NVIDIA's H100 SXM data sheet: 989e12 dense bf16 FLOP/s, 3.35e12
-B/s of HBM3, and NVLink 4 at 900 GB/s a GPU, both directions together.
+Hardware: NVIDIA's H100 SXM data sheet: its dense bf16 rate and HBM3's
+bytes a second (`repro_torch.device.h100_peaks`), and NVLink 4 at 900 GB/s
+a GPU, both directions together.
 ``LINK_BW`` takes one direction, 450e9 B/s: a collective's result bytes
 arrive at the device over its links in one direction while it sends as
 many out the other.  The production meshes (256 and 512 devices) are
@@ -53,11 +54,12 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..device import h100_peaks
 from ..models import spmd
 
 # hardware constants (per device), NVIDIA H100 SXM data sheet
-PEAK_FLOPS = 989e12          # dense bf16 tensor FLOP/s
-HBM_BW = 3.35e12             # bytes/s
+PEAK_FLOPS = h100_peaks().bf16_flops      # dense bf16 tensor FLOP/s
+HBM_BW = h100_peaks().hbm_bytes_per_s     # bytes/s
 NVLINK_BW = 900e9            # bytes/s a GPU, NVLink 4, both directions
 LINK_BW = NVLINK_BW / 2      # bytes/s a direction
 

@@ -235,100 +235,122 @@ def test_attention_kernel_sources_have_a_c_entry(name):
     assert f'extern "C" int {name}_launch(' in src
 
 
-def test_ssd_scan_binding_matches_its_c_entry():
-    """The ctypes argument list declares as many arguments as the C entry
-    point takes, and the wrapper passes that many."""
-    import inspect
-    import re
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import ops
-
-    src = _build.source_of("ssd_scan").read_text()
-    params = re.search(r'extern "C" int ssd_scan_launch\(([^)]*)\)', src).group(1)
-    assert len(params.split(",")) == len(ops.ARGTYPES)
-    tree = ast.parse(inspect.getsource(ops.ssd_scan_cuda))
-    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Name) and n.func.id == "fn"]
-    assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
-
-
-def _binding_matches(kernel, entry, argtypes, wrapper):
-    import inspect
-    import re
-
-    from repro_torch.kernels import _build
-
-    src = _build.source_of(kernel).read_text()
-    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
-    assert len(params.split(",")) == len(argtypes)
-    tree = ast.parse(inspect.getsource(wrapper))
-    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Name) and n.func.id == "fn"]
-    assert [len(c.args) for c in calls] == [len(argtypes)]
+# every C entry of the kernels: (kernel, entry, the ops function that calls it)
+C_ENTRIES = [
+    ("cutout_gather", "cutout_gather_launch", "cutout_gather_cuda"),
+    ("flash_attention", "flash_attention_launch", "flash_attention_cuda"),
+    ("flash_attention", "attn_grad_launch", "flash_attention_grad_cuda"),
+    ("flash_decode", "flash_decode_launch", "flash_decode_cuda"),
+    ("flash_decode", "flash_decode_stages", "kernel_stages"),
+    ("moe_gemm", "moe_gemm_launch", "moe_gemm_cuda"),
+    ("moe_gemm", "moe_gemm_grad_launch", "moe_gemm_grad_cuda"),
+    ("moe_gemm", "moe_gemm_tiles", "kernel_tiles"),
+    ("morton_matmul", "morton_matmul_launch", "morton_matmul_cuda"),
+    ("morton_matmul", "morton_matmul_blocks_per_sm", "blocks_per_sm"),
+    ("ssd_scan", "ssd_scan_launch", "ssd_scan_cuda"),
+    ("ssd_scan", "ssd_scan_tc_plan", "kernel_tc_plan"),
+]
 
 
-def test_moe_gemm_binding_matches_its_c_entry():
-    """The ctypes argument list declares as many arguments as the C entry
-    point takes, and the wrapper passes that many."""
-    from repro_torch.kernels.moe_gemm import ops
-
-    _binding_matches("moe_gemm", "moe_gemm_launch", ops.ARGTYPES, ops.moe_gemm_cuda)
-
-
-def test_moe_gemm_grad_binding_matches_its_c_entry():
-    """The same for the backward's entry point and its wrapper."""
-    from repro_torch.kernels.moe_gemm import ops
-
-    _binding_matches("moe_gemm", "moe_gemm_grad_launch", ops.GRAD_ARGTYPES,
-                     ops.moe_gemm_grad_cuda)
-
-
-@pytest.mark.parametrize("entry,argtypes", [
-    ("flash_attention_launch", "ARGTYPES"), ("flash_attention_lse_launch", "LSE_ARGTYPES"),
-    ("attn_grad_launch", "GRAD_ARGTYPES")])
-def test_flash_attention_bindings_match_their_c_entries(entry, argtypes):
-    """Each of `flash_attention`'s ctypes argument lists declares as many
-    arguments as its C entry point takes, and the wrapper's argument tuple
-    (built here from CPU tensors) fills all of them but the stream."""
-    import re
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops
-
-    src = _build.source_of("flash_attention").read_text()
-    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
-    types = getattr(ops, argtypes)
-    assert len(params.split(",")) == len(types)
-    q, out, dout, dq = (torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16) for _ in range(4))
-    k, v, dk, dv = (torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16) for _ in range(4))
-    lse, delta = torch.zeros(2, 4, 16), torch.zeros(2, 4, 16)
-    if entry == "attn_grad_launch":
+def _starred_args(ops, name):
+    """The tuple of argument function ``name`` (the wrapper passes it
+    starred), made here from CPU tensors, with the values it must carry."""
+    if name == "grad_args":  # flash_attention's gradient
+        q, out, dout, dq = (torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16) for _ in range(4))
+        k, v, dk, dv = (torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16) for _ in range(4))
+        lse, delta = torch.zeros(2, 4, 16), torch.zeros(2, 4, 16)
         args = ops.grad_args(q, k, v, out, dout, lse, delta, dq, dk, dv, scale=0.125, window=8)
         assert args[10:15] == (2, 16, 2, 2, 64) and args[-2:] == (8, 0.125)
-    else:
-        args = ops.launch_args(q, k, v, out, causal=True, scale=0.125, window=None)
-        args = args[:4] + (lse.data_ptr(),) + args[4:] if entry != "flash_attention_launch" \
-            else args
-    assert len(args) == len(types) - 1
+    elif ops.NAME == "flash_attention":
+        q, out = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16), torch.zeros(2, 16, 4, 64)
+        k = torch.zeros(2, 16, 2, 64, dtype=torch.bfloat16)
+        lse = torch.zeros(2, 4, 16)
+        args = ops.launch_args(q, k, k, out, lse, causal=True, scale=0.125, window=None)
+        assert args[4] == lse.data_ptr() and args[5:11] == (2, 16, 16, 2, 2, 64)
+        plain = ops.launch_args(q, k, k, out, None, causal=True, scale=0.125, window=None)
+        assert plain[4] is None and plain[5:] == args[5:]
+    else:  # flash_decode's launch
+        q, kc = torch.zeros(2, 1, 4, 64), torch.zeros(2, 32, 2, 64)
+        lens = torch.ones(2, dtype=torch.int32)
+        args = ops.launch_args(q, kc, kc, lens, torch.zeros_like(q), 2, 0.125)
+        assert args[8:13] == (2, 32, 2, 2, 64) and args[-3:] == (2, 0.125, 0)
+    return args
 
 
-def test_morton_matmul_binding_matches_its_c_entry():
-    """The ctypes argument list declares as many arguments as the C entry
-    point takes, and the wrapper passes that many."""
+def _entry_call(ops, wrapper, entry):
+    """(argtypes, the arguments ``wrapper`` passes C entry ``entry``, whether
+    it adds the stream): the entry is bound once with `_build.entry` and
+    called through `_build.launch` (a kernel, which adds the current stream)
+    or directly (a query)."""
     import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(getattr(ops, wrapper))))
+
+    def build_call(node, name):
+        return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == name and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "_build")
+
+    (bind,) = [n for n in ast.walk(tree) if build_call(n, "entry")
+               and isinstance(n.args[1], ast.Constant) and n.args[1].value == entry]
+    names = {t.id for n in ast.walk(tree) if isinstance(n, ast.Assign) and n.value is bind
+             for t in n.targets}
+
+    def is_fn(node):
+        return node is bind or (isinstance(node, ast.Name) and node.id in names)
+
+    calls = ([(n.args[2:], True) for n in ast.walk(tree)
+              if build_call(n, "launch") and is_fn(n.args[0])]
+             + [(n.args, False) for n in ast.walk(tree)
+                if isinstance(n, ast.Call) and is_fn(n.func)])
+    ((args, stream),) = calls
+    passed = 0
+    for a in args:
+        if isinstance(a, ast.Starred):
+            passed += len(_starred_args(ops, a.value.func.id))
+        else:
+            passed += 1
+    return getattr(ops, bind.args[2].id), passed, stream
+
+
+def test_every_c_entry_has_a_binding_case():
     import re
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.morton_matmul import ops
 
-    src = _build.source_of("morton_matmul").read_text()
-    params = re.search(r'extern "C" int morton_matmul_launch\(([^)]*)\)', src).group(1)
-    assert len(params.split(",")) == len(ops.ARGTYPES)
-    tree = ast.parse(inspect.getsource(ops.morton_matmul_cuda))
-    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Name) and n.func.id == "fn"]
-    assert [len(c.args) for c in calls] == [len(ops.ARGTYPES)]
+    entries = {e for src in _build.KERNELS_DIR.glob("*/kernel.cu")
+               for e in re.findall(r'extern "C" int (\w+)\(', src.read_text())}
+    assert entries == {e for _, e, _ in C_ENTRIES}
+
+
+@pytest.mark.parametrize("kernel,entry,wrapper", C_ENTRIES, ids=[e for _, e, _ in C_ENTRIES])
+def test_binding_matches_its_c_entry(kernel, entry, wrapper):
+    """The ctypes argument list declares each parameter of the C entry, a
+    pointer, a 64-bit integer, an int or a float in its place; and the
+    wrapper passes that many arguments, less the stream that
+    `_build.launch` adds."""
+    import ctypes
+    import importlib
+    import re
+
+    from repro_torch.kernels import _build
+
+    ops = importlib.import_module(f"repro_torch.kernels.{kernel}.ops")
+    src = _build.source_of(kernel).read_text()
+    params = [p.strip() for p in
+              re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1).split(",")]
+    argtypes, passed, stream = _entry_call(ops, wrapper, entry)
+    assert len(argtypes) == len(params)
+    for param, t in zip(params, argtypes):
+        if "*" in param:
+            assert t is ctypes.c_void_p or issubclass(t, ctypes._Pointer), (param, t)
+        else:
+            kind = param.split()[0]
+            assert t is {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
+                         "float": ctypes.c_float}[kind], (param, t)
+    assert stream == params[-1].endswith("stream")
+    assert passed == len(params) - stream
 
 
 def test_moe_gemm_wrapper_never_reads_counts_on_the_host():
